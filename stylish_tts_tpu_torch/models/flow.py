@@ -1,0 +1,132 @@
+"""VITS-style normalizing flow: gated WaveNet couplings over the latent,
+transporting (z, mean, logstd) triples, plus the prior encoder.  The
+posterior encoder serves training only and is not ported yet."""
+
+from __future__ import annotations
+
+from typing import Optional, Tuple
+
+import torch
+from torch import nn
+
+from .norms import Conv1d
+
+FlowTriple = Tuple[torch.Tensor, torch.Tensor, torch.Tensor]
+
+
+class WaveNet(nn.Module):
+    """Non-causal WaveNet with gated tanh/sigmoid units and global style
+    conditioning.  No caller masks it or dilates it (the JAX package's
+    mask is always None and its dilation rate 1)."""
+
+    def __init__(self, hidden_channels: int, kernel_size: int, n_layers: int,
+                 cond_channels: int = 0):
+        super().__init__()
+        h = hidden_channels
+        self.hidden_channels = h
+        self.n_layers = n_layers
+        self.cond_layer = (nn.Linear(cond_channels, 2 * h * n_layers)
+                           if cond_channels else None)
+        for i in range(n_layers):
+            setattr(self, f"in_{i}", Conv1d(h, 2 * h, kernel_size))
+            out = 2 * h if i < n_layers - 1 else h
+            setattr(self, f"res_skip_{i}", nn.Linear(h, out))
+
+    def forward(self, x: torch.Tensor,
+                cond: Optional[torch.Tensor] = None) -> torch.Tensor:
+        h = self.hidden_channels
+        output = torch.zeros_like(x)
+        if cond is not None:
+            g_all = self.cond_layer(cond)
+        for i in range(self.n_layers):
+            x_in = getattr(self, f"in_{i}")(x)
+            if cond is not None:
+                x_in = x_in + g_all[:, None, 2 * h * i : 2 * h * (i + 1)]
+            acts = torch.tanh(x_in[..., :h]) * torch.sigmoid(x_in[..., h:])
+            res_skip = getattr(self, f"res_skip_{i}")(acts)
+            if i < self.n_layers - 1:
+                x = x + res_skip[..., :h]
+                output = output + res_skip[..., h:]
+            else:
+                output = output + res_skip
+        return output
+
+
+class ResidualCouplingLayer(nn.Module):
+    """One affine coupling transporting (z, mean, logstd) halves, in the
+    inverse direction (prior -> mel latent) that synthesis runs."""
+
+    def __init__(self, half_channels: int, hidden_channels: int,
+                 kernel_size: int, n_layers: int, cond_channels: int = 0):
+        super().__init__()
+        self.pre = nn.Linear(half_channels, hidden_channels)
+        self.enc = WaveNet(hidden_channels, kernel_size, n_layers,
+                           cond_channels=cond_channels)
+        self.proj_mean = nn.Linear(hidden_channels, half_channels)
+        self.proj_logstd = nn.Linear(hidden_channels, half_channels)
+
+    def forward(self, zs, means, logstds, cond=None):
+        z0, z1 = zs
+        mean0, mean1 = means
+        logstd0, logstd1 = logstds
+        h = self.enc(self.pre(z0), cond=cond)
+        mean_flow = self.proj_mean(h)
+        logstd_flow = self.proj_logstd(h)
+        scale = torch.exp(-logstd_flow)
+        z1 = (z1 - mean_flow) * scale
+        mean1 = (mean1 - mean_flow) * scale
+        logstd1 = logstd1 - logstd_flow
+        return (z0, z1), (mean0, mean1), (logstd0, logstd1)
+
+
+def _flip(pair):
+    a, b = pair
+    return (b, a)
+
+
+class ResidualCouplingBlock(nn.Module):
+    """n_flows × (coupling + flip), run in the inverse direction: the
+    flows in reverse order, each preceded by its flip (the JAX package's
+    ``reverse=True``).  The forward direction serves training only."""
+
+    def __init__(self, channels: int, hidden_channels: int,
+                 kernel_size: int = 5, n_layers: int = 4, n_flows: int = 8,
+                 cond_channels: int = 0):
+        super().__init__()
+        self.half = channels // 2
+        self.n_flows = n_flows
+        for i in range(n_flows):
+            setattr(self, f"flow_{i}", ResidualCouplingLayer(
+                self.half, hidden_channels, kernel_size, n_layers,
+                cond_channels=cond_channels))
+
+    def forward(self, z, mean, logstd, cond=None) -> FlowTriple:
+        half = self.half
+        zs = (z[..., :half], z[..., half:])
+        means = (mean[..., :half], mean[..., half:])
+        logstds = (logstd[..., :half], logstd[..., half:])
+        for i in reversed(range(self.n_flows)):
+            zs, means, logstds = _flip(zs), _flip(means), _flip(logstds)
+            zs, means, logstds = getattr(self, f"flow_{i}")(
+                zs, means, logstds, cond)
+        return (torch.cat(zs, -1), torch.cat(means, -1),
+                torch.cat(logstds, -1))
+
+
+class PriorEncoder(nn.Module):
+    """Linear heads producing (z, mean, logstd) from decoder features."""
+
+    def __init__(self, in_channels: int, out_channels: int):
+        super().__init__()
+        self.proj_mean = nn.Linear(in_channels, out_channels)
+        self.proj_logstd = nn.Linear(in_channels, out_channels)
+
+    def forward(self, x: torch.Tensor, *, sample: bool = True,
+                generator: Optional[torch.Generator] = None) -> FlowTriple:
+        mean = self.proj_mean(x)
+        logstd = self.proj_logstd(x)
+        if not sample:
+            return mean, mean, logstd
+        noise = torch.randn(mean.shape, generator=generator,
+                            dtype=mean.dtype, device=mean.device)
+        return mean + noise * torch.exp(logstd), mean, logstd

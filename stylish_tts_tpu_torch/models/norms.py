@@ -1,0 +1,122 @@
+"""Normalisation / conditioning primitives on channels-last [B, T, C].
+
+Submodules and parameters carry the JAX package's flax names, including
+flax's auto-names (``Conv_0`` inside ``Conv1d``, ``AdaptiveInstanceNorm_0/1``
+inside ``AdaptiveDecoderBlock``, ``fc`` inside each adaptive norm), so
+``convert.load_flax_params`` maps weights by name alone.  Inference only:
+there is no dropout.
+"""
+
+from __future__ import annotations
+
+import math
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+
+class ChannelLayerNorm(nn.Module):
+    """LayerNorm over the channel (last) axis with learned gamma/beta,
+    eps 1e-4."""
+
+    def __init__(self, channels: int):
+        super().__init__()
+        self.gamma = nn.Parameter(torch.ones(channels))
+        self.beta = nn.Parameter(torch.zeros(channels))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return F.layer_norm(x, x.shape[-1:], self.gamma, self.beta, 1e-4)
+
+
+class _StyleAffine(nn.Module):
+    """style [B, S] -> (gamma, beta) each [B, 1, C] through ``fc``."""
+
+    def __init__(self, channels: int, style_dim: int):
+        super().__init__()
+        self.fc = nn.Linear(style_dim, 2 * channels)
+
+    def affine(self, style: torch.Tensor):
+        return self.fc(style)[:, None, :].chunk(2, dim=-1)
+
+
+class AdaptiveLayerNorm(_StyleAffine):
+    """LayerNorm without affine + style-predicted (1+γ)·x + β."""
+
+    def __init__(self, channels: int, style_dim: int, eps: float = 1e-5):
+        super().__init__(channels, style_dim)
+        self.eps = eps
+
+    def forward(self, x: torch.Tensor, style: torch.Tensor) -> torch.Tensor:
+        gamma, beta = self.affine(style)
+        x = F.layer_norm(x, x.shape[-1:], eps=self.eps)
+        return (1.0 + gamma) * x + beta
+
+
+class AdaptiveInstanceNorm(_StyleAffine):
+    """Instance norm over time (per sample, per channel, eps 1e-5) + style
+    affine."""
+
+    def forward(self, x: torch.Tensor, style: torch.Tensor) -> torch.Tensor:
+        gamma, beta = self.affine(style)
+        var, mean = torch.var_mean(x, dim=1, keepdim=True, correction=0)
+        x = (x - mean) * torch.rsqrt(var + 1e-5)
+        return (1.0 + gamma) * x + beta
+
+
+class Conv1d(nn.Module):
+    """1-D convolution on [B, T, C] with torch-style symmetric padding
+    (flax ``Conv1d`` wrapper; the conv itself is its ``Conv_0``).  The
+    slice uses stride 1, no dilation and a bias throughout."""
+
+    def __init__(self, in_channels: int, features: int, kernel_size: int,
+                 groups: int = 1):
+        super().__init__()
+        self.Conv_0 = nn.Conv1d(in_channels, features, kernel_size,
+                                padding=(kernel_size - 1) // 2, groups=groups)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return self.Conv_0(x.transpose(1, 2)).transpose(1, 2)
+
+
+class Conv1x1(nn.Module):
+    """A kernel-1 flax ``nn.Conv`` on [B, T, C]: weight [out, in, 1]."""
+
+    def __init__(self, in_channels: int, out_channels: int,
+                 use_bias: bool = True):
+        super().__init__()
+        self.weight = nn.Parameter(torch.empty(out_channels, in_channels, 1))
+        self.bias = (nn.Parameter(torch.zeros(out_channels))
+                     if use_bias else None)
+        nn.init.kaiming_uniform_(self.weight, a=math.sqrt(5))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return F.linear(x, self.weight[:, :, 0], self.bias)
+
+
+class AdaptiveDecoderBlock(nn.Module):
+    """Two-conv residual block with AdaIN conditioning, /√2 output."""
+
+    def __init__(self, dim_in: int, dim_out: int, style_dim: int):
+        super().__init__()
+        self.AdaptiveInstanceNorm_0 = AdaptiveInstanceNorm(dim_in, style_dim)
+        self.conv1 = Conv1d(dim_in, dim_out, 3)
+        self.AdaptiveInstanceNorm_1 = AdaptiveInstanceNorm(dim_out, style_dim)
+        self.conv2 = Conv1d(dim_out, dim_out, 3)
+        self.conv1x1 = (Conv1x1(dim_in, dim_out, use_bias=False)
+                        if dim_in != dim_out else None)
+
+    def forward(self, x: torch.Tensor, style: torch.Tensor) -> torch.Tensor:
+        h = F.leaky_relu(self.AdaptiveInstanceNorm_0(x, style), 0.2)
+        h = self.conv1(h)
+        h = F.leaky_relu(self.AdaptiveInstanceNorm_1(h, style), 0.2)
+        h = self.conv2(h)
+        if self.conv1x1 is not None:
+            x = self.conv1x1(x)
+        return (h + x) / math.sqrt(2.0)
+
+
+def sequence_mask(lengths: torch.Tensor, max_length: int) -> torch.Tensor:
+    """[B] -> bool [B, max_length], True where valid."""
+    positions = torch.arange(max_length, device=lengths.device)
+    return positions[None, :] < lengths[:, None]

@@ -1,0 +1,84 @@
+"""SpeechPredictor, inference branch: text encoder, style encoder, decoder,
+flow prior (reverse direction) and the freegan generator.
+
+The alignment arrives at mel frame rate (hop 300) and is repeated ×4 to the
+generator rate (hop 75); pitch and energy are linearly upsampled ×4.
+"""
+
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+from torch import nn
+
+from ..config import ModelConfig
+from .decoder import Decoder
+from .duration_predictor import text_encoder_for
+from .flow import PriorEncoder, ResidualCouplingBlock
+from .generator import DecoderPrediction, Generator
+from .style_encoders import TextStyleEncoder
+
+
+def upsample_x4_linear(x: torch.Tensor) -> torch.Tensor:
+    """[B, F] -> [B, 4F] linear interpolation matching
+    torch.nn.Upsample(scale_factor=4, mode='linear', align_corners=False)."""
+    f = x.shape[1]
+    pos = (torch.arange(4 * f, dtype=torch.float32, device=x.device) + 0.5) \
+        / 4.0 - 0.5
+    lo = torch.clamp(torch.floor(pos).to(torch.int64), 0, f - 1)
+    hi = torch.clamp(lo + 1, 0, f - 1)
+    w = torch.clamp(pos - lo, 0.0, 1.0).to(x.dtype)
+    return x[:, lo] * (1.0 - w) + x[:, hi] * w
+
+
+class SpeechPredictor(nn.Module):
+    def __init__(self, mc: ModelConfig):
+        super().__init__()
+        if mc.generator.type != "freegan":
+            raise NotImplementedError(
+                f"generator {mc.generator.type!r} is not ported")
+        self.text_encoder = text_encoder_for(mc, mc.inter_dim)
+        self.style_encoder = TextStyleEncoder(
+            mc.inter_dim, mc.style_dim, mc.style_encoder.layers)
+        hidden = mc.decoder.hidden_dim
+        self.decoder = Decoder(mc.inter_dim, hidden, mc.decoder.residual_dim,
+                               mc.style_dim)
+        flow_dim = hidden // 4
+        self.prior_encoder = PriorEncoder(hidden, flow_dim)
+        self.flow = ResidualCouplingBlock(
+            flow_dim, flow_dim, kernel_size=5, n_layers=4, n_flows=8,
+            cond_channels=mc.style_dim)
+        self.post_flow = nn.Linear(flow_dim, hidden)
+        self.generator = Generator(mc)
+
+    def forward(
+        self,
+        tokens: torch.Tensor,        # [B, T]
+        text_lengths: torch.Tensor,  # [B]
+        alignment: torch.Tensor,     # [B, T, F_mel]
+        pitch: torch.Tensor,         # [B, F_mel]
+        energy: torch.Tensor,        # [B, F_mel]
+        *,
+        sample: bool = True,
+        generator: Optional[torch.Generator] = None,
+        pcph_noise: Optional[torch.Tensor] = None,
+        pcph_phase: Optional[torch.Tensor] = None,
+    ) -> DecoderPrediction:
+        text_encoding, _, _ = self.text_encoder(tokens, text_lengths)
+        style = self.style_encoder(text_encoding, text_lengths)
+
+        alignment4 = torch.repeat_interleave(alignment, 4, dim=2)
+        pitch4 = upsample_x4_linear(pitch)
+        energy4 = upsample_x4_linear(energy)
+
+        asr = torch.einsum("btc,btf->bfc", text_encoding, alignment4)
+        x = self.decoder(asr, pitch4, energy4, style)
+        z_text, mean_text, logstd_text = self.prior_encoder(
+            x, sample=sample, generator=generator)
+        z_text2mel, _, _ = self.flow(z_text, mean_text, logstd_text,
+                                     cond=style)
+        mel = self.post_flow(z_text2mel)
+        return self.generator(
+            mel, style, pitch4, generator=generator,
+            pcph_noise=pcph_noise, pcph_phase=pcph_phase)
