@@ -5,8 +5,7 @@
 Phases, in order; any failure raises and the exit code is non-zero:
 
 1. device: the card's name and power limit, CUDA version, and the build of
-   every kernel of the port from ``stylish_tts_tpu_torch/csrc`` (one nvcc
-   per source, all at once);
+   every kernel of the port from ``stylish_tts_tpu_torch/csrc``;
 2. kernel vs plain: each kernel on random f32 input at its shapes, held
    against its plain PyTorch version, with its time, the plain version's,
    a library call's (a yardstick the port never calls) and its bound;
@@ -112,20 +111,25 @@ def stft_numbers(x: torch.Tensor, n_fft: int, hop: int, win: int,
     if not lib_err <= KERNEL_TOL * lib.abs().max().item():
         raise AssertionError(f"stft n_fft={n_fft} hop={hop}: kernel vs "
                              f"torch.stft max err {lib_err:.3e}")
-    ms = time_ms(lambda: stft_forward.launch(x, **kw), flush=flush)
+    ms = time_ms(lambda: stft_forward(x, **kw), flush=flush)
     plain_ms = time_ms(lambda: plain.stft(x, **kw), flush=flush)
     library_ms = time_ms(lambda: torch.stft(
         x, n_fft, hop, n_fft, window, center=True, pad_mode="reflect",
         return_complex=True), flush=flush)
 
-    # the least the card could take: every output is a dot product over
-    # the window's non-zero taps; bytes are the signal and the basis read
-    # once and (real, imag) written once
+    # the least the card could take for this function, whatever the
+    # algorithm: a real FFT of n_fft points per frame, about
+    # 2.5 * n_fft * log2(n_fft) FLOP (half a complex radix-2 FFT's
+    # 5 N log2 N), plus the window's n_fft products; bytes are the signal
+    # and the window read once and (real, imag) written once.  The kernel's
+    # DFT product does 2 * taps * 2F FLOP per frame instead, so it sits far
+    # above this bound by construction.
     b, t = x.shape
-    lo, hi = window_taps(n_fft, win)
     frames, freq = real.shape[1], real.shape[2]
-    flops = 2.0 * b * frames * (hi - lo) * 2 * freq
-    nbytes = 4.0 * (b * t + (hi - lo) * 2 * freq + 2 * b * frames * freq)
+    flops = b * frames * (2.5 * n_fft * np.log2(n_fft) + n_fft)
+    nbytes = 4.0 * (b * t + n_fft + 2 * b * frames * freq)
+    lo, hi = window_taps(n_fft, win)
+    dft_flops = 2.0 * b * frames * (hi - lo) * 2 * freq
     t_ops, t_bytes = flops / PEAK_F32_FLOPS * 1e3, nbytes / PEAK_BYTES * 1e3
     return {
         "shape": [b, t], "n_fft": n_fft, "hop": hop, "win": win,
@@ -133,7 +137,8 @@ def stft_numbers(x: torch.Tensor, n_fft: int, hop: int, win: int,
         "plain_ms": plain_ms,
         "library_ms": library_ms, "bound_ms": max(t_ops, t_bytes),
         "bound_by": "operations" if t_ops >= t_bytes else "bytes",
-        "flops": flops, "bytes": nbytes,
+        "flops": flops, "bytes": nbytes, "dft_flops": dft_flops,
+        "dft_tflops_per_s": dft_flops / ms * 1e-9,
     }
 
 
@@ -268,7 +273,7 @@ def main() -> int:
     from stylish_tts_tpu_torch.config import ModelConfig
     from stylish_tts_tpu_torch.device import resolve_device
     from stylish_tts_tpu_torch.export.infer import Synthesizer, frame_bucket
-    from stylish_tts_tpu_torch.ops.build import build_all, build_log
+    from stylish_tts_tpu_torch.ops.build import build_log, load_library
     from stylish_tts_tpu_torch.ops.stft_kernel import stft_forward
 
     kernels = [stft_forward]
@@ -281,9 +286,8 @@ def main() -> int:
           f"{torch.cuda.get_device_name(0)}")
     device = resolve_device("cuda")
     t0 = time.perf_counter()
-    build_times = build_all(["stft"])
-    print(f"build: {time.perf_counter() - t0:.1f} s "
-          f"({', '.join(f'{k} {v:.1f} s' for k, v in build_times.items())})")
+    load_library("stft")
+    print(f"build: stft {time.perf_counter() - t0:.1f} s")
     for line in build_log("stft").splitlines():
         if "registers" in line or "spill" in line:
             print(f"  ptxas: {line.strip()}")
@@ -300,8 +304,10 @@ def main() -> int:
         print(f"stft n_fft={n_fft} hop={hop} win={win} x={r['shape']}: "
               f"kernel {r['ms']:.3f} ms, plain {r['plain_ms']:.3f} ms, "
               f"torch.stft {r['library_ms']:.3f} ms, bound {r['bound_ms']:.3f}"
-              f" ms ({r['bound_by']}), max err {r['max_abs_err']:.2e} (vs "
-              f"torch.stft {r['err_vs_torch_stft']:.2e}) [{card}]")
+              f" ms ({r['bound_by']}), DFT product at "
+              f"{r['dft_tflops_per_s']:.1f} TFLOP/s, max err "
+              f"{r['max_abs_err']:.2e} (vs torch.stft "
+              f"{r['err_vs_torch_stft']:.2e}) [{card}]")
 
     # 3. the main path at full width
     mc = ModelConfig()
@@ -367,7 +373,9 @@ def main() -> int:
     print(f"stft at the main path's shapes {main['shape']} and "
           f"{record['stft_main_path_single']['shape']}: kernel "
           f"{main['ms']:.3f} ms, plain {main['plain_ms']:.3f} ms, torch.stft "
-          f"{main['library_ms']:.3f} ms, bound {main['bound_ms']:.3f} ms, "
+          f"{main['library_ms']:.3f} ms, bound {main['bound_ms']:.3f} ms "
+          f"({main['bound_by']}), DFT product at "
+          f"{main['dft_tflops_per_s']:.1f} TFLOP/s, "
           f"max err {main['max_abs_err']:.2e} (vs torch.stft "
           f"{main['err_vs_torch_stft']:.2e}) [{card}]")
 

@@ -5,14 +5,18 @@
 // multiply each frame by the windowed DFT basis (cos | -sin columns) with
 // f32 accumulation.  Outputs (real, imag), each [B, frames, n_fft/2+1].
 //
-// What bounds it on the card: operations.  At the synthesis shape (n_fft
-// 2048, hop 75, win 1200) every output is a 1200-tap dot product, so the
-// work is 2*B*frames*1199*2050 FLOP against 4*B*T bytes of signal, a
-// 9.8 MB basis and 8*B*frames*1025 bytes out: about 530 FLOP per byte at
-// B=4 over 10 s, far above the f32-FMA ridge of the H100 SXM (67 TFLOP/s
-// over 3.35 TB/s = 20 FLOP/B).  So the kernel is built to keep the FMA
-// units fed, not to save bytes (an FFT would do far fewer operations; this
-// slice keeps the TPU kernel's DFT-product formulation):
+// What bounds it on the card.  The function itself is bound by bytes: an
+// FFT needs about 2.5*n_fft*log2(n_fft) FLOP per frame, far below the
+// 8*(n_fft/2+1) bytes each frame writes, so writing (real, imag) once at
+// 3.35 TB/s is the least time (0.094 ms for the main path's [8, 348000]).
+// This kernel keeps the TPU kernel's DFT-product formulation instead:
+// 2*1199*2050 FLOP per frame at the synthesis shape (n_fft 2048, hop 75,
+// win 1200), about 530 FLOP per byte at B=4 over 10 s, so the kernel is
+// bound by f32 FMA throughput (67 TFLOP/s on the H100 SXM), and that
+// formulation, not the card, puts it about 60x above the function's bound.
+// A tensor-core DFT (3xTF32 for f32 accuracy) or an FFT written by hand is
+// the way to close that gap.  Within the DFT formulation it is built to
+// keep the FMA units fed:
 //
 //  * one block per (batch, 64-frame tile, 128-column tile).  It stages the
 //    contiguous span of the reflect-padded signal that its frames cover in

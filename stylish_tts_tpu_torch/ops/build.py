@@ -1,10 +1,10 @@
 """Build the port's CUDA sources into plain-C shared libraries.
 
-Each ``csrc/<stem>.cu`` compiles with ``nvcc`` for ``sm_90a`` into
+``csrc/<stem>.cu`` compiles with ``nvcc`` for ``sm_90a`` into
 ``build/lib<stem>-<hash>.so`` inside the package (the hash is the source's,
 so an edited source rebuilds) and is loaded with ``ctypes``.  Nothing is
-built at import: the first launch of a kernel builds its library, and
-``build_all`` builds every source at once, one ``nvcc`` each, in parallel.
+built at import: the first launch of a kernel builds its library.  The
+compiler's register and spill report lands in ``build/<stem>.log``.
 """
 
 from __future__ import annotations
@@ -14,9 +14,8 @@ import hashlib
 import os
 import shutil
 import subprocess
-import time
 from pathlib import Path
-from typing import Dict, Iterable
+from typing import Dict
 
 PACKAGE_DIR = Path(__file__).resolve().parent.parent
 CSRC_DIR = PACKAGE_DIR / "csrc"
@@ -46,52 +45,27 @@ def _target(stem: str) -> Path:
     return BUILD_DIR / f"lib{stem}-{digest.hexdigest()[:12]}.so"
 
 
-def build_all(stems: Iterable[str]) -> Dict[str, float]:
-    """Compile every stale source, all ``nvcc`` processes at once.
-
-    Returns {stem: seconds its build took} (0.0 when already built); the
-    compiler's register/shared-memory report lands in ``build/<stem>.log``.
-    Raises if any build fails."""
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    nvcc = _nvcc()
-    procs = {}
-    times = {}
-    for stem in stems:
-        target = _target(stem)
-        if target.exists():
-            times[stem] = 0.0
-            continue
-        tmp = target.with_suffix(f".{os.getpid()}.tmp")
-        log = open(BUILD_DIR / f"{stem}.log", "w")
-        cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(CSRC_DIR / f"{stem}.cu")]
-        procs[stem] = (subprocess.Popen(cmd, stdout=log,
-                                        stderr=subprocess.STDOUT),
-                       log, tmp, target, time.perf_counter())
-    failed = []
-    for stem, (proc, log, tmp, target, t0) in procs.items():
-        rc = proc.wait()
-        log.close()
-        times[stem] = time.perf_counter() - t0
-        if rc != 0:
-            failed.append(stem)
-            continue
-        os.replace(tmp, target)
-    if failed:
-        logs = "\n".join(
-            (BUILD_DIR / f"{s}.log").read_text()[-4000:] for s in failed
-        )
-        raise RuntimeError(f"nvcc failed for {failed}:\n{logs}")
-    return times
-
-
 def build_log(stem: str) -> str:
     path = BUILD_DIR / f"{stem}.log"
     return path.read_text() if path.exists() else ""
 
 
 def load_library(stem: str) -> ctypes.CDLL:
-    """The loaded library of ``csrc/<stem>.cu``, built first if needed."""
+    """The loaded library of ``csrc/<stem>.cu``, built first if stale.
+    Raises with the compiler's output if the build fails."""
     if stem not in _loaded:
-        build_all([stem])
-        _loaded[stem] = ctypes.CDLL(str(_target(stem)))
+        target = _target(stem)
+        if not target.exists():
+            BUILD_DIR.mkdir(parents=True, exist_ok=True)
+            tmp = target.with_suffix(f".{os.getpid()}.tmp")
+            done = subprocess.run(
+                [_nvcc(), *NVCC_FLAGS, "-o", str(tmp),
+                 str(CSRC_DIR / f"{stem}.cu")],
+                stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+            (BUILD_DIR / f"{stem}.log").write_text(done.stdout)
+            if done.returncode != 0:
+                raise RuntimeError(f"nvcc failed for {stem}:\n"
+                                   f"{done.stdout[-4000:]}")
+            os.replace(tmp, target)
+        _loaded[stem] = ctypes.CDLL(str(target))
     return _loaded[stem]

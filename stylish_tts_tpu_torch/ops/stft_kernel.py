@@ -82,22 +82,12 @@ class StftKernel:
                               win_length=win_length)
         if x.device.type != "cuda":
             raise ValueError(f"stft kernel: unsupported device {x.device}")
-        return self.launch(x, n_fft=n_fft, hop_length=hop_length,
-                           win_length=win_length)
-
-    def launch(self, x: torch.Tensor, *, n_fft: int, hop_length: int,
-               win_length: int) -> Tuple[torch.Tensor, torch.Tensor]:
-        """Run the CUDA kernel on a CUDA tensor (no plain path here)."""
-        if x.device.type != "cuda":
-            raise ValueError(f"stft kernel needs a CUDA tensor, got {x.device}")
         if x.dtype != torch.float32:
             raise TypeError(f"stft kernel takes float32, got {x.dtype}")
         if x.dim() != 2:
             raise ValueError(f"stft kernel takes [B, T], got {tuple(x.shape)}")
         if not x.is_contiguous():
             raise ValueError("stft kernel needs a contiguous input")
-        if x.requires_grad and torch.is_grad_enabled():
-            raise RuntimeError("stft kernel has no gradient; detach the input")
         batch, t = x.shape
         pad = n_fft // 2
         if t <= pad:

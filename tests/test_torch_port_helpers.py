@@ -8,6 +8,7 @@ is, into the port through ``load_flax_params``.
 
 from __future__ import annotations
 
+import functools
 import json
 
 import jax
@@ -49,12 +50,21 @@ def _fill_leaf(name: str, shape, rng: np.random.Generator) -> np.ndarray:
     return 0.1 * normal  # bias, beta
 
 
-def seeded_params(module, *args, seed: int = 0, **kwargs):
-    """Params of ``module`` for ``args``, every leaf drawn from ``seed``."""
+def param_shapes(module, *args, **kwargs):
+    """The shapes of ``module``'s params for ``args`` (traced, not run)."""
     key = jax.random.PRNGKey(0)
     rngs = {"params": key, "sample": key, "dropout": key}
-    shapes = jax.eval_shape(
+    return jax.eval_shape(
         lambda: module.init(rngs, *args, **kwargs))["params"]
+
+
+def seeded_params(module, *args, seed: int = 0, **kwargs):
+    """Params of ``module`` for ``args``, every leaf drawn from ``seed``."""
+    return fill_params(param_shapes(module, *args, **kwargs), seed)
+
+
+def fill_params(shapes, seed: int):
+    """A params tree of ``shapes``, every leaf drawn from ``seed``."""
     rng = np.random.default_rng(seed)
     leaves, treedef = jax.tree_util.tree_flatten_with_path(shapes)
     filled = [
@@ -110,9 +120,20 @@ def well_posed_prior_inputs(pitch: np.ndarray, noise: np.ndarray):
 
 
 def _inference_params(mc, seed=0):
+    shapes = _inference_shapes(mc.model_dump_json())
+    return {k: fill_params(v, seed + i)
+            for i, (k, v) in enumerate(shapes.items())}
+
+
+@functools.lru_cache(maxsize=2)
+def _inference_shapes(mc_json: str):
+    """Param shapes of the five inference models; tracing them is the
+    costly part, so each config is traced once per process."""
+    from stylish_tts_tpu.config import ModelConfig
     from stylish_tts_tpu.models import build_models
     from stylish_tts_tpu.train.init import INIT_F, INIT_T
 
+    mc = ModelConfig.model_validate_json(mc_json)
     b, t, f = 1, INIT_T, INIT_F
     tokens = jnp.zeros((b, t), jnp.int32)
     lengths = jnp.full((b,), t, jnp.int32)
@@ -128,8 +149,7 @@ def _inference_params(mc, seed=0):
                              jnp.ones((b, f)), jnp.zeros((b, f * 300))),
     }
     models = build_models(mc)
-    return {k: seeded_params(models[k], *a, seed=seed + i)
-            for i, (k, a) in enumerate(args.items())}
+    return {k: param_shapes(models[k], *a) for k, a in args.items()}
 
 
 def test_load_flax_params_fills_all_five_inference_models():

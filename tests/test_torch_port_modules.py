@@ -346,6 +346,11 @@ def case_generate_pcph():
 
     rng = np.random.default_rng(33)
     noise = rng.standard_normal((B, 4 * F_MEL * 75)).astype(np.float32)
+    # jit: both pitch cases share one compile (eager JAX compiles each op)
+    upsample = jax.jit(upsample_x4_linear)
+    pcph = jax.jit(functools.partial(
+        J, hop_length=75, sample_rate=24000, noise_amplitude=0.0,
+        random_init_phase=False))
     for name, pitch in (
         # on the exact grid: the phase integrals agree to the ulp
         ("exact", well_posed_prior_inputs(
@@ -354,13 +359,10 @@ def case_generate_pcph():
         ("any", np.where(_rand(B, F_MEL, seed=35) > -1.0,
                          180 + 60 * _rand(B, F_MEL, seed=36), 0.0)),
     ):
-        pitch4 = np.array(upsample_x4_linear(jnp.asarray(
-            pitch.astype(np.float32))))
+        pitch4 = np.array(upsample(jnp.asarray(pitch.astype(np.float32))))
         voiced = (pitch4 > 10.0).astype(np.float32)
-        ref = np.asarray(J(
-            jnp.asarray(pitch4), jnp.asarray(voiced), jax.random.PRNGKey(0),
-            hop_length=75, sample_rate=24000, noise_amplitude=0.0,
-            random_init_phase=False)) + 0.01 * noise
+        ref = np.asarray(pcph(jnp.asarray(pitch4), jnp.asarray(voiced),
+                              jax.random.PRNGKey(0))) + 0.01 * noise
         got = generate_pcph(
             torch.from_numpy(pitch4), torch.from_numpy(voiced),
             hop_length=75, sample_rate=24000, noise=torch.from_numpy(noise),

@@ -101,9 +101,10 @@ def test_wrapper_takes_the_plain_path_on_cpu():
     with pytest.raises(RuntimeError, match="no gradient"):
         stft_forward(x.requires_grad_(), n_fft=n_fft, hop_length=hop,
                      win_length=win)
-    with pytest.raises(ValueError, match="CUDA tensor"):
-        stft_forward.launch(x.detach(), n_fft=n_fft, hop_length=hop,
-                            win_length=win)
+    # neither the CPU nor a card: no plain path, no kernel
+    with pytest.raises(ValueError, match="unsupported device"):
+        stft_forward(x.detach().to("meta"), n_fft=n_fft, hop_length=hop,
+                     win_length=win)
     # the kernel multiplies only the taps where the window is non-zero
     lo, hi = window_taps(n_fft, win)
     basis = pstft.forward_basis(n_fft, win)
