@@ -4,23 +4,36 @@
 
 Phases, in order; any failure raises and the exit code is non-zero:
 
-1. device: the card's name and power limit, CUDA version, and the build of
-   every kernel of the port from ``stylish_tts_tpu_torch/csrc``;
-2. kernel vs plain: each kernel on random f32 input at its shapes, held
-   against its plain PyTorch version, with its time, the plain version's,
-   a library call's (a yardstick the port never calls) and its bound;
-3. main path: ``Synthesizer`` at the default full-width ModelConfig with
+1. device and build: the card's name and power limit, CUDA version, and
+   the build of every kernel source of the port (``csrc/*.cu``, one
+   ``nvcc`` each, started together), with the compiler's register and
+   spill report;
+2. kernels vs plain: the STFT kernel on random f32 input at its shapes, and
+   the MRD's spec-conv forward, dgrad and wgrad kernels at the MRD's real
+   layer shapes (b8 x f460), each held against its plain PyTorch version,
+   with its time, the plain version's, a library call's (a yardstick the
+   port never calls) and its bound;
+3. synthesis: ``Synthesizer`` at the default full-width ModelConfig with
    seeded random weights serves one ``synthesize`` of 80 phonemes and one
-   ``synthesize_batch`` of 8 utterances; every kernel's launch count is set
-   to 0 just before and read just after, and the audio is checked (finite,
-   not silent, exactly total_frames * hop samples); the kernels are held
-   against their plain versions again at the shapes this path gave them,
-   and the full-width model's CPU and card outputs are compared on a short
-   input;
-4. one JSON line of every kernel's numbers, then the result line.
+   ``synthesize_batch`` of 8 utterances; the launch counts are set to 0
+   just before and read just after, and the audio is checked (finite, not
+   silent, exactly total_frames * hop samples); the STFT kernel is held
+   against its plain version at this path's shapes, and the CPU and card
+   outputs of the full-width models are compared on a short input;
+4. training (this slice's main path): the acoustic-stage train state at
+   the full-width ModelConfig and the default Config (bf16 mixed
+   precision, 12-layer frozen SLM from a seed) takes one warm-up step and
+   3 timed steps on one synthetic batch of 8 x 460 mel frames; the launch
+   counts are set to 0 before the timed steps and read after; the metrics
+   are finite, every train model and the MRD moved, the discriminator EMA
+   changed and every kernel launched; then one f32 step at full width on
+   1 x 64 frames runs on the CPU and on the card from the same weights and
+   their metrics are compared;
+5. one JSON line of every kernel's numbers, then the result line.
 
-``--profile`` adds a torch.profiler breakdown of one batch request: device
-time by kernel and the device's busy share of the wall time.
+``--profile`` adds torch.profiler breakdowns of one batch request and of
+one train step: device time by kernel and the device's busy share of the
+wall time.
 
 Numbers beyond the end of the output go to ``chiprun_out/chip_smoke.json``.
 """
@@ -36,13 +49,25 @@ from pathlib import Path
 import numpy as np
 import torch
 
-# H100 SXM peaks (NVIDIA data sheet): f32 outside the tensor cores, HBM3
+# H100 SXM peaks (NVIDIA data sheet): f32 outside the tensor cores, bf16
+# dense on the tensor cores, HBM3
 PEAK_F32_FLOPS = 67e12
+PEAK_BF16_FLOPS = 989e12
 PEAK_BYTES = 3.35e12
 
 STFT_SHAPES = [(2048, 75, 1200), (512, 50, 240), (1024, 120, 600),
                (2048, 240, 1200), (2048, 300, 1200)]
 KERNEL_TOL = 1e-4  # max|kernel - plain| <= KERNEL_TOL * max|plain|
+# the MRD's spec-conv layers at b8 x f460 (138,000 samples): res 0 conv_1
+# (the largest), res 1 conv_1 (an odd width: a partial tile), res 2 conv_4;
+# (label, [B, H, W, 32], kt, stride)
+CONV_SHAPES = [("res0 conv_1", (8, 257, 2761, 32), 9, 2),
+               ("res1 conv_1", (8, 513, 1151, 32), 9, 2),
+               ("res2 conv_4", (8, 1025, 72, 32), 3, 1)]
+# bf16 outputs: one bf16 rounding of f32 sums taken in another order; the
+# f32 weight gradient: sums of millions of bf16 products in another order
+CONV_TOL = {"forward": 1e-2, "dgrad": 1e-2, "wgrad": 1e-3}
+TRAIN_BATCH, TRAIN_FRAMES = 8, 460
 
 
 def card_line() -> str:
@@ -140,6 +165,269 @@ def stft_numbers(x: torch.Tensor, n_fft: int, hop: int, win: int,
         "flops": flops, "bytes": nbytes, "dft_flops": dft_flops,
         "dft_tflops_per_s": dft_flops / ms * 1e-9,
     }
+
+
+# --------------------------------------------------------------------------- #
+# the spec-conv kernels
+
+
+def spec_conv_numbers(shape, kt: int, stride: int, flush: torch.Tensor,
+                      seed: int) -> dict:
+    """Forward, dgrad and wgrad at one MRD layer shape: each kernel held
+    against its plain version and timed beside it, cuDNN's bf16
+    channels-last call and its bound."""
+    import torch.nn.functional as F
+
+    from stylish_tts_tpu_torch.ops import spec_conv as sc
+
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    b, h, w, c = shape
+    w_out = sc.out_width(w, stride)
+
+    def randn(*size, scale=1.0):
+        return (scale * torch.randn(size, generator=gen, device="cuda")
+                ).bfloat16()
+
+    x = randn(b, h, w, c)
+    wt = randn(c, c, 3, kt, scale=(3 * kt * c) ** -0.5)
+    bias = randn(c, scale=0.1)
+    d = randn(b, h, w_out, c)
+    pad = (1, kt // 2)
+    x_cl, d_cl = x.permute(0, 3, 1, 2), d.permute(0, 3, 1, 2)  # NHWC views
+    runs = {
+        "forward": (lambda: sc.spec_conv_forward(x, wt, bias, stride, 0.1),
+                    lambda: sc.forward_plain(x, wt, bias, stride, 0.1),
+                    lambda: F.conv2d(x_cl, wt, bias, stride=(1, stride),
+                                     padding=pad),
+                    2 * (x.numel() + wt.numel() + bias.numel()
+                         + b * h * w_out * c)),
+        "dgrad": (lambda: sc.spec_conv_dgrad(d, wt, w, stride),
+                  lambda: sc.dgrad_plain(d, wt, w, stride),
+                  lambda: torch.nn.grad.conv2d_input(
+                      (b, c, h, w), wt, d_cl, stride=(1, stride),
+                      padding=pad),
+                  2 * (d.numel() + wt.numel() + x.numel())),
+        "wgrad": (lambda: sc.spec_conv_wgrad(x, d, kt, stride),
+                  lambda: sc.wgrad_plain(x, d, kt, stride),
+                  lambda: torch.nn.grad.conv2d_weight(
+                      x_cl, (c, c, 3, kt), d_cl, stride=(1, stride),
+                      padding=pad),
+                  2 * (x.numel() + d.numel()) + 4 * wt.numel()),
+    }
+    flops = 2.0 * b * h * w_out * 3 * kt * c * c
+    out = {}
+    for name, (kernel, plain, library, nbytes) in runs.items():
+        counter = getattr(sc, f"spec_conv_{name}")
+        before = counter.launches
+        got = kernel()
+        if counter.launches != before + 1:
+            raise AssertionError(f"spec_conv_{name}: no kernel launch")
+        want = plain()
+        torch.cuda.synchronize()
+        if got.shape != want.shape:
+            raise AssertionError(f"spec_conv_{name}: {tuple(got.shape)} vs "
+                                 f"{tuple(want.shape)}")
+        err = (got.float() - want.float()).abs().max().item()
+        scale = want.float().abs().max().item()
+        if not err <= CONV_TOL[name] * scale:
+            raise AssertionError(f"spec_conv_{name} {shape}: max err "
+                                 f"{err:.3e} > {CONV_TOL[name]} * {scale:.3e}")
+        t_ops = flops / PEAK_BF16_FLOPS * 1e3
+        t_bytes = nbytes / PEAK_BYTES * 1e3
+        ms = time_ms(kernel, flush=flush)
+        out[name] = {
+            "shape": list(shape), "kt": kt, "stride": stride,
+            "max_abs_err": err, "max_abs_plain": scale, "ms": ms,
+            "plain_ms": time_ms(plain, iters=3, flush=flush),
+            "library_ms": time_ms(library, flush=flush),
+            "bound_ms": max(t_ops, t_bytes),
+            "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+            "flops": flops, "bytes": nbytes,
+            "tflops_per_s": flops / ms * 1e-9,
+        }
+        del got, want
+    return out
+
+
+# --------------------------------------------------------------------------- #
+# the training path
+
+
+def synthetic_batch(mc, batch: int, frames: int, seed: int):
+    """One acoustic batch as numpy arrays: token strings drawn from the
+    inventory, durations summing to ``frames`` with a one-hot alignment,
+    F0 of 80-300 Hz with unvoiced stretches, and ground-truth audio that is
+    a harmonic signal on that F0 plus noise."""
+    from stylish_tts_tpu_torch.text import TextCleaner
+
+    rng = np.random.default_rng(seed)
+    counts = [int(n) for n in rng.integers(frames // 12, frames // 6, batch)]
+    cleaner = TextCleaner(mc.symbol)
+    texts = phoneme_strings(mc.symbol, counts, seed + 1)
+    tokens = np.zeros((batch, max(counts)), np.int64)
+    alignment = np.zeros((batch, max(counts), frames), np.float32)
+    for i, (text, n) in enumerate(zip(texts, counts)):
+        tokens[i, :n] = cleaner(text)
+        cuts = np.sort(rng.choice(np.arange(1, frames), n - 1, replace=False))
+        for t, (lo, hi) in enumerate(zip([0, *cuts], [*cuts, frames])):
+            alignment[i, t, lo:hi] = 1.0
+    pitch = np.zeros((batch, frames), np.float32)
+    for i in range(batch):
+        t, voiced = 0, bool(rng.integers(2))
+        while t < frames:
+            run = int(rng.integers(10, 60))
+            if voiced:
+                pitch[i, t:t + run] = np.linspace(
+                    *rng.uniform(80.0, 300.0, 2), len(pitch[i, t:t + run]))
+            t, voiced = t + run, not voiced
+    hop = mc.hop_length
+    f0 = np.repeat(pitch, hop, axis=1)
+    phase = 2 * np.pi * np.cumsum(f0 / mc.sample_rate, axis=1)
+    audio = sum(0.3 / k * np.sin(k * phase) for k in range(1, 9)) * (f0 > 0)
+    audio = audio + 0.01 * rng.standard_normal(audio.shape)
+    return dict(text=tokens, text_length=np.array(counts, np.int64),
+                alignment=alignment, pitch=pitch,
+                audio_gt=audio.astype(np.float32))
+
+
+def train_setup(mc, cfg, device, seed: int, models=None):
+    from stylish_tts_tpu_torch.train.init import build_train_state, init_slm
+    from stylish_tts_tpu_torch.train.stages import (STAGES, StageContext,
+                                                    make_train_step)
+
+    keys = STAGES["acoustic"].train_models + ["mrd"]
+    gen = torch.Generator().manual_seed(seed)
+    state = build_train_state(mc, keys, generator=gen, models=models,
+                              device=device)
+    slm = init_slm(mc, torch.Generator().manual_seed(seed + 1)).to(device)
+    ctx = StageContext(model_config=mc, config=cfg, mel_mean=-4.0,
+                       mel_std=4.0, step_limit=10_000, slm=slm)
+    return state, make_train_step("acoustic", ctx, 1e-4)
+
+
+def on_device(batch: dict, device) -> dict:
+    return {k: torch.from_numpy(v).to(device) for k, v in batch.items()}
+
+
+def train_path(mc, device, card: str, kernels) -> dict:
+    """The full-width acoustic step on one batch of 8 x 460 frames: one
+    warm-up step, then 3 timed steps with the launch counts zeroed before
+    them."""
+    from stylish_tts_tpu_torch.config import Config
+
+    state, step = train_setup(mc, Config(), device, seed=10)
+    batch = on_device(synthetic_batch(mc, TRAIN_BATCH, TRAIN_FRAMES, 11),
+                      device)
+    gen = torch.Generator(device=device).manual_seed(12)
+    before = {k: [p.detach().clone() for p in m.parameters()]
+              for k, m in state.models.items()}
+    ema0 = state.disc_ema["mrd"].item()
+    state, metrics = step(state, batch, gen)  # warm-up
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    for k in kernels:
+        k.launches = 0
+    walls = []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        state, metrics = step(state, batch, gen)
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+    launches = {k.name: k.launches for k in kernels}
+    peak = torch.cuda.max_memory_allocated()
+    for k in kernels:
+        if launches[k.name] == 0:
+            raise AssertionError(f"{k.name} never launched on the train step")
+    values = {k: v.item() for k, v in metrics.items()}
+    bad = [k for k, v in values.items() if not np.isfinite(v)]
+    if bad:
+        raise AssertionError(f"non-finite metrics {bad}: {values}")
+    for key, params in before.items():
+        moved = any(not torch.equal(a, b.detach()) for a, b in
+                    zip(params, state.models[key].parameters()))
+        if not moved:
+            raise AssertionError(f"{key}: no parameter moved")
+    if state.disc_ema["mrd"].item() == ema0:
+        raise AssertionError("the discriminator EMA did not change")
+    audio_s = TRAIN_BATCH * TRAIN_FRAMES * mc.hop_length / mc.sample_rate
+    median = float(np.median(walls))
+    per_step = {k: v / 3 for k, v in launches.items()}
+    print(f"train step (acoustic, bf16, b{TRAIN_BATCH} x f{TRAIN_FRAMES}): "
+          f"{', '.join(f'{w * 1e3:.1f}' for w in walls)} ms, median "
+          f"{median * 1e3:.1f} ms, {audio_s / median:.1f} audio s per s, "
+          f"peak memory {peak / 2**30:.2f} GiB [{card}]")
+    print(f"train step launches per step: {per_step} [{card}]")
+    print(f"train step metrics: "
+          f"{json.dumps({k: round(v, 5) for k, v in values.items()})}")
+    return {"wall_s": walls, "median_s": median, "audio_s": audio_s,
+            "audio_s_per_s": audio_s / median, "peak_bytes": peak,
+            "launches": launches, "launches_per_step": per_step,
+            "metrics": values, "card": card}, state, step, batch, gen
+
+
+def cpu_vs_card_step(mc, card: str) -> dict:
+    """One f32 step at full width on 1 x 64 frames from the same weights
+    on the CPU (plain versions) and on the card (kernels), dropout off,
+    latent means instead of samples and the same prior noise."""
+    import copy
+
+    from stylish_tts_tpu_torch.config import Config
+    from stylish_tts_tpu_torch.models.norms import Dropout
+    from stylish_tts_tpu_torch.train.init import build_training_models
+    from stylish_tts_tpu_torch.train.init import init_params
+
+    cfg = Config()
+    cfg.training.mixed_precision = "no"
+    gen = torch.Generator().manual_seed(20)
+    built = build_training_models(mc)
+    models = {k: init_params(built[k], gen) for k in
+              ("speech_predictor", "pitch_energy_predictor",
+               "pe_text_encoder", "pe_mel_style_encoder", "mrd")}
+    for model in models.values():
+        for m in model.modules():
+            if isinstance(m, Dropout):
+                m.rate = 0.0
+    batch = synthetic_batch(mc, 1, 64, 21)
+    noise = np.random.default_rng(22).standard_normal(
+        (1, 64 * mc.hop_length)).astype(np.float32)
+    results = {}
+    for device in ("cpu", "cuda"):
+        state, step = train_setup(mc, cfg, device, seed=23,
+                                  models=copy.deepcopy(models))
+        _, metrics = step(state, on_device(batch, device), sample=False,
+                          pcph_noise=torch.from_numpy(noise).to(device),
+                          pcph_phase=torch.zeros(1, 1, device=device))
+        results[device] = {k: v.item() for k, v in metrics.items()}
+    # f32 terms: the same f32 model on two devices, sums in another order;
+    # the MRD and the SLM run in bf16 on both, through cuDNN and the kernels
+    # on one and the CPU's convs on the other
+    tol = {"mel": 1e-3, "mag": 1e-3, "phase": 1e-3, "pitch": 1e-3,
+           "energy": 1e-3, "slm": 2e-2, "generator": 2e-2,
+           "discriminator": 2e-2, "loss": 2e-3}
+    rel = {}
+    for key, bound in tol.items():
+        a, b = results["cpu"][key], results["cuda"][key]
+        rel[key] = abs(a - b) / max(abs(a), 1e-30)
+        if not rel[key] <= bound:
+            raise AssertionError(f"train step cpu vs card {key}: {a} vs {b}")
+    print(f"full-width train step f32 on 1 x 64 frames, cpu vs card: "
+          f"relative differences {json.dumps(rel)} [{card}]")
+    return {"metrics": results, "relative_difference": rel}
+
+
+def profile_step(step, state, batch, gen, card: str) -> dict:
+    """Device time by kernel over one train step (torch.profiler) and the
+    device's busy share of its wall time."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        step(state, batch, gen)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    return _device_table(prof, wall_ms, "train step", card)
 
 
 # --------------------------------------------------------------------------- #
@@ -248,6 +536,10 @@ def profile_batch(synth, batch, card: str) -> dict:
         synth.synthesize_batch(batch, fixed_duration=8)
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
+    return _device_table(prof, wall_ms, "synthesize_batch(8)", card)
+
+
+def _device_table(prof, wall_ms: float, what: str, card: str) -> dict:
     rows = []
     for evt in prof.key_averages():  # kernels only: operators would count
         if evt.device_type != torch.autograd.DeviceType.CUDA:  # them twice
@@ -255,7 +547,7 @@ def profile_batch(synth, batch, card: str) -> dict:
         rows.append((evt.self_device_time_total / 1e3, evt.count, evt.key))
     rows.sort(reverse=True)
     device_ms = sum(r[0] for r in rows)
-    print(f"profile synthesize_batch(8): wall {wall_ms:.1f} ms, kernels "
+    print(f"profile {what}: wall {wall_ms:.1f} ms, kernels "
           f"{device_ms:.1f} ms ({100 * device_ms / wall_ms:.1f}%) [{card}]")
     for dev, count, key in rows[:15]:
         print(f"  {dev:8.3f} ms {100 * dev / device_ms:5.1f}% x{count:<5d} "
@@ -273,10 +565,11 @@ def main() -> int:
     from stylish_tts_tpu_torch.config import ModelConfig
     from stylish_tts_tpu_torch.device import resolve_device
     from stylish_tts_tpu_torch.export.infer import Synthesizer, frame_bucket
-    from stylish_tts_tpu_torch.ops.build import build_log, load_library
+    from stylish_tts_tpu_torch.ops import spec_conv as sc
+    from stylish_tts_tpu_torch.ops.build import build, build_log
     from stylish_tts_tpu_torch.ops.stft_kernel import stft_forward
 
-    kernels = [stft_forward]
+    kernels = [stft_forward, *sc.KERNELS]
     record = {}
 
     # 1. device and build
@@ -286,13 +579,15 @@ def main() -> int:
           f"{torch.cuda.get_device_name(0)}")
     device = resolve_device("cuda")
     t0 = time.perf_counter()
-    load_library("stft")
-    print(f"build: stft {time.perf_counter() - t0:.1f} s")
-    for line in build_log("stft").splitlines():
-        if "registers" in line or "spill" in line:
-            print(f"  ptxas: {line.strip()}")
+    stems = ["spec_conv", "stft"]  # every source of csrc/
+    build(stems)
+    print(f"build: {', '.join(stems)} {time.perf_counter() - t0:.1f} s")
+    for stem in stems:
+        for line in build_log(stem).splitlines():
+            if "registers" in line or "spill" in line:
+                print(f"  ptxas {stem}: {line.strip()}")
 
-    # 2. kernel vs plain at the five STFT shapes, B=4, 10 s at 24 kHz
+    # 2. kernels vs plain: the STFT at its five shapes, B=4, 10 s at 24 kHz
     flush = torch.empty(64 * 2**20, dtype=torch.uint8, device=device)
     rng = np.random.default_rng(0)
     x = torch.from_numpy(rng.standard_normal((4, 240000)).astype(np.float32)
@@ -308,8 +603,22 @@ def main() -> int:
               f"{r['dft_tflops_per_s']:.1f} TFLOP/s, max err "
               f"{r['max_abs_err']:.2e} (vs torch.stft "
               f"{r['err_vs_torch_stft']:.2e}) [{card}]")
+    del x
+    # ... and the spec-conv kernels at the MRD's layer shapes
+    record["spec_conv"] = {}
+    for seed, (label, shape, kt, stride) in enumerate(CONV_SHAPES):
+        r = spec_conv_numbers(shape, kt, stride, flush, seed)
+        record["spec_conv"][label] = r
+        for name, n in r.items():
+            print(f"spec_conv_{name} {label} {shape} kt={kt} s={stride}: "
+                  f"kernel {n['ms']:.3f} ms ({n['tflops_per_s']:.1f} TFLOP/s)"
+                  f", plain {n['plain_ms']:.3f} ms, cuDNN bf16 "
+                  f"{n['library_ms']:.3f} ms, bound {n['bound_ms']:.3f} ms "
+                  f"({n['bound_by']}), max err {n['max_abs_err']:.2e} of "
+                  f"{n['max_abs_plain']:.2e} [{card}]")
+    torch.cuda.empty_cache()
 
-    # 3. the main path at full width
+    # 3. synthesis at full width
     mc = ModelConfig()
     models = seeded_models(mc, seed=0)
     models_cpu = copy.deepcopy(models)
@@ -332,11 +641,10 @@ def main() -> int:
         t0 = time.perf_counter()
         audios = synth.synthesize_batch(batch, fixed_duration=8)
         t_batch.append(time.perf_counter() - t0)
-    launches = {k.name: k.launches for k in kernels}
-    for k in kernels:
-        if launches[k.name] == 0:
-            raise AssertionError(f"{k.name} never launched on the main path")
-    print(f"main path launches: {launches}")
+    synth_launches = {k.name: k.launches for k in kernels}
+    if synth_launches["stft_forward"] == 0:
+        raise AssertionError("stft_forward never launched on synthesis")
+    print(f"synthesis launches: {synth_launches}")
 
     check_audio(audio, 80 + 2, 8, hop, "synthesize")
     for i, (a, n) in enumerate(zip(audios, counts)):
@@ -349,7 +657,7 @@ def main() -> int:
         "batch8": {"phonemes": counts, "audio_s": sec_batch,
                    "wall_s": t_batch,
                    "rtf": sec_batch / float(np.median(t_batch))},
-        "card": card,
+        "launches": synth_launches, "card": card,
     }
     for name, sec, walls in (("synthesize", sec_single, t_single),
                              ("synthesize_batch(8)", sec_batch, t_batch)):
@@ -357,9 +665,9 @@ def main() -> int:
               f"{', '.join(f'{w * 1e3:.1f}' for w in walls)} ms, RTF "
               f"{sec / float(np.median(walls)):.1f}x (median) [{card}]")
 
-    # the kernel against its plain version at the shapes this path gave it:
-    # the prior of the batch request, [8, frames * 300] at the generator's
-    # hop; its numbers go into the kernels line
+    # the STFT kernel against its plain version at the shapes this path
+    # gave it: the prior of the batch request, [8, frames * 300] at the
+    # generator's hop
     frames = max(frame_bucket((n + 2) * 8) for n in counts)
     prior = torch.from_numpy(
         np.random.default_rng(4).standard_normal((8, frames * hop))
@@ -370,7 +678,7 @@ def main() -> int:
     prior1 = prior[:1, : frames_single * hop].contiguous()
     record["stft_main_path_single"] = stft_numbers(
         prior1, mc.n_fft, hop // 4, mc.win_length, flush)
-    print(f"stft at the main path's shapes {main['shape']} and "
+    print(f"stft at the synthesis shapes {main['shape']} and "
           f"{record['stft_main_path_single']['shape']}: kernel "
           f"{main['ms']:.3f} ms, plain {main['plain_ms']:.3f} ms, torch.stft "
           f"{main['library_ms']:.3f} ms, bound {main['bound_ms']:.3f} ms "
@@ -385,19 +693,45 @@ def main() -> int:
     worst = cpu_vs_card(mc, models_cpu, synth, batch[0][:20])
     print(f"full-width models, cpu vs card on 20 phonemes: worst relative "
           f"error {worst:.2e}")
+    del synth, models, models_cpu
+    torch.cuda.empty_cache()
 
-    # 4. results
+    # 4. training: the acoustic step at full width
+    train, state, step, tbatch, gen = train_path(mc, device, card, kernels)
+    record["train"] = train
+    # the STFT at the train step's largest shape: the magphase target and
+    # the posterior encoder, [8, 138000] at n_fft 2048, hop 75
+    train_stft = stft_numbers(tbatch["audio_gt"], mc.n_fft, hop // 4,
+                              mc.win_length, flush)
+    record["stft_train_path"] = train_stft
+    print(f"stft at the train step's shape {train_stft['shape']}: kernel "
+          f"{train_stft['ms']:.3f} ms, plain {train_stft['plain_ms']:.3f} ms,"
+          f" torch.stft {train_stft['library_ms']:.3f} ms, bound "
+          f"{train_stft['bound_ms']:.3f} ms, max err "
+          f"{train_stft['max_abs_err']:.2e} [{card}]")
+    if "--profile" in sys.argv[1:]:
+        record["profile_train"] = profile_step(step, state, tbatch, gen,
+                                               card)
+    del state, step, tbatch, gen
+    torch.cuda.empty_cache()
+    record["train_cpu_vs_card"] = cpu_vs_card_step(mc, card)
+
+    # 5. results: each kernel's own numbers; launches from the train step
     out_dir = Path("chiprun_out")
     out_dir.mkdir(exist_ok=True)
     (out_dir / "chip_smoke.json").write_text(json.dumps(record, indent=1))
+    numbers = {"stft_forward": train_stft}
+    for name in ("forward", "dgrad", "wgrad"):
+        numbers[f"spec_conv_{name}"] = record["spec_conv"]["res0 conv_1"][name]
     entries = []
     for k in kernels:
+        n = numbers[k.name]
         entries.append({
             "name": k.name, "route": k.route, "source": k.source,
-            "replaces": k.replaces, "launches": launches[k.name],
-            "max_abs_err": main["max_abs_err"], "ms": main["ms"],
-            "plain_ms": main["plain_ms"], "bound_ms": main["bound_ms"],
-            "bound_by": main["bound_by"], "library_ms": main["library_ms"],
+            "replaces": k.replaces, "launches": train["launches"][k.name],
+            "max_abs_err": n["max_abs_err"], "ms": n["ms"],
+            "plain_ms": n["plain_ms"], "bound_ms": n["bound_ms"],
+            "bound_by": n["bound_by"], "library_ms": n["library_ms"],
         })
     print(card)
     print(json.dumps({"kernels": entries}))

@@ -1,9 +1,10 @@
-"""Model configuration: a stdlib-dataclass copy of the model schema.
+"""Model and run configuration: stdlib-dataclass copies of the schemas.
 
 Field names, defaults and nesting equal the JAX package's pydantic
-``ModelConfig``, so the ``model_config.json`` that an inference artifact
-carries (pydantic's ``model_dump_json``) loads here unchanged.  Only the
-stdlib is used: the card's machine has no pydantic or yaml.
+``ModelConfig`` and ``Config``, so the JSON that pydantic's
+``model_dump_json`` writes (an inference artifact's ``model_config.json``, a
+run's config) loads here unchanged.  Only the stdlib is used: the card's
+machine has no pydantic or yaml.
 """
 
 from __future__ import annotations
@@ -175,6 +176,106 @@ class ModelConfig:
         return dataclasses.asdict(self)
 
 
+# --------------------------------------------------------------------------- #
+# run config: training plan, dataset, validation, loss weights
+
+
+@dataclass
+class StagePlanConfig:
+    epochs: int = 20
+    probe_batch_max: int = 32
+    lr: float = 1e-4
+
+
+def _plan(epochs: int):
+    return field(default_factory=lambda: StagePlanConfig(epochs=epochs))
+
+
+@dataclass
+class TrainingPlanConfig:
+    alignment: StagePlanConfig = _plan(20)
+    acoustic: StagePlanConfig = _plan(20)
+    textual: StagePlanConfig = _plan(20)
+    style: StagePlanConfig = _plan(10)
+    duration: StagePlanConfig = _plan(10)
+    joint: StagePlanConfig = _plan(10)
+    hubert_acoustic: StagePlanConfig = _plan(20)
+    cfm_hubert_mel: StagePlanConfig = _plan(20)
+    cfm_hubert_pitch: StagePlanConfig = _plan(20)
+
+
+@dataclass
+class TrainingConfig:
+    log_interval: int = 100
+    save_interval: int = 2000
+    val_interval: int = 2000
+    device: str = "tpu"
+    # "bf16": module forwards in bf16 on f32 master weights; "no": all f32
+    mixed_precision: str = "bf16"
+    vocos_weights: Optional[str] = None
+    memory_budget_mib: int = 14000
+    aot_memory_plan: bool = True
+
+
+@dataclass
+class DatasetConfig:
+    train_data: str = "train-list.txt"
+    val_data: str = "val-list.txt"
+    wav_path: str = "wav24"
+    path: str = "."
+    pitch_path: str = "pitch.safetensors"
+    alignment_path: str = "alignment.safetensors"
+    alignment_model_path: str = "alignment_model.safetensors"
+
+
+@dataclass
+class ValidationConfig:
+    sample_count: int = 6
+    force_samples: List[str] = field(default_factory=list)
+
+
+@dataclass
+class LossWeightConfig:
+    """Per-loss weights of the weighted totals."""
+
+    mel: float = 1.0
+    generator: float = 1.0
+    slm: float = 1.0
+    pitch: float = 1.0
+    energy: float = 1.0
+    mag: float = 1.0
+    phase: float = 1.0
+    style: float = 1.0
+    duration: float = 1.0
+    duration_ce: float = 1.0
+    confidence: float = 1.0
+    align_loss: float = 1.0
+    discriminator: float = 1.0
+    kl_text: float = 1.0
+    kl_audio: float = 1.0
+
+
+@dataclass
+class MeshConfig:
+    data_axis: str = "data"
+    model_axis: str = "model"
+    model_parallel_size: int = 1
+
+
+@dataclass
+class Config:
+    training: TrainingConfig = field(default_factory=TrainingConfig)
+    training_plan: TrainingPlanConfig = field(
+        default_factory=TrainingPlanConfig)
+    dataset: DatasetConfig = field(default_factory=DatasetConfig)
+    validation: ValidationConfig = field(default_factory=ValidationConfig)
+    loss_weight: LossWeightConfig = field(default_factory=LossWeightConfig)
+    mesh: MeshConfig = field(default_factory=MeshConfig)
+
+    def state_dict(self) -> dict:
+        return dataclasses.asdict(self)
+
+
 def _build(cls, raw: dict):
     """Construct dataclass ``cls`` from a nested dict, rejecting unknown keys."""
     if not isinstance(raw, dict):
@@ -202,3 +303,8 @@ def _build(cls, raw: dict):
 def load_model_config_json(data: str) -> ModelConfig:
     """Parse the JSON written by ``model_dump_json`` of the model schema."""
     return _build(ModelConfig, json.loads(data))
+
+
+def load_config_json(data: str) -> Config:
+    """Parse the JSON written by ``model_dump_json`` of the run schema."""
+    return _build(Config, json.loads(data))

@@ -22,9 +22,10 @@ INFERENCE_MODELS = (
 
 
 def build_models(mc: ModelConfig) -> Dict[str, nn.Module]:
-    """The five models ``export/infer.py:Synthesizer`` runs."""
+    """The five models ``export/infer.py:Synthesizer`` runs, in eval mode
+    (dropout off)."""
     pe_dim = mc.pitch_energy_predictor.inter_dim
-    return {
+    models = {
         "duration_predictor": DurationPredictor(mc),
         # the pitch/energy branch runs at its own width
         "pe_text_encoder": text_encoder_for(mc, pe_dim),
@@ -33,3 +34,4 @@ def build_models(mc: ModelConfig) -> Dict[str, nn.Module]:
         "pitch_energy_predictor": PitchEnergyPredictor(mc),
         "speech_predictor": SpeechPredictor(mc),
     }
+    return {k: m.eval() for k, m in models.items()}

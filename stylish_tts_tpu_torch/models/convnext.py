@@ -19,8 +19,9 @@ class GRN(nn.Module):
         self.beta = nn.Parameter(torch.zeros(1, 1, dim))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        gx = torch.sqrt(torch.sum(x * x, dim=1, keepdim=True))
-        nx = gx / (gx.mean(dim=-1, keepdim=True) + 1e-6)
+        xf = x.float()  # the L2 over time accumulates in f32
+        gx = torch.sqrt(torch.sum(xf * xf, dim=1, keepdim=True))
+        nx = (gx / (gx.mean(dim=-1, keepdim=True) + 1e-6)).to(x.dtype)
         return self.gamma * (x * nx) + self.beta + x
 
 

@@ -1,6 +1,6 @@
 """VITS-style normalizing flow: gated WaveNet couplings over the latent,
-transporting (z, mean, logstd) triples, plus the prior encoder.  The
-posterior encoder serves training only and is not ported yet."""
+transporting (z, mean, logstd) triples in both directions, plus the prior
+encoder and the posterior encoder (training only)."""
 
 from __future__ import annotations
 
@@ -9,7 +9,8 @@ from typing import Optional, Tuple
 import torch
 from torch import nn
 
-from .norms import Conv1d
+from ..ops.stft_kernel import stft_forward
+from .norms import Conv1d, Conv1x1, Dropout
 
 FlowTriple = Tuple[torch.Tensor, torch.Tensor, torch.Tensor]
 
@@ -20,11 +21,12 @@ class WaveNet(nn.Module):
     mask is always None and its dilation rate 1)."""
 
     def __init__(self, hidden_channels: int, kernel_size: int, n_layers: int,
-                 cond_channels: int = 0):
+                 cond_channels: int = 0, dropout: float = 0.0):
         super().__init__()
         h = hidden_channels
         self.hidden_channels = h
         self.n_layers = n_layers
+        self.dropout = Dropout(dropout)
         self.cond_layer = (nn.Linear(cond_channels, 2 * h * n_layers)
                            if cond_channels else None)
         for i in range(n_layers):
@@ -43,6 +45,7 @@ class WaveNet(nn.Module):
             if cond is not None:
                 x_in = x_in + g_all[:, None, 2 * h * i : 2 * h * (i + 1)]
             acts = torch.tanh(x_in[..., :h]) * torch.sigmoid(x_in[..., h:])
+            acts = self.dropout(acts)
             res_skip = getattr(self, f"res_skip_{i}")(acts)
             if i < self.n_layers - 1:
                 x = x + res_skip[..., :h]
@@ -53,8 +56,9 @@ class WaveNet(nn.Module):
 
 
 class ResidualCouplingLayer(nn.Module):
-    """One affine coupling transporting (z, mean, logstd) halves, in the
-    inverse direction (prior -> mel latent) that synthesis runs."""
+    """One affine coupling transporting (z, mean, logstd) halves; the
+    inverse direction (``reverse=True``) maps the prior to the mel latent,
+    the forward direction the posterior to the text latent."""
 
     def __init__(self, half_channels: int, hidden_channels: int,
                  kernel_size: int, n_layers: int, cond_channels: int = 0):
@@ -65,17 +69,23 @@ class ResidualCouplingLayer(nn.Module):
         self.proj_mean = nn.Linear(hidden_channels, half_channels)
         self.proj_logstd = nn.Linear(hidden_channels, half_channels)
 
-    def forward(self, zs, means, logstds, cond=None):
+    def forward(self, zs, means, logstds, cond=None, reverse: bool = False):
         z0, z1 = zs
         mean0, mean1 = means
         logstd0, logstd1 = logstds
         h = self.enc(self.pre(z0), cond=cond)
         mean_flow = self.proj_mean(h)
         logstd_flow = self.proj_logstd(h)
-        scale = torch.exp(-logstd_flow)
-        z1 = (z1 - mean_flow) * scale
-        mean1 = (mean1 - mean_flow) * scale
-        logstd1 = logstd1 - logstd_flow
+        if reverse:
+            scale = torch.exp(-logstd_flow)
+            z1 = (z1 - mean_flow) * scale
+            mean1 = (mean1 - mean_flow) * scale
+            logstd1 = logstd1 - logstd_flow
+        else:
+            scale = torch.exp(logstd_flow)
+            z1 = mean_flow + z1 * scale
+            mean1 = mean_flow + mean1 * scale
+            logstd1 = logstd1 + logstd_flow
         return (z0, z1), (mean0, mean1), (logstd0, logstd1)
 
 
@@ -85,9 +95,9 @@ def _flip(pair):
 
 
 class ResidualCouplingBlock(nn.Module):
-    """n_flows × (coupling + flip), run in the inverse direction: the
-    flows in reverse order, each preceded by its flip (the JAX package's
-    ``reverse=True``).  The forward direction serves training only."""
+    """n_flows × (coupling + flip).  The inverse direction
+    (``reverse=True``, synthesis) runs the flows in reverse order, each
+    preceded by its flip; the forward direction serves training."""
 
     def __init__(self, channels: int, hidden_channels: int,
                  kernel_size: int = 5, n_layers: int = 4, n_flows: int = 8,
@@ -100,15 +110,22 @@ class ResidualCouplingBlock(nn.Module):
                 self.half, hidden_channels, kernel_size, n_layers,
                 cond_channels=cond_channels))
 
-    def forward(self, z, mean, logstd, cond=None) -> FlowTriple:
+    def forward(self, z, mean, logstd, cond=None,
+                reverse: bool = False) -> FlowTriple:
         half = self.half
         zs = (z[..., :half], z[..., half:])
         means = (mean[..., :half], mean[..., half:])
         logstds = (logstd[..., :half], logstd[..., half:])
-        for i in reversed(range(self.n_flows)):
-            zs, means, logstds = _flip(zs), _flip(means), _flip(logstds)
-            zs, means, logstds = getattr(self, f"flow_{i}")(
-                zs, means, logstds, cond)
+        if reverse:
+            for i in reversed(range(self.n_flows)):
+                zs, means, logstds = _flip(zs), _flip(means), _flip(logstds)
+                zs, means, logstds = getattr(self, f"flow_{i}")(
+                    zs, means, logstds, cond, True)
+        else:
+            for i in range(self.n_flows):
+                zs, means, logstds = getattr(self, f"flow_{i}")(
+                    zs, means, logstds, cond, False)
+                zs, means, logstds = _flip(zs), _flip(means), _flip(logstds)
         return (torch.cat(zs, -1), torch.cat(means, -1),
                 torch.cat(logstds, -1))
 
@@ -123,6 +140,46 @@ class PriorEncoder(nn.Module):
 
     def forward(self, x: torch.Tensor, *, sample: bool = True,
                 generator: Optional[torch.Generator] = None) -> FlowTriple:
+        mean = self.proj_mean(x)
+        logstd = self.proj_logstd(x)
+        if not sample:
+            return mean, mean, logstd
+        noise = torch.randn(mean.shape, generator=generator,
+                            dtype=mean.dtype, device=mean.device)
+        return mean + noise * torch.exp(logstd), mean, logstd
+
+
+class PosteriorEncoder(nn.Module):
+    """Waveform -> STFT magnitude and phase -> 1x1 convs -> WaveNet ->
+    (z, mean, logstd).  The STFT runs at the generator's frame rate, in
+    f32; its outputs return to the activation type."""
+
+    def __init__(self, out_channels: int, hidden_channels: int, n_fft: int,
+                 win_length: int, hop_length: int, kernel_size: int = 3,
+                 n_layers: int = 12, cond_channels: int = 0):
+        super().__init__()
+        self.n_fft, self.win_length, self.hop_length = \
+            n_fft, win_length, hop_length
+        freq_bins = n_fft // 2 + 1
+        h = hidden_channels
+        self.pre_spec = Conv1x1(freq_bins, h // 2)
+        self.pre_phase = Conv1x1(freq_bins, h // 2)
+        self.enc = WaveNet(h, kernel_size, n_layers,
+                           cond_channels=cond_channels)
+        self.proj_mean = nn.Linear(h, out_channels)
+        self.proj_logstd = nn.Linear(h, out_channels)
+
+    def forward(self, audio: torch.Tensor,
+                cond: Optional[torch.Tensor] = None, *, sample: bool = True,
+                generator: Optional[torch.Generator] = None) -> FlowTriple:
+        real, imag = stft_forward(
+            audio.float().contiguous(), n_fft=self.n_fft,
+            hop_length=self.hop_length, win_length=self.win_length)
+        act = cond.dtype if cond is not None else audio.dtype
+        mag = (torch.hypot(real, imag) + 1e-9)[:, :-1].to(act)
+        phase = torch.atan2(imag, real)[:, :-1].to(act)  # drop the last frame
+        x = torch.cat([self.pre_spec(mag), self.pre_phase(phase)], dim=-1)
+        x = self.enc(x, cond=cond)
         mean = self.proj_mean(x)
         logstd = self.proj_logstd(x)
         if not sample:

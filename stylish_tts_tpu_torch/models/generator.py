@@ -11,7 +11,7 @@ from __future__ import annotations
 
 import math
 from dataclasses import dataclass
-from typing import Optional
+from typing import Optional, Tuple
 
 import torch
 from torch import nn
@@ -29,6 +29,11 @@ class DecoderPrediction:
     audio: torch.Tensor      # [B, T_samples]
     magnitude: torch.Tensor  # [B, frames+1, n_fft//2+1] log-amplitude
     phase: torch.Tensor      # [B, frames+1, n_fft//2+1]
+    # (z, mean, logstd) of the flow, attached on the training path
+    text_stats: Optional[Tuple[torch.Tensor, ...]] = None
+    text2mel_stats: Optional[Tuple[torch.Tensor, ...]] = None
+    mel_stats: Optional[Tuple[torch.Tensor, ...]] = None
+    mel2text_stats: Optional[Tuple[torch.Tensor, ...]] = None
 
 
 def generate_pcph(

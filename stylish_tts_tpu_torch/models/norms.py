@@ -3,17 +3,50 @@
 Submodules and parameters carry the JAX package's flax names, including
 flax's auto-names (``Conv_0`` inside ``Conv1d``, ``AdaptiveInstanceNorm_0/1``
 inside ``AdaptiveDecoderBlock``, ``fc`` inside each adaptive norm), so
-``convert.load_flax_params`` maps weights by name alone.  Inference only:
-there is no dropout.
+``convert.load_flax_params`` maps weights by name alone.
+
+Dropout sits where the JAX package has ``nn.Dropout``.  It is active only in
+train mode (``module.train()``) and draws its masks from the generator that
+``set_dropout_generator`` gives it; ``build_models`` returns modules in eval
+mode, so it is off outside training.
 """
 
 from __future__ import annotations
 
 import math
+from typing import Optional
 
 import torch
 import torch.nn.functional as F
 from torch import nn
+
+
+class Dropout(nn.Module):
+    """Inverted dropout with flax's semantics: keep with probability
+    1 - rate, scale kept values by 1 / (1 - rate).  Masks come from
+    ``generator`` (the default generator when it is None)."""
+
+    def __init__(self, rate: float):
+        super().__init__()
+        self.rate = rate
+        self.generator: Optional[torch.Generator] = None
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if not self.training or self.rate == 0.0:
+            return x
+        if self.rate >= 1.0:
+            return torch.zeros_like(x)
+        keep = torch.rand(x.shape, generator=self.generator,
+                          device=x.device) >= self.rate
+        return torch.where(keep, x / (1.0 - self.rate), 0.0).to(x.dtype)
+
+
+def set_dropout_generator(module: nn.Module,
+                          generator: Optional[torch.Generator]) -> None:
+    """Every Dropout inside ``module`` draws from ``generator``."""
+    for m in module.modules():
+        if isinstance(m, Dropout):
+            m.generator = generator
 
 
 class ChannelLayerNorm(nn.Module):
@@ -97,8 +130,10 @@ class Conv1x1(nn.Module):
 class AdaptiveDecoderBlock(nn.Module):
     """Two-conv residual block with AdaIN conditioning, /√2 output."""
 
-    def __init__(self, dim_in: int, dim_out: int, style_dim: int):
+    def __init__(self, dim_in: int, dim_out: int, style_dim: int,
+                 dropout: float = 0.0):
         super().__init__()
+        self.dropout = Dropout(dropout)
         self.AdaptiveInstanceNorm_0 = AdaptiveInstanceNorm(dim_in, style_dim)
         self.conv1 = Conv1d(dim_in, dim_out, 3)
         self.AdaptiveInstanceNorm_1 = AdaptiveInstanceNorm(dim_out, style_dim)
@@ -108,9 +143,9 @@ class AdaptiveDecoderBlock(nn.Module):
 
     def forward(self, x: torch.Tensor, style: torch.Tensor) -> torch.Tensor:
         h = F.leaky_relu(self.AdaptiveInstanceNorm_0(x, style), 0.2)
-        h = self.conv1(h)
+        h = self.conv1(self.dropout(h))
         h = F.leaky_relu(self.AdaptiveInstanceNorm_1(h, style), 0.2)
-        h = self.conv2(h)
+        h = self.conv2(self.dropout(h))
         if self.conv1x1 is not None:
             x = self.conv1x1(x)
         return (h + x) / math.sqrt(2.0)

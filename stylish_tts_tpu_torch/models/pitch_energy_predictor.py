@@ -51,16 +51,19 @@ class PitchEnergyPredictor(nn.Module):
         pe_dim = mc.pitch_energy_predictor.inter_dim
         style_dim = mc.style_dim
         channels = pe_dim + style_dim
-        self.prosody_encoder = ProsodyEncoder(style_dim, pe_dim, 3)
+        dropout = mc.pitch_energy_predictor.dropout
+        self.prosody_encoder = ProsodyEncoder(style_dim, pe_dim, 3,
+                                              dropout=0.2)
         self.query_norm = AdaptiveLayerNorm(channels, style_dim)
         self.key_norm = AdaptiveLayerNorm(channels, style_dim)
-        self.cross_attention = MultiHeadAttention(channels, channels, 8)
+        self.cross_attention = MultiHeadAttention(channels, channels, 8,
+                                                  dropout)
         self.cross_post_dw = Conv1d(channels, channels, 5, groups=channels)
         self.cross_post_pw = Conv1x1(channels, channels)
         for head in ("f0", "energy"):
             for i in range(3):
-                setattr(self, f"{head}_block_{i}",
-                        AdaptiveDecoderBlock(channels, channels, style_dim))
+                setattr(self, f"{head}_block_{i}", AdaptiveDecoderBlock(
+                    channels, channels, style_dim, dropout))
             setattr(self, f"{head}_proj", Conv1x1(channels, 1))
 
     def forward(

@@ -7,22 +7,24 @@ from __future__ import annotations
 import torch
 from torch import nn
 
-from .norms import AdaptiveLayerNorm, Conv1x1, sequence_mask
+from .norms import AdaptiveLayerNorm, Conv1x1, Dropout, sequence_mask
 from .text_encoder import ConvFFN, MultiHeadAttention, pair_mask
 
 
 class ProsodyEncoder(nn.Module):
     def __init__(self, style_dim: int, d_model: int, n_layers: int,
-                 n_heads: int = 2, kernel_size: int = 1):
+                 dropout: float = 0.1, n_heads: int = 2,
+                 kernel_size: int = 1):
         super().__init__()
         self.n_layers = n_layers
+        self.dropout = Dropout(dropout)
         hidden = d_model + style_dim
         for i in range(n_layers):
             setattr(self, f"attn_{i}",
-                    MultiHeadAttention(hidden, hidden, n_heads))
+                    MultiHeadAttention(hidden, hidden, n_heads, dropout))
             setattr(self, f"norm1_{i}", AdaptiveLayerNorm(hidden, style_dim))
             setattr(self, f"ffn_{i}",
-                    ConvFFN(hidden, hidden, hidden * 2, kernel_size))
+                    ConvFFN(hidden, hidden, hidden * 2, kernel_size, dropout))
             setattr(self, f"norm2_{i}", AdaptiveLayerNorm(hidden, style_dim))
             setattr(self, f"proj_{i}", Conv1x1(hidden, d_model))
 
@@ -37,9 +39,9 @@ class ProsodyEncoder(nn.Module):
         for i in range(self.n_layers):
             x = x * mask
             y = getattr(self, f"attn_{i}")(x, x, attn_mask)
-            x = getattr(self, f"norm1_{i}")(x + y, style)
+            x = getattr(self, f"norm1_{i}")(x + self.dropout(y), style)
             y = getattr(self, f"ffn_{i}")(x, mask)
-            x = getattr(self, f"norm2_{i}")(x + y, style)
+            x = getattr(self, f"norm2_{i}")(x + self.dropout(y), style)
             x = getattr(self, f"proj_{i}")(x)
             x = torch.cat([x, style_seq], dim=-1)
         return x * mask

@@ -1,5 +1,10 @@
-"""SpeechPredictor, inference branch: text encoder, style encoder, decoder,
-flow prior (reverse direction) and the freegan generator.
+"""SpeechPredictor: text encoder, style encoder, decoder, flow prior and
+the freegan generator.
+
+Synthesis runs the flow in reverse from the prior.  Training
+(``posterior=True`` and ``audio_gt`` given) also encodes the ground truth
+with the posterior encoder, runs the flow forward on it, feeds the
+posterior latent to the generator and attaches the four flow-stat triples.
 
 The alignment arrives at mel frame rate (hop 300) and is repeated ×4 to the
 generator rate (hop 75); pitch and energy are linearly upsampled ×4.
@@ -15,7 +20,7 @@ from torch import nn
 from ..config import ModelConfig
 from .decoder import Decoder
 from .duration_predictor import text_encoder_for
-from .flow import PriorEncoder, ResidualCouplingBlock
+from .flow import PosteriorEncoder, PriorEncoder, ResidualCouplingBlock
 from .generator import DecoderPrediction, Generator
 from .style_encoders import TextStyleEncoder
 
@@ -33,7 +38,7 @@ def upsample_x4_linear(x: torch.Tensor) -> torch.Tensor:
 
 
 class SpeechPredictor(nn.Module):
-    def __init__(self, mc: ModelConfig):
+    def __init__(self, mc: ModelConfig, posterior: bool = False):
         super().__init__()
         if mc.generator.type != "freegan":
             raise NotImplementedError(
@@ -49,6 +54,10 @@ class SpeechPredictor(nn.Module):
         self.flow = ResidualCouplingBlock(
             flow_dim, flow_dim, kernel_size=5, n_layers=4, n_flows=8,
             cond_channels=mc.style_dim)
+        self.posterior_encoder = PosteriorEncoder(
+            flow_dim, flow_dim, n_fft=mc.n_fft, win_length=mc.win_length,
+            hop_length=mc.hop_length // 4, n_layers=12,
+            cond_channels=mc.style_dim) if posterior else None
         self.post_flow = nn.Linear(flow_dim, hidden)
         self.generator = Generator(mc)
 
@@ -59,6 +68,7 @@ class SpeechPredictor(nn.Module):
         alignment: torch.Tensor,     # [B, T, F_mel]
         pitch: torch.Tensor,         # [B, F_mel]
         energy: torch.Tensor,        # [B, F_mel]
+        audio_gt: Optional[torch.Tensor] = None,  # [B, T_samples], training
         *,
         sample: bool = True,
         generator: Optional[torch.Generator] = None,
@@ -74,11 +84,21 @@ class SpeechPredictor(nn.Module):
 
         asr = torch.einsum("btc,btf->bfc", text_encoding, alignment4)
         x = self.decoder(asr, pitch4, energy4, style)
-        z_text, mean_text, logstd_text = self.prior_encoder(
-            x, sample=sample, generator=generator)
-        z_text2mel, _, _ = self.flow(z_text, mean_text, logstd_text,
-                                     cond=style)
-        mel = self.post_flow(z_text2mel)
-        return self.generator(
+        text_stats = self.prior_encoder(x, sample=sample, generator=generator)
+        text2mel_stats = self.flow(*text_stats, cond=style, reverse=True)
+        if audio_gt is None:
+            mel = self.post_flow(text2mel_stats[0])
+        else:
+            mel_stats = self.posterior_encoder(
+                audio_gt, cond=style, sample=sample, generator=generator)
+            mel2text_stats = self.flow(*mel_stats, cond=style, reverse=False)
+            mel = self.post_flow(mel_stats[0])
+        prediction = self.generator(
             mel, style, pitch4, generator=generator,
             pcph_noise=pcph_noise, pcph_phase=pcph_phase)
+        if audio_gt is not None:
+            prediction.text_stats = text_stats
+            prediction.text2mel_stats = text2mel_stats
+            prediction.mel_stats = mel_stats
+            prediction.mel2text_stats = mel2text_stats
+        return prediction

@@ -16,7 +16,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from .norms import ChannelLayerNorm, Conv1d, Conv1x1, sequence_mask
+from .norms import ChannelLayerNorm, Conv1d, Conv1x1, Dropout, sequence_mask
 
 
 def apply_rope(x: torch.Tensor, rope_dims: int) -> torch.Tensor:
@@ -42,8 +42,10 @@ def apply_rope(x: torch.Tensor, rope_dims: int) -> torch.Tensor:
 class MultiHeadAttention(nn.Module):
     """MHA with RoPE on half of each head's dims and an additive mask."""
 
-    def __init__(self, channels: int, out_channels: int, n_heads: int):
+    def __init__(self, channels: int, out_channels: int, n_heads: int,
+                 dropout: float = 0.0):
         super().__init__()
+        self.dropout = Dropout(dropout)
         self.channels = channels
         self.n_heads = n_heads
         self.q = nn.Linear(channels, channels)
@@ -64,25 +66,31 @@ class MultiHeadAttention(nn.Module):
         q = apply_rope(split_heads(self.q(x)), rope_dims)
         k = apply_rope(split_heads(self.k(context)), rope_dims)
         v = split_heads(self.v(context))
-        scores = torch.matmul(q, k.transpose(-1, -2)) / math.sqrt(head_dim)
+        # scores, softmax and the value sum in f32 (as the JAX package's
+        # f32-accumulating einsums), the result in the activation type
+        scores = torch.matmul(q.float(), k.float().transpose(-1, -2)) \
+            / math.sqrt(head_dim)
         if attn_mask is not None:
             scores = scores + torch.where(attn_mask, 0.0, -1e4)
-        out = torch.matmul(torch.softmax(scores, dim=-1), v)
+        probs = self.dropout(torch.softmax(scores, dim=-1))
+        out = torch.matmul(probs, v.float()).to(v.dtype)
         b, _, t, _ = out.shape
         return self.out(out.transpose(1, 2).reshape(b, t, self.channels))
 
 
 class ConvFFN(nn.Module):
-    """conv k -> relu -> conv k, masked."""
+    """conv k -> relu -> dropout -> conv k, masked."""
 
     def __init__(self, in_channels: int, out_channels: int,
-                 filter_channels: int, kernel_size: int):
+                 filter_channels: int, kernel_size: int,
+                 dropout: float = 0.0):
         super().__init__()
         self.conv1 = Conv1d(in_channels, filter_channels, kernel_size)
+        self.dropout = Dropout(dropout)
         self.conv2 = Conv1d(filter_channels, out_channels, kernel_size)
 
     def forward(self, x: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
-        x = F.relu(self.conv1(x * mask))
+        x = self.dropout(F.relu(self.conv1(x * mask)))
         return self.conv2(x * mask) * mask
 
 
@@ -96,16 +104,18 @@ class TransformerEncoder(nn.Module):
     """(RoPE-MHA + conv-FFN) layers with channel LayerNorms."""
 
     def __init__(self, hidden_channels: int, filter_channels: int,
-                 n_heads: int, n_layers: int, kernel_size: int = 1):
+                 n_heads: int, n_layers: int, kernel_size: int = 1,
+                 dropout: float = 0.0):
         super().__init__()
         self.n_layers = n_layers
+        self.dropout = Dropout(dropout)
         for i in range(n_layers):
             setattr(self, f"attn_{i}", MultiHeadAttention(
-                hidden_channels, hidden_channels, n_heads))
+                hidden_channels, hidden_channels, n_heads, dropout))
             setattr(self, f"norm1_{i}", ChannelLayerNorm(hidden_channels))
             setattr(self, f"ffn_{i}", ConvFFN(
                 hidden_channels, hidden_channels, filter_channels,
-                kernel_size))
+                kernel_size, dropout))
             setattr(self, f"norm2_{i}", ChannelLayerNorm(hidden_channels))
 
     def forward(self, x: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
@@ -113,19 +123,21 @@ class TransformerEncoder(nn.Module):
         for i in range(self.n_layers):
             x = x * mask
             y = getattr(self, f"attn_{i}")(x, x, attn_mask)
-            x = getattr(self, f"norm1_{i}")(x + y)
+            x = getattr(self, f"norm1_{i}")(x + self.dropout(y))
             y = getattr(self, f"ffn_{i}")(x, mask)
-            x = getattr(self, f"norm2_{i}")(x + y)
+            x = getattr(self, f"norm2_{i}")(x + self.dropout(y))
         return x * mask
 
 
 class ConvReluNorm(nn.Module):
-    """Prenet: n conv-norm-relu layers + residual 1x1 projection."""
+    """Prenet: n conv-norm-relu-dropout layers + residual 1x1 projection."""
 
     def __init__(self, hidden_channels: int, out_channels: int,
-                 kernel_size: int = 5, n_layers: int = 3):
+                 kernel_size: int = 5, n_layers: int = 3,
+                 dropout: float = 0.5):
         super().__init__()
         self.n_layers = n_layers
+        self.dropout = Dropout(dropout)
         for i in range(n_layers):
             setattr(self, f"conv_{i}", Conv1d(
                 hidden_channels, hidden_channels, kernel_size))
@@ -136,7 +148,7 @@ class ConvReluNorm(nn.Module):
         x_org = x
         for i in range(self.n_layers):
             x = getattr(self, f"conv_{i}")(x * mask)
-            x = F.relu(getattr(self, f"norm_{i}")(x))
+            x = self.dropout(F.relu(getattr(self, f"norm_{i}")(x)))
         return (x_org + self.proj(x)) * mask
 
 
@@ -146,13 +158,14 @@ class TextEncoder(nn.Module):
 
     def __init__(self, n_tokens: int, hidden_dim: int, filter_channels: int,
                  n_heads: int, n_layers: int, kernel_size: int,
-                 inter_dim: int):
+                 inter_dim: int, dropout: float = 0.0):
         super().__init__()
         self.hidden_dim = hidden_dim
         self.emb = nn.Embedding(n_tokens, hidden_dim)
         self.prenet = ConvReluNorm(hidden_dim, hidden_dim)
         self.encoder = TransformerEncoder(
-            hidden_dim, filter_channels, n_heads, n_layers, kernel_size)
+            hidden_dim, filter_channels, n_heads, n_layers, kernel_size,
+            dropout)
         self.proj_m = Conv1x1(hidden_dim, inter_dim)
 
     def forward(self, tokens: torch.Tensor, lengths: torch.Tensor

@@ -3,8 +3,10 @@
 ``csrc/<stem>.cu`` compiles with ``nvcc`` for ``sm_90a`` into
 ``build/lib<stem>-<hash>.so`` inside the package (the hash is the source's,
 so an edited source rebuilds) and is loaded with ``ctypes``.  Nothing is
-built at import: the first launch of a kernel builds its library.  The
-compiler's register and spill report lands in ``build/<stem>.log``.
+built at import: the first launch of a kernel builds its library, and
+``build`` builds several sources at once, one ``nvcc`` each, started
+together.  The compiler's register and spill report lands in
+``build/<stem>.log``.
 """
 
 from __future__ import annotations
@@ -15,7 +17,7 @@ import os
 import shutil
 import subprocess
 from pathlib import Path
-from typing import Dict
+from typing import Dict, Iterable
 
 PACKAGE_DIR = Path(__file__).resolve().parent.parent
 CSRC_DIR = PACKAGE_DIR / "csrc"
@@ -50,22 +52,36 @@ def build_log(stem: str) -> str:
     return path.read_text() if path.exists() else ""
 
 
-def load_library(stem: str) -> ctypes.CDLL:
-    """The loaded library of ``csrc/<stem>.cu``, built first if stale.
-    Raises with the compiler's output if the build fails."""
-    if stem not in _loaded:
+def build(stems: Iterable[str]) -> None:
+    """Build every stale library of ``stems``: one ``nvcc`` per source, all
+    started together.  Raises with the compiler's output if a build fails."""
+    pending = []
+    for stem in dict.fromkeys(stems):
         target = _target(stem)
-        if not target.exists():
-            BUILD_DIR.mkdir(parents=True, exist_ok=True)
-            tmp = target.with_suffix(f".{os.getpid()}.tmp")
-            done = subprocess.run(
-                [_nvcc(), *NVCC_FLAGS, "-o", str(tmp),
-                 str(CSRC_DIR / f"{stem}.cu")],
-                stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
-            (BUILD_DIR / f"{stem}.log").write_text(done.stdout)
-            if done.returncode != 0:
-                raise RuntimeError(f"nvcc failed for {stem}:\n"
-                                   f"{done.stdout[-4000:]}")
+        if target.exists():
+            continue
+        BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        tmp = target.with_suffix(f".{os.getpid()}.tmp")
+        proc = subprocess.Popen(
+            [_nvcc(), *NVCC_FLAGS, "-o", str(tmp),
+             str(CSRC_DIR / f"{stem}.cu")],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        pending.append((stem, target, tmp, proc))
+    failed = []
+    for stem, target, tmp, proc in pending:
+        output, _ = proc.communicate()
+        (BUILD_DIR / f"{stem}.log").write_text(output)
+        if proc.returncode != 0:
+            failed.append(f"nvcc failed for {stem}:\n{output[-4000:]}")
+        else:
             os.replace(tmp, target)
-        _loaded[stem] = ctypes.CDLL(str(target))
+    if failed:
+        raise RuntimeError("\n".join(failed))
+
+
+def load_library(stem: str) -> ctypes.CDLL:
+    """The loaded library of ``csrc/<stem>.cu``, built first if stale."""
+    if stem not in _loaded:
+        build([stem])
+        _loaded[stem] = ctypes.CDLL(str(_target(stem)))
     return _loaded[stem]

@@ -143,7 +143,9 @@ def istft(
     """Inverse STFT of [B, frames, F] (real, imag) -> [B, T]:
     y = OLA(w · irfft(X)) / OLA(w²), then the center padding is trimmed."""
     basis = _on_device("inverse", n_fft, win_length, real.device)
-    coeffs = torch.cat([real, imag], dim=-1)  # [B, frames, 2F]
+    # f32 whatever the coefficients' type, as the JAX package's promoting
+    # f32 einsum
+    coeffs = torch.cat([real, imag], dim=-1).float()  # [B, frames, 2F]
     y = _overlap_add(torch.matmul(coeffs, basis), hop_length)
 
     n_frames = real.shape[1]

@@ -1,10 +1,15 @@
 """Wrapper of the Hopper forward-STFT kernel (``csrc/stft.cu``).
 
 It replaces the TPU kernel ``stylish_tts_tpu/ops/stft_pallas.py:stft_pallas``
-and serves the generator's harmonic-prior STFT.  A tensor on the CPU goes
-to the plain version (``ops/stft.py:stft``); a CUDA tensor goes to the
-kernel, or the wrapper raises.  There is no gradient: the prior is a
-constant of the graph, so an input that requires one is refused.
+and serves every STFT of the port: the generator's harmonic prior, the
+loss spectrograms, the magphase target and the posterior encoder.  A tensor
+on the CPU goes to the plain version (``ops/stft.py:stft``); a CUDA tensor
+goes to the kernel, or the wrapper raises.
+
+The gradient is the transpose of the windowed-DFT product, then
+overlap-add, then the adjoint of the reflect pad, in torch ops: the JAX
+package's gradient is XLA's autodiff of the same product (its Pallas
+kernel has no VJP), so there is no backward kernel to port.
 """
 
 from __future__ import annotations
@@ -74,9 +79,11 @@ class StftKernel:
     def __call__(self, x: torch.Tensor, *, n_fft: int, hop_length: int,
                  win_length: int) -> Tuple[torch.Tensor, torch.Tensor]:
         """Centered, reflect-padded real STFT of [B, T] ->
-        (real, imag), each [B, frames, n_fft//2+1]."""
-        if x.requires_grad and torch.is_grad_enabled():
-            raise RuntimeError("stft kernel has no gradient; detach the input")
+        (real, imag), each [B, frames, n_fft//2+1], differentiable in x."""
+        return _Stft.apply(x, n_fft, hop_length, win_length, self)
+
+    def launch(self, x: torch.Tensor, n_fft: int, hop_length: int,
+               win_length: int) -> Tuple[torch.Tensor, torch.Tensor]:
         if x.device.type == "cpu":
             return plain.stft(x, n_fft=n_fft, hop_length=hop_length,
                               win_length=win_length)
@@ -113,6 +120,38 @@ class StftKernel:
             raise RuntimeError(f"stft kernel launch failed: CUDA error {err}")
         self.launches += 1
         return real, imag
+
+
+def reflect_pad_adjoint(g: torch.Tensor, pad: int) -> torch.Tensor:
+    """Adjoint of reflect-padding [B, T] by ``pad`` on both sides:
+    [B, T + 2 pad] -> [B, T]."""
+    t = g.shape[1] - 2 * pad
+    dx = g[:, pad:pad + t].clone()
+    dx[:, 1:pad + 1] += g[:, :pad].flip(-1)
+    dx[:, t - 1 - pad:t - 1] += g[:, pad + t:].flip(-1)
+    return dx
+
+
+class _Stft(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, n_fft, hop_length, win_length, kernel):
+        ctx.meta = (x.shape[1], n_fft, hop_length, win_length)
+        return kernel.launch(x, n_fft, hop_length, win_length)
+
+    @staticmethod
+    def backward(ctx, d_real, d_imag):
+        t, n_fft, hop, win = ctx.meta
+        grads = [d for d in (d_real, d_imag) if d is not None]
+        zeros = torch.zeros_like(grads[0])
+        coeffs = torch.cat([zeros if d_real is None else d_real,
+                            zeros if d_imag is None else d_imag], dim=-1)
+        basis = plain._on_device("forward", n_fft, win, coeffs.device)
+        frames = torch.matmul(coeffs, basis.T)  # [B, frames, n_fft]
+        padded = plain._overlap_add(frames, hop)
+        pad = n_fft // 2
+        padded = torch.nn.functional.pad(
+            padded, (0, t + 2 * pad - padded.shape[1]))
+        return reflect_pad_adjoint(padded, pad), None, None, None, None
 
 
 stft_forward = StftKernel()

@@ -116,6 +116,29 @@ def well_posed_prior_inputs(pitch: np.ndarray, noise: np.ndarray):
     return pitch.astype(np.float32), noise
 
 
+def speech_level(params):
+    """Bring three seeded heads to the levels of a trained model: an F0 of
+    speech (unit random weights give a few Hz: all unvoiced, no harmonic
+    prior), small prior and flow heads, so exp(logstd) neither overflows
+    nor compounds over the 8 flows, and a log-amplitude that keeps the iSTFT
+    output out of the final tanh's saturation, where both sides would read
+    +-1."""
+    if "pitch_energy_predictor" in params:
+        f0 = params["pitch_energy_predictor"]["f0_proj"]
+        f0["kernel"] = 50.0 * f0["kernel"]
+        f0["bias"] = f0["bias"] + 180.0  # Hz
+    sp = params["speech_predictor"]
+    heads = [sp["prior_encoder"], *sp["flow"].values()]
+    if "posterior_encoder" in sp:
+        heads.append(sp["posterior_encoder"])
+    for layer in heads:
+        for head in ("proj_mean", "proj_logstd"):
+            layer[head]["kernel"] = 0.1 * layer[head]["kernel"]
+    conv = sp["generator"]["amp_output_conv"]["Conv_0"]
+    conv["kernel"] = 0.1 * conv["kernel"]
+    return params
+
+
 # --------------------------------------------------------------------------- #
 
 
@@ -223,3 +246,109 @@ def test_safetensors_reader_matches_library(tmp_path):
     for name in ref:
         assert got[name].dtype == ref[name].dtype, name
         np.testing.assert_array_equal(got[name], ref[name])
+
+
+# --------------------------------------------------------------------------- #
+# the acoustic stage's training models
+
+
+TRAIN_KEYS = ("speech_predictor", "pitch_energy_predictor", "pe_text_encoder",
+              "pe_mel_style_encoder", "mrd")
+
+
+def train_config():
+    """The tiny config with a 1-layer SLM and every configurable dropout at
+    0 (the hard-coded ones are switched off by the tests)."""
+    mc = tiny_model_config()
+    mc.slm.layers = 1
+    mc.text_encoder.dropout = 0.0
+    mc.pitch_energy_predictor.dropout = 0.0
+    return mc
+
+
+@functools.lru_cache(maxsize=2)
+def _train_shapes(mc_json: str):
+    """Param (and batch-stat) shapes of the acoustic stage's models and the
+    SLM, traced once per process."""
+    from stylish_tts_tpu.config import ModelConfig
+    from stylish_tts_tpu.models import build_models
+    from stylish_tts_tpu.models.slm import SLMFeatureExtractor
+    from stylish_tts_tpu.train.init import INIT_F
+
+    mc = ModelConfig.model_validate_json(mc_json)
+    shapes = dict(_inference_shapes(mc_json))
+    models = build_models(mc)
+    key = jax.random.PRNGKey(0)
+    mel = jnp.zeros((1, INIT_F, mc.n_mels))
+    style = jax.eval_shape(lambda: models["pe_mel_style_encoder"].init(
+        key, mel))
+    images = [jnp.zeros((1, r // 2 + 1, INIT_F, 1)) for r in (512, 1024, 2048)]
+    shapes["mrd"] = param_shapes(models["mrd"], images, images)
+    shapes["pe_mel_style_encoder"] = style["params"]
+    shapes["slm"] = param_shapes(SLMFeatureExtractor(n_layers=mc.slm.layers),
+                                 jnp.zeros((1, 1600)))
+    return ({k: shapes[k] for k in TRAIN_KEYS + ("slm",)},
+            style["batch_stats"])
+
+
+def train_params(mc, seed=0):
+    """(params of the acoustic stage's models and the SLM, the mel style
+    encoder's batch stats), every leaf from ``seed``: u standard normal,
+    sigma 1."""
+    shapes, stat_shapes = _train_shapes(mc.model_dump_json())
+    params = {k: fill_params(v, seed + i) for i, (k, v) in
+              enumerate(shapes.items())}
+    rng = np.random.default_rng(seed + 100)
+    stats = jax.tree_util.tree_map_with_path(
+        lambda path, s: jnp.asarray(
+            rng.standard_normal(s.shape).astype(np.float32)
+            if str(path[-1].key).endswith("/u") else np.ones(s.shape,
+                                                               np.float32)),
+        stat_shapes)
+    return speech_level(params), stats
+
+
+def load_train_models(mc, params, stats):
+    """The port's training models (and SLM) carrying the flax weights."""
+    from stylish_tts_tpu_torch.models.slm import SLMFeatureExtractor
+    from stylish_tts_tpu_torch.train.init import build_training_models
+
+    built = build_training_models(mc)
+    models = {}
+    for key in TRAIN_KEYS:
+        flat = flatten(params[key])
+        if key == "pe_mel_style_encoder":
+            flat.update(flatten(stats))
+        built[key].load_state_dict(load_flax_params(key, flat, built[key]))
+        models[key] = built[key]
+    slm = SLMFeatureExtractor(n_layers=mc.slm.layers)
+    slm.load_state_dict(load_flax_params("slm", flatten(params["slm"]), slm))
+    return models, slm.eval()
+
+
+def acoustic_batch(mc, seed=0, batch=2, tokens=10, frames=24):
+    """A numpy batch for the acoustic step: one-hot alignment whose
+    durations sum to the frames, F0 on the well-posed grid with an unvoiced
+    onset, harmonic ground-truth audio plus noise with a silent onset (the
+    posterior encoder's frame 0 is then exactly zero on both sides, not a
+    real spectrum whose phase is 0 or pi by the sign of a rounding), and
+    the harmonic prior's noise."""
+    rng = np.random.default_rng(seed)
+    lengths = np.array([tokens] + [tokens - 2] * (batch - 1), np.int64)
+    text = rng.integers(1, mc.text_encoder.tokens, (batch, tokens))
+    alignment = np.zeros((batch, tokens, frames), np.float32)
+    for b, n in enumerate(lengths):
+        cuts = np.sort(rng.choice(np.arange(1, frames), n - 1, replace=False))
+        for t, (lo, hi) in enumerate(zip([0, *cuts], [*cuts, frames])):
+            alignment[b, t, lo:hi] = 1.0
+    hop = mc.hop_length
+    noise = rng.standard_normal((batch, frames * hop)).astype(np.float32)
+    pitch = 100.0 + 150.0 * rng.random((batch, frames))
+    pitch, noise = well_posed_prior_inputs(pitch, noise)
+    f0 = np.repeat(pitch, hop, axis=1)
+    phase = 2 * np.pi * np.cumsum(f0 / mc.sample_rate, axis=1)
+    audio = 0.3 * np.sin(phase) * (f0 > 0) \
+        + 0.01 * rng.standard_normal(f0.shape)
+    audio[:, : mc.n_fft // 2 + 1] = 0.0
+    return dict(text=text, text_length=lengths, alignment=alignment,
+                pitch=pitch, audio_gt=audio.astype(np.float32)), noise

@@ -311,7 +311,8 @@ def case_wavenet_and_coupling():
     ref, out = _pair(
         J.ResidualCouplingBlock(8, 16, 5, 2, n_flows=3, cond_channels=8),
         P.ResidualCouplingBlock(8, 16, 5, 2, n_flows=3, cond_channels=8),
-        triple + [cond], flax_kwargs={"reverse": True}, seed=31)
+        triple + [cond], flax_kwargs={"reverse": True},
+        port_kwargs={"reverse": True}, seed=31)
     for name, a, b in zip(("z", "mean", "logstd"), out, ref):
         assert_close(a, b, what=f"flow {name}")
     ref, out = _pair(J.PriorEncoder(8), P.PriorEncoder(16, 8), [x],

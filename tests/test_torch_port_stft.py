@@ -98,9 +98,17 @@ def test_wrapper_takes_the_plain_path_on_cpu():
     r0, i0 = pstft.stft(x, n_fft=n_fft, hop_length=hop, win_length=win)
     assert torch.equal(real, r0) and torch.equal(imag, i0)
     assert stft_forward.launches == before  # no kernel ran
-    with pytest.raises(RuntimeError, match="no gradient"):
-        stft_forward(x.requires_grad_(), n_fft=n_fft, hop_length=hop,
-                     win_length=win)
+    # an input that requires a gradient gets the wrapper's own backward
+    # (the transposed DFT product, overlap-add, reflect-pad adjoint): it
+    # equals autograd of the plain version, with no kernel launched
+    xg, xp = x.clone().requires_grad_(), x.clone().requires_grad_()
+    real, imag = stft_forward(xg, n_fft=n_fft, hop_length=hop,
+                              win_length=win)
+    (real.sum() + 2 * imag.sum()).backward()
+    r0, i0 = pstft.stft(xp, n_fft=n_fft, hop_length=hop, win_length=win)
+    (r0.sum() + 2 * i0.sum()).backward()
+    torch.testing.assert_close(xg.grad, xp.grad, rtol=1e-5, atol=1e-4)
+    assert stft_forward.launches == before
     # neither the CPU nor a card: no plain path, no kernel
     with pytest.raises(ValueError, match="unsupported device"):
         stft_forward(x.detach().to("meta"), n_fft=n_fft, hop_length=hop,

@@ -31,36 +31,18 @@ from stylish_tts_tpu_torch.export.infer import (Synthesizer, frame_bucket,
                                                 measure_rtf, to_pcm16)
 from stylish_tts_tpu_torch.models import INFERENCE_MODELS, build_models
 from test_torch_port_helpers import (_inference_params, assert_close,
-                                     flatten, well_posed_prior_inputs)
+                                     flatten, speech_level,
+                                     well_posed_prior_inputs)
 
 PHONEMES = ["ðɪs ɪz ə tˈɛst", "hˈɛloʊ wˈɜːld, haʊ ɑːɹ juː tədˈeɪ?"]
 NOISE_AMPLITUDE = 0.01  # generate_pcph's default
-
-
-def _speech_level(params):
-    """Bring three seeded heads to the levels of a trained model: an F0 of
-    speech (unit random weights give a few Hz: all unvoiced, no harmonic
-    prior), small prior and flow heads, so exp(logstd) neither overflows
-    nor compounds over the 8 flows, and a log-amplitude that keeps the iSTFT output out of
-    the final tanh's saturation, where both sides would read +-1."""
-    f0 = params["pitch_energy_predictor"]["f0_proj"]
-    f0["kernel"] = 50.0 * f0["kernel"]
-    f0["bias"] = f0["bias"] + 180.0  # Hz
-    sp = params["speech_predictor"]
-    for layer in [sp["prior_encoder"], *sp["flow"].values()]:
-        for head in ("proj_mean", "proj_logstd"):
-            layer[head]["kernel"] = 0.1 * layer[head]["kernel"]
-    conv = params["speech_predictor"]["generator"]["amp_output_conv"][
-        "Conv_0"]
-    conv["kernel"] = 0.1 * conv["kernel"]
-    return params
 
 
 @pytest.fixture(scope="module")
 def setup():
     mc_jax = tiny_model_config()
     mc = load_model_config_json(mc_jax.model_dump_json())
-    params = _speech_level(_inference_params(mc_jax, seed=40))
+    params = speech_level(_inference_params(mc_jax, seed=40))
     models = build_models(mc)
     for key in INFERENCE_MODELS:
         models[key].load_state_dict(
