@@ -59,7 +59,10 @@ class ChannelLayerNorm(nn.Module):
         self.beta = nn.Parameter(torch.zeros(channels))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return F.layer_norm(x, x.shape[-1:], self.gamma, self.beta, 1e-4)
+        # normalised in f32 and rounded to x's type, then the affine in that
+        # type: the JAX package's cast points under bf16
+        x = F.layer_norm(x, x.shape[-1:], eps=1e-4)
+        return x * self.gamma + self.beta
 
 
 class _StyleAffine(nn.Module):
@@ -92,8 +95,9 @@ class AdaptiveInstanceNorm(_StyleAffine):
 
     def forward(self, x: torch.Tensor, style: torch.Tensor) -> torch.Tensor:
         gamma, beta = self.affine(style)
-        var, mean = torch.var_mean(x, dim=1, keepdim=True, correction=0)
-        x = (x - mean) * torch.rsqrt(var + 1e-5)
+        xf = x.float()  # moments and normalisation in f32
+        var, mean = torch.var_mean(xf, dim=1, keepdim=True, correction=0)
+        x = ((xf - mean) * torch.rsqrt(var + 1e-5)).to(x.dtype)
         return (1.0 + gamma) * x + beta
 
 

@@ -225,7 +225,6 @@ def make_train_step(stage_name: str, ctx: StageContext, base_lr: float):
         finally:
             for key in stage.train_models:
                 state.models[key].eval()
-        d_total = d_plain = None
         if has_disc:
             t_fft, p_fft = disc_inputs
             gen_loss, d_total, d_plain = gan_losses(
