@@ -151,10 +151,13 @@ def test_acoustic_step_metrics_match_jax(reference, port_step):
 # itself up to 8 % of the module's largest value off its f32 one (measured
 # on random inputs in test_gan_routing_matches_two_view_jax's setting, the
 # port's 2 %), so these two are held by the module's relative L2 error and
-# loosely by the max (measured: speech predictor 4 % and 3.6 %, MRD 5 % and
-# 29 %, where one bias gradient sums thousands of bf16 terms).
+# loosely by the max (measured with 1 to 8 CPU threads: speech predictor
+# 4.1-4.4 % and 4.1-6.9 %, where the thread count reorders the port's bf16
+# sums; MRD 5.4 % and 29 %, where one bias gradient sums thousands of bf16
+# terms).
 MAX_TOL = {"pitch_energy_predictor": 1e-4, "pe_text_encoder": 1e-4,
-           "pe_mel_style_encoder": 1e-4, "speech_predictor": 0.1, "mrd": 0.4}
+           "pe_mel_style_encoder": 1e-4, "speech_predictor": 0.15,
+           "mrd": 0.4}
 L2_TOL = {"pitch_energy_predictor": 1e-4, "pe_text_encoder": 1e-4,
           "pe_mel_style_encoder": 1e-4, "speech_predictor": 0.1, "mrd": 0.15}
 
