@@ -122,13 +122,13 @@ def port_step(reference):
 
 
 # f32 terms: tens of f32 layers, the STFTs and the mel filterbank summed in
-# another order
-F32_TERMS = {"mel": 1e-4, "mag": 1e-4, "phase": 1e-4, "pitch": 1e-4,
-             "energy": 1e-4}
+# another order (measured: at most 9e-7 relative)
+F32_TERMS = {"mel": 1e-5, "mag": 1e-5, "phase": 1e-5, "pitch": 1e-5,
+             "energy": 1e-5}
 # bf16 terms: the MRD and the SLM run in bf16 on both sides (2^-8 per
 # rounding), through XLA's convs on one side and f32 sums of the same bf16
-# values on the other
-BF16_TERMS = {"slm": 1e-2, "generator": 1e-2, "discriminator": 1e-2}
+# values on the other (measured: at most 4e-4 relative)
+BF16_TERMS = {"slm": 5e-3, "generator": 5e-3, "discriminator": 5e-3}
 
 
 def test_acoustic_step_metrics_match_jax(reference, port_step):
@@ -140,7 +140,8 @@ def test_acoustic_step_metrics_match_jax(reference, port_step):
         assert abs(got - want[key]) <= rel * abs(want[key]), \
             (key, got, want[key])
     # the total is dominated by the f32 terms; the bf16 ones are < 5 % of it
-    assert abs(float(metrics["loss"]) - want["loss"]) <= 1e-3 * want["loss"]
+    # (measured: 1.6e-5 relative)
+    assert abs(float(metrics["loss"]) - want["loss"]) <= 2e-4 * want["loss"]
 
 
 # each module's gradient against the JAX step's.  The f32 modules get theirs
