@@ -13,14 +13,22 @@ Phases, in order; any failure raises and the exit code is non-zero:
    layer shapes (b8 x f460), each held against its plain PyTorch version,
    with its time, the plain version's, a library call's (a yardstick the
    port never calls) and its bound;
-3. synthesis: ``Synthesizer`` at the default full-width ModelConfig with
+3. probes: the eight patch-staging probe kernels (``csrc/patch_probe.cu``)
+   at the probe script's sizes and inputs, each held against its plain
+   version (the five copies exactly, the three products within
+   1e-5 of the largest value) and timed beside it, its library call and its
+   bound; then the probe entry point
+   (``stylish_tts_tpu_torch.scripts.mosaic_probe.run``) on the card, with
+   the launch counts set to 0 just before and read just after: every probe
+   "ok", every probe kernel launched;
+4. synthesis: ``Synthesizer`` at the default full-width ModelConfig with
    seeded random weights serves one ``synthesize`` of 80 phonemes and one
    ``synthesize_batch`` of 8 utterances; the launch counts are set to 0
    just before and read just after, and the audio is checked (finite, not
    silent, exactly total_frames * hop samples); the STFT kernel is held
    against its plain version at this path's shapes, and the CPU and card
    outputs of the full-width models are compared on a short input;
-4. training (this slice's main path): the acoustic-stage train state at
+5. training: the acoustic-stage train state at
    the full-width ModelConfig and the default Config (bf16 mixed
    precision, 12-layer frozen SLM from a seed) takes one warm-up step and
    3 timed steps on one synthetic batch of 8 x 460 mel frames; the launch
@@ -29,7 +37,9 @@ Phases, in order; any failure raises and the exit code is non-zero:
    changed and every kernel launched; then one f32 step at full width on
    1 x 64 frames runs on the CPU and on the card from the same weights and
    their metrics are compared;
-5. one JSON line of every kernel's numbers, then the result line.
+6. one JSON line of every kernel's numbers, with its launches on the path
+   that runs it (per train step, synthesis request or probe run), then the
+   result line.
 
 ``--profile`` adds torch.profiler breakdowns of one batch request and of
 one train step: device time by kernel and the device's busy share of the
@@ -250,6 +260,181 @@ def spec_conv_numbers(shape, kt: int, stride: int, flush: torch.Tensor,
 
 
 # --------------------------------------------------------------------------- #
+# the patch-staging probes
+
+
+def time_mean_ms(fn, iters: int = 100) -> float:
+    """Mean device time of ``fn`` over ``iters`` back-to-back launches
+    between one pair of CUDA events, after a warm-up, with no L2 flush:
+    the probes' inputs are a few hundred KB, which the cache holds anyway."""
+    fn()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    start.record()
+    for _ in range(iters):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / iters
+
+
+def device_ms(fn, iters: int = 20) -> float:
+    """Device time of one call of ``fn``: the durations of the kernels it
+    launches (torch.profiler), summed and averaged over ``iters`` calls.
+    Unlike ``time_mean_ms`` it leaves out the gaps while the host launches."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    total_us = sum(evt.self_device_time_total for evt in prof.key_averages()
+                   if evt.device_type == torch.autograd.DeviceType.CUDA)
+    if total_us <= 0:
+        raise AssertionError("torch.profiler recorded no device time")
+    return total_us / 1e3 / iters
+
+
+def mini_conv_weight(w: torch.Tensor) -> torch.Tensor:
+    """The mini kernel's w [1728, 128] as a conv2d kernel [128, 128, 3, 9]
+    over (frequency block, t), zero outside the groups it reads."""
+    from stylish_tts_tpu_torch.ops import patch_probe as pp
+
+    full = torch.zeros(128, 128, 3, pp.MINI_KT, device=w.device)
+    for gi, g in enumerate(pp.MINI_GROUPS):
+        blk, lane = divmod(g, 4)
+        for dt in range(pp.MINI_KT):
+            rows = w[pp.CIN * (pp.MINI_KT * gi + dt):][:pp.CIN]
+            full[:, pp.CIN * lane:pp.CIN * (lane + 1), blk, dt] = rows.T
+    return full
+
+
+def probe_numbers(device, card: str) -> dict:
+    """Each probe kernel at the probe script's sizes and inputs: held
+    against its plain version, timed beside it and one library call, with
+    its bound."""
+    import torch.nn.functional as F
+
+    from stylish_tts_tpu_torch.ops import patch_probe as pp
+    from stylish_tts_tpu_torch.scripts import mosaic_probe as mp
+
+    x = torch.from_numpy(np.random.default_rng(0).standard_normal(
+        (mp.T + mp.TAPS, mp.CIN)).astype(np.float32)).to(device)
+    xp = torch.cat([x, x * 2.0], dim=1)
+    w = mp.product_weights(device)
+    xq, wq = (torch.from_numpy(a).to(device) for a in mp.mini_inputs())
+    t = mp.T
+    x_ncl = x[:t + mp.TAPS - 1].T[None].contiguous()  # the rows P reads
+    w_conv = w.view(mp.TAPS, mp.CIN, 128).permute(2, 1, 0).contiguous()
+    xq_nchw = xq.permute(0, 3, 1, 2)  # a channels-last view
+    wq_conv = mini_conv_weight(wq)
+
+    def patches_lib():  # the rows overlap: a view until .contiguous()
+        return x.as_strided((t, pp.K), (mp.CIN, 1)).contiguous()
+
+    def lane_off_lib():
+        return xp.as_strided((t, 3, 2, mp.CIN), (64, 128, 96, 1)
+                             ).reshape(t, pp.K)
+
+    def matmul_lib():
+        return F.conv1d(x_ncl, w_conv)
+
+    def mini_lib():
+        return F.conv2d(xq_nchw, wq_conv)
+
+    p_bytes = 4.0 * (x.numel() + t * pp.K)
+    mm_flops = 2.0 * t * pp.K * 128
+    mm_bytes = 4.0 * (x.numel() + w.numel() + t * 128)
+    b, fq, rows = xq.shape[0], xq.shape[1] - 2, xq.shape[2] - 8
+    mini_flops = 2.0 * b * fq * rows * pp.MINI_K * 128
+    mini_bytes = 4.0 * (xq.numel() + wq.numel() + b * fq * rows * 128)
+    # kernel: (inputs, plain, library, library output -> plain's layout,
+    # FLOP, bytes)
+    cases = {
+        pp.concat_lane_off: ((xp,), pp.lane_off_plain, lane_off_lib,
+                             torch.asarray, 0.0,
+                             4.0 * (xp.numel() + t * pp.K)),
+        pp.matmul_after_concat: ((x, w), pp.matmul_plain, matmul_lib,
+                                 lambda y: y[0].T, mm_flops, mm_bytes),
+        pp.matmul_after_scratch: ((x, w), pp.matmul_plain, matmul_lib,
+                                  lambda y: y[0].T, mm_flops, mm_bytes),
+        pp.mini_kernel: ((xq, wq), pp.mini_plain, mini_lib,
+                         lambda y: y.permute(0, 2, 3, 1), mini_flops,
+                         mini_bytes),
+    }
+    for k in (pp.concat_full_lane, pp.scratch_write, pp.stack_reshape,
+              pp.dma_assemble):
+        cases[k] = ((x,), pp.patches_plain, patches_lib, torch.asarray, 0.0,
+                    p_bytes)
+
+    out = {}
+    for k in pp.KERNELS:
+        inputs, plain, library, as_plain, flops, nbytes = cases[k]
+        before = k.launches
+        got = k(*inputs)
+        if k.launches != before + 1:
+            raise AssertionError(f"{k.name}: the wrapper did not launch")
+        want = plain(*inputs)
+        lib = as_plain(library())
+        torch.cuda.synchronize()
+        if got.shape != want.shape or lib.shape != want.shape:
+            raise AssertionError(f"{k.name}: {tuple(got.shape)}, library "
+                                 f"{tuple(lib.shape)} vs {tuple(want.shape)}")
+        err = (got - want).abs().max().item()
+        lib_err = (lib - want).abs().max().item()
+        scale = want.abs().max().item()
+        # the copies move data only; the products are f32 sums of 192 or
+        # 1728 products in another order
+        tol = 0.0 if flops == 0 else 1e-5 * scale
+        if not err <= tol:
+            raise AssertionError(f"{k.name}: max err {err:.3e} > {tol:.3e}")
+        if not lib_err <= 1e-3 * scale:
+            raise AssertionError(f"{k.name}: the library call is off by "
+                                 f"{lib_err:.3e}")
+        t_ops = flops / PEAK_F32_FLOPS * 1e3
+        t_bytes = nbytes / PEAK_BYTES * 1e3
+        out[k.name] = {
+            "shapes": [list(a.shape) for a in inputs],
+            "max_abs_err": err, "max_abs_plain": scale,
+            "library_err": lib_err,
+            "ms": time_mean_ms(lambda: k(*inputs)),
+            "plain_ms": time_mean_ms(lambda: plain(*inputs)),
+            "library_ms": time_mean_ms(library),
+            "device_ms": device_ms(lambda: k(*inputs)),
+            "plain_device_ms": device_ms(lambda: plain(*inputs)),
+            "library_device_ms": device_ms(library),
+            "bound_ms": max(t_ops, t_bytes),
+            "bound_by": "operations" if t_ops > t_bytes else "bytes",
+            "flops": flops, "bytes": nbytes,
+        }
+    return out
+
+
+def probe_run(device, kernels, card: str) -> dict:
+    """The probe entry point on the card, its launch counts set to 0 just
+    before and read just after."""
+    from stylish_tts_tpu_torch.scripts import mosaic_probe as mp
+
+    for k in kernels:
+        k.launches = 0
+    results = mp.run(mp.PROBES, device)
+    launches = {k.name: k.launches for k in kernels}
+    print(f"probe entry point on the card: {json.dumps(results)}; "
+          f"launches {launches} [{card}]")
+    bad = {n: r for n, r in results.items() if r != "ok"}
+    if bad or list(results) != mp.PROBES:
+        raise AssertionError(f"probes not ok: {bad or results}")
+    for name, n in launches.items():
+        if n != 1:
+            raise AssertionError(f"{name}: {n} launches in one probe run")
+    return {"results": results, "launches": launches}
+
+
+# --------------------------------------------------------------------------- #
 # the training path
 
 
@@ -351,7 +536,9 @@ def train_path(mc, device, card: str, kernels) -> dict:
         raise AssertionError("the discriminator EMA did not change")
     audio_s = TRAIN_BATCH * TRAIN_FRAMES * mc.hop_length / mc.sample_rate
     median = float(np.median(walls))
-    per_step = {k: v / 3 for k, v in launches.items()}
+    if any(v % 3 for v in launches.values()):
+        raise AssertionError(f"launches differ between the steps: {launches}")
+    per_step = {k: v // 3 for k, v in launches.items()}
     print(f"train step (acoustic, bf16, b{TRAIN_BATCH} x f{TRAIN_FRAMES}): "
           f"{', '.join(f'{w * 1e3:.1f}' for w in walls)} ms, median "
           f"{median * 1e3:.1f} ms, {audio_s / median:.1f} audio s per s, "
@@ -565,8 +752,9 @@ def main() -> int:
     from stylish_tts_tpu_torch.config import ModelConfig
     from stylish_tts_tpu_torch.device import resolve_device
     from stylish_tts_tpu_torch.export.infer import Synthesizer, frame_bucket
+    from stylish_tts_tpu_torch.ops import patch_probe as pp
     from stylish_tts_tpu_torch.ops import spec_conv as sc
-    from stylish_tts_tpu_torch.ops.build import build, build_log
+    from stylish_tts_tpu_torch.ops.build import CSRC_DIR, build, build_log
     from stylish_tts_tpu_torch.ops.stft_kernel import stft_forward
 
     kernels = [stft_forward, *sc.KERNELS]
@@ -579,7 +767,7 @@ def main() -> int:
           f"{torch.cuda.get_device_name(0)}")
     device = resolve_device("cuda")
     t0 = time.perf_counter()
-    stems = ["spec_conv", "stft"]  # every source of csrc/
+    stems = sorted(p.stem for p in CSRC_DIR.glob("*.cu"))
     build(stems)
     print(f"build: {', '.join(stems)} {time.perf_counter() - t0:.1f} s")
     for stem in stems:
@@ -618,7 +806,25 @@ def main() -> int:
                   f"{n['max_abs_plain']:.2e} [{card}]")
     torch.cuda.empty_cache()
 
-    # 3. synthesis at full width
+    # 3. the patch-staging probes, then their entry point
+    record["probes"] = probe_numbers(device, card)
+    print(f"probe kernels: times are means over 100 back-to-back launches "
+          f"between one pair of CUDA events, L2 not flushed; [device] is "
+          f"the kernels' own time by torch.profiler, without the host's "
+          f"launch gaps [{card}]")
+    for name, n in record["probes"].items():
+        note = (" (over all 128 channels: twice the useful FLOP)"
+                if name == "probe_mini_kernel" else "")
+        print(f"{name} {n['shapes']}: kernel {n['ms'] * 1e3:.2f} us "
+              f"[{n['device_ms'] * 1e3:.2f}], plain "
+              f"{n['plain_ms'] * 1e3:.2f} us [{n['plain_device_ms'] * 1e3:.2f}]"
+              f", library {n['library_ms'] * 1e3:.2f} us "
+              f"[{n['library_device_ms'] * 1e3:.2f}]{note}, bound "
+              f"{n['bound_ms'] * 1e3:.3f} us ({n['bound_by']}), max err "
+              f"{n['max_abs_err']:.2e} of {n['max_abs_plain']:.2e} [{card}]")
+    record["probe_run"] = probe_run(device, pp.KERNELS, card)
+
+    # 4. synthesis at full width
     mc = ModelConfig()
     models = seeded_models(mc, seed=0)
     models_cpu = copy.deepcopy(models)
@@ -696,7 +902,7 @@ def main() -> int:
     del synth, models, models_cpu
     torch.cuda.empty_cache()
 
-    # 4. training: the acoustic step at full width
+    # 5. training: the acoustic step at full width
     train, state, step, tbatch, gen = train_path(mc, device, card, kernels)
     record["train"] = train
     # the STFT at the train step's largest shape: the magphase target and
@@ -716,22 +922,29 @@ def main() -> int:
     torch.cuda.empty_cache()
     record["train_cpu_vs_card"] = cpu_vs_card_step(mc, card)
 
-    # 5. results: each kernel's own numbers; launches from the train step
+    # 6. results: each kernel's own numbers and its launches on the path
+    # that runs it: per train step, or per probe run
     out_dir = Path("chiprun_out")
     out_dir.mkdir(exist_ok=True)
     (out_dir / "chip_smoke.json").write_text(json.dumps(record, indent=1))
-    numbers = {"stft_forward": train_stft}
+    numbers = {"stft_forward": train_stft, **record["probes"]}
     for name in ("forward", "dgrad", "wgrad"):
         numbers[f"spec_conv_{name}"] = record["spec_conv"]["res0 conv_1"][name]
+    launches = {k: (n, "train step")
+                for k, n in train["launches_per_step"].items()}
+    launches.update({k: (n, "probe run")
+                     for k, n in record["probe_run"]["launches"].items()})
     entries = []
-    for k in kernels:
+    for k in [*kernels, *pp.KERNELS]:
         n = numbers[k.name]
+        count, per = launches[k.name]
         entries.append({
             "name": k.name, "route": k.route, "source": k.source,
-            "replaces": k.replaces, "launches": train["launches"][k.name],
+            "replaces": k.replaces, "launches": count, "per": per,
             "max_abs_err": n["max_abs_err"], "ms": n["ms"],
             "plain_ms": n["plain_ms"], "bound_ms": n["bound_ms"],
             "bound_by": n["bound_by"], "library_ms": n["library_ms"],
+            "device_ms": n.get("device_ms"),  # the probes' profiler time
         })
     print(card)
     print(json.dumps({"kernels": entries}))

@@ -1,5 +1,6 @@
 """The Hopper kernels (STFT; the MRD's spec-conv forward, dgrad and
-wgrad) against their plain versions, on the card.
+wgrad; the eight patch-staging probes) against their plain versions, on
+the card.
 
 Imports no JAX, so it runs on a machine with a card and no JAX:
 
@@ -15,6 +16,7 @@ import numpy as np
 import pytest
 import torch
 
+from stylish_tts_tpu_torch.ops import patch_probe as pp
 from stylish_tts_tpu_torch.ops import spec_conv as sc
 from stylish_tts_tpu_torch.ops import stft as plain
 from stylish_tts_tpu_torch.ops.stft_kernel import stft_forward
@@ -141,3 +143,68 @@ def test_spec_conv_refuses_what_it_does_not_take(cuda):
         sc.spec_conv_dgrad(d, wt, 37, 2)  # width 37 gives 19 columns, not 20
     with pytest.raises(ValueError):
         sc.spec_conv_wgrad(x, d[:, :, :-1].contiguous(), 9, 2)
+
+
+def _probe_inputs(kernel, rows, seed=0):
+    """The kernel's inputs on the card: rows of output, the probe script's
+    widths."""
+    rng = np.random.default_rng(seed)
+
+    def f32(*shape, scale=1.0):
+        return torch.from_numpy((scale * rng.standard_normal(shape))
+                                .astype(np.float32)).cuda()
+
+    if kernel is pp.mini_kernel:
+        return f32(2, 5, rows + 8, 128), f32(1728, 128, scale=0.1)
+    if kernel is pp.concat_lane_off:
+        return (f32(rows + 6, 64),)
+    if kernel in (pp.matmul_after_concat, pp.matmul_after_scratch):
+        return f32(rows + 6, 32), f32(192, 128)
+    return (f32(rows + 6, 32),)
+
+
+def _probe_plain(kernel, *inputs):
+    if kernel is pp.mini_kernel:
+        return pp.mini_plain(*inputs)
+    if kernel in (pp.matmul_after_concat, pp.matmul_after_scratch):
+        return pp.matmul_plain(*inputs)
+    return kernel.plain(*inputs)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rows", [256, 96])
+@pytest.mark.parametrize("kernel", pp.KERNELS, ids=lambda k: k.name)
+def test_probe_kernels_match_plain(cuda, kernel, rows):
+    inputs = _probe_inputs(kernel, rows)
+    before = kernel.launches
+    got = kernel(*inputs)
+    torch.cuda.synchronize()
+    assert kernel.launches == before + 1
+    want = _probe_plain(kernel, *inputs)
+    assert got.shape == want.shape
+    if kernel.n_ptrs == 2:  # #4-8 move data only
+        assert torch.equal(got, want)
+    else:  # f32 sums of 192 or 1728 products in another order
+        err = (got - want).abs().max().item()
+        assert err <= 1e-5 * want.abs().max().item(), err
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kernel", pp.KERNELS, ids=lambda k: k.name)
+def test_probe_kernels_refuse_what_they_do_not_take(cuda, kernel):
+    inputs = _probe_inputs(kernel, 64)
+    first, rest = inputs[0], inputs[1:]
+    with pytest.raises(TypeError):  # not f32
+        kernel(first.double(), *rest)
+    with pytest.raises(ValueError):  # not contiguous
+        kernel(first.transpose(-1, -2).contiguous().transpose(-1, -2), *rest)
+    with pytest.raises(ValueError):  # 63 output rows, or a wrong width
+        kernel(first[..., :-1, :].contiguous(), *rest)
+    with pytest.raises(ValueError):
+        kernel(first[..., :-1].contiguous(), *rest)
+    if rest:  # a CPU weight with a CUDA input
+        with pytest.raises(ValueError):
+            kernel(first, rest[0].cpu())
+    before = kernel.launches
+    kernel(*inputs)
+    assert kernel.launches == before + 1
