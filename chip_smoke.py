@@ -42,8 +42,8 @@ Phases, in order; any failure raises and the exit code is non-zero:
    result line.
 
 ``--profile`` adds torch.profiler breakdowns of one batch request and of
-one train step: device time by kernel and the device's busy share of the
-wall time.
+one train step: device time by kernel, the port's own kernels' totals,
+and the device's busy share of the wall time.
 
 Numbers beyond the end of the output go to ``chiprun_out/chip_smoke.json``.
 """
@@ -78,6 +78,10 @@ CONV_SHAPES = [("res0 conv_1", (8, 257, 2761, 32), 9, 2),
 # f32 weight gradient: sums of millions of bf16 products in another order
 CONV_TOL = {"forward": 1e-2, "dgrad": 1e-2, "wgrad": 1e-3}
 TRAIN_BATCH, TRAIN_FRAMES = 8, 460
+# the port's kernel functions on the two model paths, as the profiler
+# names them
+PORT_KERNEL_SYMBOLS = ("stft_fft_kernel", "spec_conv_",
+                       "sum_partials_kernel")
 
 
 def card_line() -> str:
@@ -92,12 +96,17 @@ def card_line() -> str:
 def time_ms(fn, iters: int = 10, flush: torch.Tensor | None = None) -> float:
     """Median device time of ``fn`` from CUDA events, after a warm-up.
     ``flush`` (a buffer larger than the 50 MB L2) is rewritten before each
-    launch, outside the timed span, so each launch finds the cache cold."""
+    launch, outside the timed span, so each launch finds the cache cold.
+    The stream is then held busy for about 1 ms (``torch.cuda._sleep``), so
+    the host has queued the start event and ``fn``'s launches before the
+    device reaches them: a span of a short kernel does not hold the host's
+    time to check arguments and launch it."""
     fn()
     times = []
     for _ in range(iters):
         if flush is not None:
             flush.zero_()
+        torch.cuda._sleep(2_000_000)
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         start.record()
@@ -117,7 +126,7 @@ def stft_numbers(x: torch.Tensor, n_fft: int, hop: int, win: int,
     """Hold the kernel against the plain version on ``x`` and time both,
     torch.stft, and the bound."""
     from stylish_tts_tpu_torch.ops import stft as plain
-    from stylish_tts_tpu_torch.ops.stft_kernel import stft_forward, window_taps
+    from stylish_tts_tpu_torch.ops.stft_kernel import stft_forward
 
     kw = dict(n_fft=n_fft, hop_length=hop, win_length=win)
     before = stft_forward.launches
@@ -152,28 +161,24 @@ def stft_numbers(x: torch.Tensor, n_fft: int, hop: int, win: int,
         x, n_fft, hop, n_fft, window, center=True, pad_mode="reflect",
         return_complex=True), flush=flush)
 
-    # the least the card could take for this function, whatever the
-    # algorithm: a real FFT of n_fft points per frame, about
-    # 2.5 * n_fft * log2(n_fft) FLOP (half a complex radix-2 FFT's
-    # 5 N log2 N), plus the window's n_fft products; bytes are the signal
-    # and the window read once and (real, imag) written once.  The kernel's
-    # DFT product does 2 * taps * 2F FLOP per frame instead, so it sits far
-    # above this bound by construction.
+    # the least the card could take for this function: a real FFT of
+    # n_fft points per frame, about 2.5 * n_fft * log2(n_fft) FLOP (half a
+    # complex radix-2 FFT's 5 N log2 N), plus the window's n_fft products;
+    # bytes are the signal and the window read once and (real, imag)
+    # written once
     b, t = x.shape
     frames, freq = real.shape[1], real.shape[2]
     flops = b * frames * (2.5 * n_fft * np.log2(n_fft) + n_fft)
     nbytes = 4.0 * (b * t + n_fft + 2 * b * frames * freq)
-    lo, hi = window_taps(n_fft, win)
-    dft_flops = 2.0 * b * frames * (hi - lo) * 2 * freq
     t_ops, t_bytes = flops / PEAK_F32_FLOPS * 1e3, nbytes / PEAK_BYTES * 1e3
+    bound = max(t_ops, t_bytes)
     return {
         "shape": [b, t], "n_fft": n_fft, "hop": hop, "win": win,
         "max_abs_err": err, "err_vs_torch_stft": lib_err, "ms": ms,
         "plain_ms": plain_ms,
-        "library_ms": library_ms, "bound_ms": max(t_ops, t_bytes),
+        "library_ms": library_ms, "bound_ms": bound,
         "bound_by": "operations" if t_ops >= t_bytes else "bytes",
-        "flops": flops, "bytes": nbytes, "dft_flops": dft_flops,
-        "dft_tflops_per_s": dft_flops / ms * 1e-9,
+        "bound_share": bound / ms, "flops": flops, "bytes": nbytes,
     }
 
 
@@ -739,8 +744,21 @@ def _device_table(prof, wall_ms: float, what: str, card: str) -> dict:
     for dev, count, key in rows[:15]:
         print(f"  {dev:8.3f} ms {100 * dev / device_ms:5.1f}% x{count:<5d} "
               f"{key[:90]}")
+    # the port's own kernels, wherever they rank
+    port = {}
+    for dev, count, key in rows:
+        for sym in PORT_KERNEL_SYMBOLS:
+            if sym not in key:
+                continue
+            name = key[key.index(sym):].split("(")[0]  # with its template
+            ms, n = port.get(name, (0.0, 0))
+            port[name] = (ms + dev, n + count)
+    print("  the port's kernels: " + ", ".join(
+        f"{k} {ms:.3f} ms x{n}" for k, (ms, n) in port.items()))
     return {"wall_ms": wall_ms, "device_ms": device_ms,
-            "top": [{"ms": d, "count": c, "name": k} for d, c, k in rows[:40]]}
+            "top": [{"ms": d, "count": c, "name": k} for d, c, k in rows[:40]],
+            "port_kernels": {k: {"ms": ms, "count": n}
+                             for k, (ms, n) in port.items()}}
 
 
 def main() -> int:
@@ -786,9 +804,9 @@ def main() -> int:
         record["stft_shapes"].append(r)
         print(f"stft n_fft={n_fft} hop={hop} win={win} x={r['shape']}: "
               f"kernel {r['ms']:.3f} ms, plain {r['plain_ms']:.3f} ms, "
-              f"torch.stft {r['library_ms']:.3f} ms, bound {r['bound_ms']:.3f}"
-              f" ms ({r['bound_by']}), DFT product at "
-              f"{r['dft_tflops_per_s']:.1f} TFLOP/s, max err "
+              f"torch.stft {r['library_ms']:.3f} ms, bound {r['bound_ms']:.4f}"
+              f" ms ({r['bound_by']}, {100 * r['bound_share']:.1f}% of it), "
+              f"max err "
               f"{r['max_abs_err']:.2e} (vs torch.stft "
               f"{r['err_vs_torch_stft']:.2e}) [{card}]")
     del x
@@ -887,9 +905,8 @@ def main() -> int:
     print(f"stft at the synthesis shapes {main['shape']} and "
           f"{record['stft_main_path_single']['shape']}: kernel "
           f"{main['ms']:.3f} ms, plain {main['plain_ms']:.3f} ms, torch.stft "
-          f"{main['library_ms']:.3f} ms, bound {main['bound_ms']:.3f} ms "
-          f"({main['bound_by']}), DFT product at "
-          f"{main['dft_tflops_per_s']:.1f} TFLOP/s, "
+          f"{main['library_ms']:.3f} ms, bound {main['bound_ms']:.4f} ms "
+          f"({main['bound_by']}, {100 * main['bound_share']:.1f}% of it), "
           f"max err {main['max_abs_err']:.2e} (vs torch.stft "
           f"{main['err_vs_torch_stft']:.2e}) [{card}]")
 
@@ -913,7 +930,8 @@ def main() -> int:
     print(f"stft at the train step's shape {train_stft['shape']}: kernel "
           f"{train_stft['ms']:.3f} ms, plain {train_stft['plain_ms']:.3f} ms,"
           f" torch.stft {train_stft['library_ms']:.3f} ms, bound "
-          f"{train_stft['bound_ms']:.3f} ms, max err "
+          f"{train_stft['bound_ms']:.4f} ms ({train_stft['bound_by']}, "
+          f"{100 * train_stft['bound_share']:.1f}% of it), max err "
           f"{train_stft['max_abs_err']:.2e} [{card}]")
     if "--profile" in sys.argv[1:]:
         record["profile_train"] = profile_step(step, state, tbatch, gen,

@@ -1,175 +1,314 @@
-// Forward real STFT for Hopper (sm_90a), f32 in, f32 out.
+// Forward real STFT for Hopper (sm_90a) by a shared-memory real FFT, f32
+// in, f32 out.
 //
 // Replaces the TPU kernel stylish_tts_tpu/ops/stft_pallas.py:_stft_kernel
-// (launched by stft_pallas): reflect-pad by n_fft/2, frame at `hop`, and
-// multiply each frame by the windowed DFT basis (cos | -sin columns) with
-// f32 accumulation.  Outputs (real, imag), each [B, frames, n_fft/2+1].
+// (kernel :43, launched by stft_pallas :81): reflect-pad [B, T] by n_fft/2,
+// frame at `hop`, multiply by the Hann window centre-padded to n_fft, and
+// take the one-sided DFT with torch's e^{-j2πkn/N} sign.  Outputs (real,
+// imag), each [B, frames, n_fft/2+1], planar.  The TPU kernel multiplies
+// each frame by a windowed DFT basis, O(n_fft^2) work per frame; this one
+// computes the same function by an FFT.
 //
-// What bounds it on the card.  The function itself is bound by bytes: an
-// FFT needs about 2.5*n_fft*log2(n_fft) FLOP per frame, far below the
-// 8*(n_fft/2+1) bytes each frame writes, so writing (real, imag) once at
-// 3.35 TB/s is the least time (0.094 ms for the main path's [8, 348000]).
-// This kernel keeps the TPU kernel's DFT-product formulation instead:
-// 2*1199*2050 FLOP per frame at the synthesis shape (n_fft 2048, hop 75,
-// win 1200), about 530 FLOP per byte at B=4 over 10 s, so the kernel is
-// bound by f32 FMA throughput (67 TFLOP/s on the H100 SXM), and that
-// formulation, not the card, puts it about 60x above the function's bound.
-// A tensor-core DFT (3xTF32 for f32 accuracy) or an FFT written by hand is
-// the way to close that gap.  Within the DFT formulation it is built to
-// keep the FMA units fed:
+// What bounds it on the card.  Bytes: the signal read once and (real,
+// imag) written once, 8*(n_fft/2+1) bytes per frame.  At the train step's
+// [8, 138000] (n_fft 2048, hop 75, win 1200: 14,728 frames) that is
+// 4.4 MB in and 120.8 MB out, 0.0374 ms at 3.35 TB/s; at the synthesis
+// prior's [8, 348000], 0.094 ms.  The FFT needs about
+// 2.5*N*log2(N) + N = 58 kFLOP per frame (0.86 GFLOP at the train shape,
+// 0.0128 ms on the f32 units at 67 TFLOP/s), about 3x below the bytes.
+// The windowed DFT product of the TPU kernel did 2*1200*2050 = 4.9 MFLOP
+// per frame, 85x this.  The design keeps the work near the FFT's and the
+// traffic near the bytes bound:
 //
-//  * one block per (batch, 64-frame tile, 128-column tile).  It stages the
-//    contiguous span of the reflect-padded signal that its frames cover in
-//    shared memory once (the reflection is done while staging; frames
-//    overlap n_fft/hop ~ 27x at hop 75, so no frame matrix is ever built);
-//  * only the taps where the window is non-zero are multiplied (the basis
-//    rows outside [(n_fft-win)/2, (n_fft+win)/2) are zero): exact, and 41%
-//    less work at win 1200;
-//  * the basis, [taps, 2F] padded to a multiple of 16 rows and 128 columns
-//    (10.4 MB at n_fft 2048, win 1200), stays in the 50 MB L2; each
-//    block streams its 128 columns through a double-buffered shared tile
-//    of 16 taps, prefetched into registers during the previous step;
-//  * each thread accumulates an 8-frame x 4-column register tile on the
-//    f32 FMA units.  Within a warp the 8 signal values are broadcast reads
-//    and the 4 basis values are conflict-free, so a tap costs 12 shared
-//    loads for 32 FMAs.  Tensor cores (3xTF32 to keep f32 accuracy), TMA
-//    and wgmma are left for later work.
+//  * One block of 256 threads owns FPB consecutive frames of one batch
+//    row, n_fft/16 threads per frame: 2 frames at n_fft 2048, 4 at 1024,
+//    8 at 512.  It stages the contiguous span of the reflect-padded signal
+//    that those frames' non-zero window taps [lo, hi) cover,
+//    (FPB-1)*hop + (hi-lo) floats, into shared memory once, reflecting
+//    while it stages.  Frames overlap n_fft/hop = 27x at hop 75, so no
+//    frame matrix is ever built in device memory.
+//  * Window while loading.  Samples outside [lo, hi) are zero and are
+//    neither staged nor loaded.  The window is the port's own f32 padded
+//    Hann window (ops/stft.py:_padded_window), read from device memory, so
+//    the kernel and the plain version multiply by the same numbers.
+//  * Real FFT by packing.  The N real samples become N/2 complex ones,
+//    z[m] = x[2m] + i*x[2m+1]; an N/2-point complex FFT Z runs in shared
+//    memory; one pass unpacks all N/2+1 bins,
+//      X[k] = (Z[k] + Z*[M-k])/2 - i/2 * e^{-2πik/N} (Z[k] - Z*[M-k]),
+//    M = N/2, Z[M] = Z[0].  That halves the FFT's work and its buffer:
+//    9 KB per frame at N 2048 with the padding below.  A thread unpacks
+//    bins k and M-k together from the same two loads and one twiddle:
+//    with E = (Z[k] + Z*[M-k])/2 and W O = X[k] - E, X[M-k] = (E - W O)*.
+//    The DC and Nyquist bins, Z[0].x ± Z[0].y, are real, and their
+//    imaginary parts are written as exact zeros: the generator takes the
+//    phase of its prior's bins with atan2, which turns the sign of a
+//    rounding error there into a jump from π to -π.
+//  * Few passes through shared memory.  Each thread holds 8 complex values
+//    in registers per pass and does one radix-8 butterfly (or two radix-4,
+//    or four radix-2 in the last pass).  Between passes the values go
+//    through the frame's buffer in Stockham order, so no bit-reversal pass
+//    is needed: M = 1024 takes radices 8, 8, 8, 2, four passes.  The first
+//    pass reads the windowed samples straight from the staged span; the
+//    unpacking pass writes (real, imag) from the last buffer.
+//  * Padded buffer.  Complex value p sits at p + p/8: the first pass
+//    writes at a stride of 8 complex values (16 banks apart), which the
+//    padding spreads over all 32 banks, and the other passes' accesses are
+//    near-contiguous.
+//  * Accurate twiddles, read coalesced.  All are made in float64 on the
+//    host and rounded to f32 once (12 KB at N 2048), read through __ldg:
+//    first the unpacking's e^{-2πik/N}, k = 0..M/2, then for each Stockham
+//    pass after the first (sub-transform size NS, radix R) the rows
+//    r = 1..R-1 of e^{-2πi r k/(NS R)}, k = 0..NS-1.  Neighbouring threads
+//    of a pass have neighbouring k, so they read neighbouring entries.  No
+//    __sinf/__cosf and no fast-math.
+//  * Write once, coalesced.  Neighbouring threads unpack neighbouring
+//    pairs, so their stores to bins k (and to bins M-k) are neighbours,
+//    scalar stores: rows of N/2+1 floats are not 16-byte aligned.
+//  * 32-bit index arithmetic (the wrapper checks that the padded signal's
+//    length fits): fewer registers a thread, so more blocks on an SM.
+//
+// n_fft is a power of two from 256 to 4096.
 
 #include <cuda_runtime.h>
-#include <stdint.h>
 
 namespace {
 
-constexpr int TILE_F = 64;      // frames per block
-constexpr int TILE_C = 128;     // basis columns per block
-constexpr int KC = 16;          // taps per pipeline step
-constexpr int THREADS = 256;    // 8 warps: warp w owns frames w + 8*i
-constexpr int FR = TILE_F / (THREADS / 32);  // frames per thread (8)
-constexpr int CR = TILE_C / 32;              // columns per thread (4)
+constexpr int THREADS = 256;
 
+__device__ __forceinline__ int padded(int p) { return p + (p >> 3); }
+
+__device__ __forceinline__ float2 cadd(float2 a, float2 b) {
+  return make_float2(a.x + b.x, a.y + b.y);
+}
+__device__ __forceinline__ float2 csub(float2 a, float2 b) {
+  return make_float2(a.x - b.x, a.y - b.y);
+}
+__device__ __forceinline__ float2 cmul(float2 a, float2 b) {
+  return make_float2(a.x * b.x - a.y * b.y, a.x * b.y + a.y * b.x);
+}
+__device__ __forceinline__ float2 mul_neg_i(float2 a) {  // a * (-i)
+  return make_float2(a.y, -a.x);
+}
+
+// In-place DFT of R values in natural order, e^{-2πirs/R}.
+template <int R>
+__device__ __forceinline__ void dft(float2* v) {
+  if constexpr (R == 2) {
+    const float2 a = v[0], b = v[1];
+    v[0] = cadd(a, b);
+    v[1] = csub(a, b);
+  } else if constexpr (R == 4) {
+    const float2 c0 = cadd(v[0], v[2]), c2 = csub(v[0], v[2]);
+    const float2 c1 = cadd(v[1], v[3]), c3 = mul_neg_i(csub(v[1], v[3]));
+    v[0] = cadd(c0, c1);
+    v[1] = cadd(c2, c3);
+    v[2] = csub(c0, c1);
+    v[3] = csub(c2, c3);
+  } else {
+    static_assert(R == 8, "radix 2, 4 or 8");
+    constexpr float s = 0.70710678118654752f;
+    const float2 b0 = cadd(v[0], v[4]), b4 = csub(v[0], v[4]);
+    const float2 b1 = cadd(v[1], v[5]), d5 = csub(v[1], v[5]);
+    const float2 b2 = cadd(v[2], v[6]), d6 = csub(v[2], v[6]);
+    const float2 b3 = cadd(v[3], v[7]), d7 = csub(v[3], v[7]);
+    // the odd half's twiddles e^{-2πis/8}, s = 1, 2, 3
+    const float2 b5 = make_float2(s * (d5.x + d5.y), s * (d5.y - d5.x));
+    const float2 b6 = mul_neg_i(d6);
+    const float2 b7 = make_float2(s * (d7.y - d7.x), -s * (d7.x + d7.y));
+    const float2 c0 = cadd(b0, b2), c2 = csub(b0, b2);
+    const float2 c1 = cadd(b1, b3), c3 = mul_neg_i(csub(b1, b3));
+    const float2 c4 = cadd(b4, b6), c6 = csub(b4, b6);
+    const float2 c5 = cadd(b5, b7), c7 = mul_neg_i(csub(b5, b7));
+    v[0] = cadd(c0, c1);
+    v[4] = csub(c0, c1);
+    v[2] = cadd(c2, c3);
+    v[6] = csub(c2, c3);
+    v[1] = cadd(c4, c5);
+    v[5] = csub(c4, c5);
+    v[3] = cadd(c6, c7);
+    v[7] = csub(c6, c7);
+  }
+}
+
+// The Stockham passes after the first, from sub-transform size NS up to M:
+// thread j0 of the frame holds 8 values, 8/R butterflies of radix R.  The
+// pass's twiddles e^{-2πi r k/(NS R)} are tw[(r-1)*NS + k].
+template <int M, int NS>
+__device__ __forceinline__ void fft_passes(float2* buf, int j0,
+                                           const float2* __restrict__ tw) {
+  if constexpr (NS < M) {
+    constexpr int R = (M / NS >= 8) ? 8 : M / NS;
+    constexpr int PER = 8 / R;
+    constexpr int TPF = M / 8;
+    float2 v[8];
+#pragma unroll
+    for (int s = 0; s < PER; ++s)
+#pragma unroll
+      for (int r = 0; r < R; ++r)
+        v[s * R + r] = buf[padded(j0 + s * TPF + r * (M / R))];
+    __syncthreads();  // every value of the pass is in registers
+#pragma unroll
+    for (int s = 0; s < PER; ++s) {
+      const int j = j0 + s * TPF;
+      const int k = j % NS;
+      float2* u = v + s * R;
+#pragma unroll
+      for (int r = 1; r < R; ++r)
+        u[r] = cmul(u[r], __ldg(tw + (r - 1) * NS + k));
+      dft<R>(u);
+      const int d = (j / NS) * NS * R + k;
+#pragma unroll
+      for (int r = 0; r < R; ++r) buf[padded(d + r * NS)] = u[r];
+    }
+    __syncthreads();
+    fft_passes<M, NS * R>(buf, j0, tw + (R - 1) * NS);
+  }
+}
+
+template <int LOG_N>
 __global__ void __launch_bounds__(THREADS)
-stft_forward_kernel(const float* __restrict__ x,      // [B, T]
-                    const float* __restrict__ basis,  // [k_pad, c_pad]
-                    float* __restrict__ real,         // [B, frames, F]
-                    float* __restrict__ imag,         // [B, frames, F]
-                    int T, int frames, int pad, int hop, int lo,
-                    int k_pad, int F, int c_pad) {
-  extern __shared__ __align__(16) float smem[];
-  float* btile = smem;                   // [2][KC][TILE_C]
-  float* span = smem + 2 * KC * TILE_C;  // [(TILE_F-1)*hop + k_pad]
+stft_fft_kernel(const float* __restrict__ x,       // [B, T]
+                const float* __restrict__ window,  // [n_fft]
+                const float2* __restrict__ tw,     // twiddles, see above
+                float* __restrict__ real,          // [B, frames, M + 1]
+                float* __restrict__ imag,          // [B, frames, M + 1]
+                int T, int frames, int pad, int hop, int lo, int hi) {
+  constexpr int N = 1 << LOG_N;
+  constexpr int M = N / 2;             // complex points of the FFT
+  constexpr int TPF = M / 8;           // threads per frame
+  constexpr int FPB = THREADS / TPF;   // frames per block
+  constexpr int BUF = M + M / 8;       // padded slots per frame
+  constexpr int F = M + 1;             // bins per frame
+  constexpr int PAIRS = M / 2 + 1;     // bin pairs (k, M-k) per frame
+  extern __shared__ __align__(16) unsigned char smem[];
+  float2* bufs = reinterpret_cast<float2*>(smem);  // [FPB][BUF]
+  float* span = reinterpret_cast<float*>(bufs + FPB * BUF);
 
-  const int b = blockIdx.z;
-  const int f0 = blockIdx.x * TILE_F;
-  const int c0 = blockIdx.y * TILE_C;
-  const int tx = threadIdx.x & 31;
-  const int ty = threadIdx.x >> 5;
+  const int b = blockIdx.y;
+  const int f0 = blockIdx.x * FPB;
+  const int fl = threadIdx.x / TPF;
+  const int j0 = threadIdx.x % TPF;
 
-  // stage the padded-signal span of this frame tile: padded index
-  // p = f*hop + lo + k maps to x[p - pad], reflected at both ends
+  // stage the span of padded samples f0*hop + lo + i, reflected at both
+  // ends of x, zero past the padded signal's end (frames past `frames`)
   const float* xb = x + (size_t)b * T;
-  const long long p0 = (long long)f0 * hop + lo;
-  const long long t_padded = (long long)T + 2LL * pad;
-  const int span_len = (TILE_F - 1) * hop + k_pad;
+  const int p0 = f0 * hop + lo;
+  const int t_padded = T + 2 * pad;
+  const int span_len = (FPB - 1) * hop + (hi - lo);
   for (int i = threadIdx.x; i < span_len; i += THREADS) {
-    const long long p = p0 + i;
+    const int p = p0 + i;
     float v = 0.f;
     if (p < t_padded) {
-      long long s = p - pad;
-      if (s < 0) s = -s;
-      else if (s >= T) s = 2LL * (T - 1) - s;
+      int s = p - pad;
+      s = s < 0 ? -s : (s >= T ? 2 * (T - 1) - s : s);
       v = __ldg(xb + s);
     }
     span[i] = v;
   }
+  __syncthreads();
 
-  // basis tile loads: KC x TILE_C floats = 512 float4, two per thread
-  const float* bcol = basis + c0;
-  float4 stage[2];
-  auto load_tile = [&](int k0) {
+  // first pass (sub-transform size 1, radix 8, no twiddles): the packed,
+  // windowed samples z[j0 + r*M/8] straight from the span
+  float2* buf = bufs + fl * BUF;
+  const float* fs = span + fl * hop;  // fs[n - lo]: frame sample n
+  float2 v[8];
 #pragma unroll
-    for (int u = 0; u < 2; ++u) {
-      const int q = threadIdx.x + u * THREADS;
-      const int row = q / (TILE_C / 4);
-      const int c4 = q % (TILE_C / 4);
-      stage[u] = __ldg(reinterpret_cast<const float4*>(
-          bcol + (size_t)(k0 + row) * c_pad + c4 * 4));
-    }
-  };
-  auto store_tile = [&](float* dst) {
-#pragma unroll
-    for (int u = 0; u < 2; ++u) {
-      const int q = threadIdx.x + u * THREADS;
-      reinterpret_cast<float4*>(dst)[q] = stage[u];
-    }
-  };
-
-  float acc[FR][CR];
-#pragma unroll
-  for (int i = 0; i < FR; ++i)
-#pragma unroll
-    for (int j = 0; j < CR; ++j) acc[i][j] = 0.f;
-
-  load_tile(0);
-  store_tile(btile);
-  __syncthreads();  // span and the first basis tile are in place
-
-  const int steps = k_pad / KC;
-  for (int kt = 0; kt < steps; ++kt) {
-    const int cur = kt & 1;
-    if (kt + 1 < steps) load_tile((kt + 1) * KC);
-    const float* bt = btile + cur * KC * TILE_C;
-    const float* sp = span + kt * KC + ty * hop;
-#pragma unroll
-    for (int k = 0; k < KC; ++k) {
-      float a[FR], bv[CR];
-#pragma unroll
-      for (int i = 0; i < FR; ++i) a[i] = sp[i * (THREADS / 32) * hop + k];
-#pragma unroll
-      for (int j = 0; j < CR; ++j) bv[j] = bt[k * TILE_C + tx + 32 * j];
-#pragma unroll
-      for (int i = 0; i < FR; ++i)
-#pragma unroll
-        for (int j = 0; j < CR; ++j) acc[i][j] = fmaf(a[i], bv[j], acc[i][j]);
-    }
-    // the other buffer was last read in step kt-1, before its barrier
-    if (kt + 1 < steps) store_tile(btile + (cur ^ 1) * KC * TILE_C);
-    __syncthreads();
+  for (int r = 0; r < 8; ++r) {
+    const int n = 2 * (j0 + r * (M / 8));
+    float a = 0.f, c = 0.f;
+    if (n >= lo && n < hi) a = fs[n - lo] * __ldg(window + n);
+    if (n + 1 >= lo && n + 1 < hi) c = fs[n + 1 - lo] * __ldg(window + n + 1);
+    v[r] = make_float2(a, c);
   }
+  dft<8>(v);
+#pragma unroll
+  for (int r = 0; r < 8; ++r) buf[padded(8 * j0 + r)] = v[r];
+  __syncthreads();
+  fft_passes<M, 8>(buf, j0, tw + PAIRS);
 
-#pragma unroll
-  for (int i = 0; i < FR; ++i) {
-    const int f = f0 + ty + i * (THREADS / 32);
-    if (f >= frames) continue;
-    const size_t row = ((size_t)b * frames + f) * F;
-#pragma unroll
-    for (int j = 0; j < CR; ++j) {
-      const int c = c0 + tx + 32 * j;
-      if (c < F) real[row + c] = acc[i][j];
-      else if (c < 2 * F) imag[row + c - F] = acc[i][j];
+  // unpack the N/2+1 bins of each frame in pairs (k, M-k), k = 0..M/2,
+  // and write them once
+  const int nf = min(FPB, frames - f0);
+  const size_t row0 = ((size_t)b * frames + f0) * F;
+  for (int idx = threadIdx.x; idx < nf * PAIRS; idx += THREADS) {
+    const int g = idx / PAIRS;
+    const int k = idx - g * PAIRS;
+    const float2* z = bufs + g * BUF;
+    float* re = real + row0 + (size_t)g * F;
+    float* im = imag + row0 + (size_t)g * F;
+    if (k == 0) {  // DC and Nyquist
+      const float2 z0 = z[0];
+      re[0] = z0.x + z0.y;
+      im[0] = 0.f;
+      re[M] = z0.x - z0.y;
+      im[M] = 0.f;
+      continue;
+    }
+    // E = (a + c*)/2 from the even samples, O = (a - c*)/2i from the odd
+    const float2 a = z[padded(k)], c = z[padded(M - k)];
+    const float er = 0.5f * (a.x + c.x), ei = 0.5f * (a.y - c.y);
+    const float o_r = 0.5f * (a.y + c.y), o_i = -0.5f * (a.x - c.x);
+    const float2 w = __ldg(tw + k);
+    const float wr = w.x * o_r - w.y * o_i, wi = w.x * o_i + w.y * o_r;
+    re[k] = er + wr;
+    im[k] = ei + wi;
+    if (k < M - k) {  // X[M-k] = (E - W O)*
+      re[M - k] = er - wr;
+      im[M - k] = wi - ei;
     }
   }
+}
+
+int frames_per_block(int n_fft) { return THREADS / (n_fft / 16); }
+
+template <int LOG_N>
+int launch(const void* x, const void* window, const void* tw, void* real,
+           void* imag, int batch, int T, int frames, int pad, int hop, int lo,
+           int hi, int smem, cudaStream_t stream) {
+  cudaError_t err = cudaFuncSetAttribute(
+      stft_fft_kernel<LOG_N>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      smem);
+  if (err != cudaSuccess) return (int)err;
+  const int fpb = frames_per_block(1 << LOG_N);
+  dim3 grid((frames + fpb - 1) / fpb, batch);
+  stft_fft_kernel<LOG_N><<<grid, THREADS, smem, stream>>>(
+      (const float*)x, (const float*)window, (const float2*)tw, (float*)real,
+      (float*)imag, T, frames, pad, hop, lo, hi);
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
 
-// Shared memory the kernel needs for a given hop and padded tap count.
-extern "C" int stft_forward_smem_bytes(int hop, int k_pad) {
-  return (int)sizeof(float) * (2 * KC * TILE_C + (TILE_F - 1) * hop + k_pad);
+// Shared memory one block needs: FPB padded FFT buffers and the span of
+// (FPB-1)*hop + taps floats.  -1 for an n_fft the kernel does not take.
+extern "C" int stft_fft_smem_bytes(int n_fft, int hop, int taps) {
+  if (n_fft < 256 || n_fft > 4096 || (n_fft & (n_fft - 1))) return -1;
+  const int m = n_fft / 2;
+  const int fpb = frames_per_block(n_fft);
+  return (int)(fpb * (m + m / 8) * sizeof(float2) +
+               ((fpb - 1) * hop + taps) * sizeof(float));
 }
 
 // Launch on `stream`; returns cudaGetLastError() of the launch (0 = ok).
-// Requires T > pad, k_pad % 16 == 0, c_pad % 128 == 0, c_pad >= 2F.
-extern "C" int stft_forward_f32(const void* x, const void* basis, void* real,
-                                void* imag, int batch, int T, int frames,
-                                int pad, int hop, int lo, int k_pad, int F,
-                                int c_pad, void* stream) {
-  const int smem = stft_forward_smem_bytes(hop, k_pad);
-  cudaError_t err = cudaFuncSetAttribute(
-      stft_forward_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  if (err != cudaSuccess) return (int)err;
-  dim3 grid((frames + TILE_F - 1) / TILE_F, c_pad / TILE_C, batch);
-  stft_forward_kernel<<<grid, THREADS, smem, (cudaStream_t)stream>>>(
-      (const float*)x, (const float*)basis, (float*)real, (float*)imag, T,
-      frames, pad, hop, lo, k_pad, F, c_pad);
-  return (int)cudaGetLastError();
+// Requires T > pad, T + 2*pad + hop < 2^31, 0 <= lo < hi <= n_fft, and
+// n_fft a power of two from 256 to 4096.
+extern "C" int stft_fft_f32(const void* x, const void* window, const void* tw,
+                            void* real, void* imag, int batch, int T,
+                            int frames, int pad, int hop, int n_fft, int lo,
+                            int hi, void* stream) {
+  const int smem = stft_fft_smem_bytes(n_fft, hop, hi - lo);
+  if (smem < 0) return (int)cudaErrorInvalidValue;
+  cudaStream_t s = (cudaStream_t)stream;
+  switch (n_fft) {
+    case 256: return launch<8>(x, window, tw, real, imag, batch, T, frames,
+                               pad, hop, lo, hi, smem, s);
+    case 512: return launch<9>(x, window, tw, real, imag, batch, T, frames,
+                               pad, hop, lo, hi, smem, s);
+    case 1024: return launch<10>(x, window, tw, real, imag, batch, T, frames,
+                                 pad, hop, lo, hi, smem, s);
+    case 2048: return launch<11>(x, window, tw, real, imag, batch, T, frames,
+                                 pad, hop, lo, hi, smem, s);
+    default: return launch<12>(x, window, tw, real, imag, batch, T, frames,
+                               pad, hop, lo, hi, smem, s);
+  }
 }

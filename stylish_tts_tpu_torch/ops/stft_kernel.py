@@ -4,7 +4,10 @@ It replaces the TPU kernel ``stylish_tts_tpu/ops/stft_pallas.py:stft_pallas``
 and serves every STFT of the port: the generator's harmonic prior, the
 loss spectrograms, the magphase target and the posterior encoder.  A tensor
 on the CPU goes to the plain version (``ops/stft.py:stft``); a CUDA tensor
-goes to the kernel, or the wrapper raises.
+goes to the kernel, a shared-memory real FFT, or the wrapper raises.
+
+The kernel reads two host-made tables: the port's f32 padded window and
+the FFT's twiddles (``twiddles``), each uploaded once per device.
 
 The gradient is the transpose of the windowed-DFT product, then
 overlap-add, then the adjoint of the reflect pad, in torch ops: the JAX
@@ -16,7 +19,7 @@ from __future__ import annotations
 
 import ctypes
 import functools
-from typing import Tuple
+from typing import List, Tuple
 
 import numpy as np
 import torch
@@ -24,32 +27,48 @@ import torch
 from . import stft as plain
 from .build import load_library
 
-_KC = 16       # taps per pipeline step of the kernel (padding of the rows)
-_TILE_C = 128  # basis columns per block (padding of the columns)
+N_FFT_SIZES = (256, 512, 1024, 2048, 4096)  # the kernel's FFT sizes
 _MAX_SMEM = 232448  # bytes of shared memory a block may use on Hopper
 
 
-def _round_up(x: int, m: int) -> int:
-    return -(-x // m) * m
-
-
 def window_taps(n_fft: int, win_length: int) -> Tuple[int, int]:
-    """[lo, hi): the taps where the padded window is non-zero; the basis is
-    zero elsewhere, so the kernel multiplies only these."""
+    """[lo, hi): the taps where the padded window is non-zero; the kernel
+    stages and loads only these."""
     nonzero = np.flatnonzero(plain._padded_window(win_length, n_fft).numpy())
     return int(nonzero[0]), int(nonzero[-1]) + 1
 
 
+def fft_passes(n_fft: int) -> List[Tuple[int, int]]:
+    """(sub-transform size, radix) of the kernel's Stockham passes after the
+    first (size 1, radix 8) over n_fft/2 complex points: radix 8 while it
+    fits, then one pass of radix 2 or 4."""
+    m, ns, passes = n_fft // 2, 8, []
+    while ns < m:
+        radix = min(8, m // ns)
+        passes.append((ns, radix))
+        ns *= radix
+    return passes
+
+
+def twiddles(n_fft: int) -> np.ndarray:
+    """The kernel's twiddle table, [entries, 2] f32 (real, imag) of
+    e^{-2πi f}, made in float64 and rounded once: first the unpacking's
+    f = k/n_fft, k = 0..n_fft/4, then for each pass of ``fft_passes`` the
+    rows r = 1..radix-1 of f = r*k/(size*radix), k = 0..size-1."""
+    parts = [np.arange(n_fft // 4 + 1) / n_fft]
+    for ns, radix in fft_passes(n_fft):
+        r = np.arange(1, radix)[:, None]
+        parts.append((r * np.arange(ns)[None, :] / (ns * radix)).ravel())
+    w = np.exp(-2j * np.pi * np.concatenate(parts))
+    return np.stack([w.real, w.imag], axis=1).astype(np.float32)
+
+
 @functools.lru_cache(maxsize=16)
-def _kernel_basis(n_fft: int, win_length: int, device: torch.device):
-    """Basis rows [lo, hi) padded to a multiple of 16 rows and 128 columns."""
-    lo, hi = window_taps(n_fft, win_length)
-    rows = plain.forward_basis(n_fft, win_length)[lo:hi]
-    k_pad = _round_up(hi - lo, _KC)
-    c_pad = _round_up(rows.shape[1], _TILE_C)
-    padded = np.zeros((k_pad, c_pad), np.float32)
-    padded[: hi - lo, : rows.shape[1]] = rows
-    return torch.from_numpy(padded).to(device), lo, k_pad, c_pad
+def _tables(n_fft: int, win_length: int, device: torch.device):
+    """The kernel's window and twiddles on ``device``, and its taps."""
+    window = plain._padded_window(win_length, n_fft).to(device)
+    tw = torch.from_numpy(twiddles(n_fft)).to(device)
+    return window, tw, *window_taps(n_fft, win_length)
 
 
 class StftKernel:
@@ -67,12 +86,12 @@ class StftKernel:
     def _library(self):
         if self._lib is None:
             lib = load_library("stft")
-            lib.stft_forward_f32.argtypes = (
-                [ctypes.c_void_p] * 4 + [ctypes.c_int] * 9 + [ctypes.c_void_p]
+            lib.stft_fft_f32.argtypes = (
+                [ctypes.c_void_p] * 5 + [ctypes.c_int] * 8 + [ctypes.c_void_p]
             )
-            lib.stft_forward_f32.restype = ctypes.c_int
-            lib.stft_forward_smem_bytes.argtypes = [ctypes.c_int] * 2
-            lib.stft_forward_smem_bytes.restype = ctypes.c_int
+            lib.stft_fft_f32.restype = ctypes.c_int
+            lib.stft_fft_smem_bytes.argtypes = [ctypes.c_int] * 3
+            lib.stft_fft_smem_bytes.restype = ctypes.c_int
             self._lib = lib
         return self._lib
 
@@ -95,15 +114,20 @@ class StftKernel:
             raise ValueError(f"stft kernel takes [B, T], got {tuple(x.shape)}")
         if not x.is_contiguous():
             raise ValueError("stft kernel needs a contiguous input")
+        if n_fft not in N_FFT_SIZES:
+            raise ValueError(f"stft kernel takes n_fft in {N_FFT_SIZES}, "
+                             f"got {n_fft}")
         batch, t = x.shape
         pad = n_fft // 2
         if t <= pad:
             raise ValueError(f"reflect padding needs T > {pad}, got T={t}")
+        if t + 2 * pad + hop_length >= 2**31:
+            raise ValueError(f"stft kernel indexes in 32 bits, got T={t}")
         freq_bins = n_fft // 2 + 1
         frames = 1 + (t + 2 * pad - n_fft) // hop_length
-        basis, lo, k_pad, c_pad = _kernel_basis(n_fft, win_length, x.device)
+        window, tw, lo, hi = _tables(n_fft, win_length, x.device)
         lib = self._library()
-        smem = lib.stft_forward_smem_bytes(hop_length, k_pad)
+        smem = lib.stft_fft_smem_bytes(n_fft, hop_length, hi - lo)
         if smem > _MAX_SMEM:
             raise ValueError(f"hop {hop_length} needs {smem} B of shared memory")
         real = torch.empty((batch, frames, freq_bins), dtype=torch.float32,
@@ -111,10 +135,10 @@ class StftKernel:
         imag = torch.empty_like(real)
         with torch.cuda.device(x.device):
             stream = torch.cuda.current_stream(x.device).cuda_stream
-            err = lib.stft_forward_f32(
-                x.data_ptr(), basis.data_ptr(), real.data_ptr(),
-                imag.data_ptr(), batch, t, frames, pad, hop_length, lo,
-                k_pad, freq_bins, c_pad, stream,
+            err = lib.stft_fft_f32(
+                x.data_ptr(), window.data_ptr(), tw.data_ptr(),
+                real.data_ptr(), imag.data_ptr(), batch, t, frames, pad,
+                hop_length, n_fft, lo, hi, stream,
             )
         if err != 0:
             raise RuntimeError(f"stft kernel launch failed: CUDA error {err}")

@@ -34,23 +34,57 @@ def cuda():
     torch.backends.cuda.matmul.allow_tf32 = False  # the plain version in f32
 
 
+def rfft_frames(x: np.ndarray, n_fft: int, hop: int, win: int) -> np.ndarray:
+    """numpy.fft.rfft, in float64, of the reflect-padded frames of x [B, T]
+    times the port's f32 padded window: [B, frames, n_fft//2+1] complex."""
+    pad = n_fft // 2
+    xp = np.pad(x.astype(np.float64), ((0, 0), (pad, pad)), mode="reflect")
+    frames = 1 + (xp.shape[1] - n_fft) // hop
+    idx = np.arange(frames)[:, None] * hop + np.arange(n_fft)[None, :]
+    window = plain._padded_window(win, n_fft).numpy().astype(np.float64)
+    return np.fft.rfft(xp[:, idx] * window, axis=-1)
+
+
+def _kernel_input(case: str, n_fft: int, hop: int):
+    """(B, T) of one case: a length that is no multiple of the hop; B = 1;
+    T just above n_fft/2, so the padded signal is mostly reflection; a
+    frame count one past a multiple of the kernel's frames per block, so
+    its last block is partial."""
+    if case == "b3":
+        return 3, 37 * hop + 3 * n_fft + 11
+    if case == "b1":
+        return 1, 37 * hop + 3 * n_fft + 11
+    if case == "short":
+        return 2, n_fft // 2 + 1
+    per_block = 256 // (n_fft // 16)
+    blocks = n_fft // (per_block * hop) + 3
+    return 2, blocks * per_block * hop + hop // 2
+
+
 @pytest.mark.cuda
+@pytest.mark.parametrize("case", ["b3", "b1", "short", "partial"])
 @pytest.mark.parametrize("n_fft,hop,win", SHAPES)
-def test_kernel_matches_plain(cuda, n_fft, hop, win):
-    # lengths that are no multiple of the hop, and a partial last tile
-    t = 37 * hop + 3 * n_fft + 11
-    x = torch.from_numpy(np.random.default_rng(0).standard_normal((3, t))
-                         .astype(np.float32)).cuda()
+def test_kernel_matches_plain(cuda, n_fft, hop, win, case):
+    batch, t = _kernel_input(case, n_fft, hop)
+    x_np = np.random.default_rng(0).standard_normal((batch, t)) \
+        .astype(np.float32)
+    x = torch.from_numpy(x_np).cuda()
     before = stft_forward.launches
     real, imag = stft_forward(x, n_fft=n_fft, hop_length=hop, win_length=win)
     torch.cuda.synchronize()
     assert stft_forward.launches == before + 1
+    if case == "partial":
+        assert real.shape[1] % (256 // (n_fft // 16)) == 1
     r0, i0 = plain.stft(x, n_fft=n_fft, hop_length=hop, win_length=win)
-    for got, want in ((real, r0), (imag, i0)):
-        assert got.shape == want.shape
-        # f32 sums of up to win products in another order
+    ref = rfft_frames(x_np, n_fft, hop, win)
+    for got, want, exact in ((real, r0, ref.real), (imag, i0, ref.imag)):
+        assert got.shape == want.shape == exact.shape
+        # f32 sums of up to win products in another order (the plain
+        # version), and an f32 FFT against a float64 one
         err = (got - want).abs().max().item()
         assert err <= 1e-4 * want.abs().max().item(), err
+        err = np.abs(got.cpu().numpy() - exact).max()
+        assert err <= 1e-4 * np.abs(exact).max(), err
 
 
 @pytest.mark.cuda
@@ -65,6 +99,8 @@ def test_kernel_refuses_what_it_does_not_take(cuda):
         stft_forward(x[:, :1000].contiguous(), **kw)  # T <= n_fft / 2
     with pytest.raises(ValueError):
         stft_forward(x[:, None], **kw)  # rank 3
+    with pytest.raises(ValueError):  # n_fft not a power of two
+        stft_forward(x, n_fft=1200, hop_length=75, win_length=1200)
     # an input that requires a gradient runs the kernel forward
     before = stft_forward.launches
     real, imag = stft_forward(x[:, :4096].clone().requires_grad_(), **kw)
