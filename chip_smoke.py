@@ -12,7 +12,8 @@ Phases, in order; any failure raises and the exit code is non-zero:
    the MRD's spec-conv forward, dgrad and wgrad kernels at the MRD's real
    layer shapes (b8 x f460), each held against its plain PyTorch version,
    with its time, the plain version's, a library call's (a yardstick the
-   port never calls) and its bound;
+   port never calls) and its bound; the STFT and torch.stft also with
+   their device time by torch.profiler, which leaves out the host's launch;
 3. probes: the eight patch-staging probe kernels (``csrc/patch_probe.cu``)
    at the probe script's sizes and inputs, each held against its plain
    version (the five copies exactly, the three products within
@@ -23,7 +24,8 @@ Phases, in order; any failure raises and the exit code is non-zero:
    "ok", every probe kernel launched;
 4. synthesis: ``Synthesizer`` at the default full-width ModelConfig with
    seeded random weights serves one ``synthesize`` of 80 phonemes and one
-   ``synthesize_batch`` of 8 utterances; the launch counts are set to 0
+   ``synthesize_batch`` of 8 utterances, with the allocator's new
+   segments in each request; the launch counts are set to 0
    just before and read just after, and the audio is checked (finite, not
    silent, exactly total_frames * hop samples); the STFT kernel is held
    against its plain version at this path's shapes, and the CPU and card
@@ -96,17 +98,12 @@ def card_line() -> str:
 def time_ms(fn, iters: int = 10, flush: torch.Tensor | None = None) -> float:
     """Median device time of ``fn`` from CUDA events, after a warm-up.
     ``flush`` (a buffer larger than the 50 MB L2) is rewritten before each
-    launch, outside the timed span, so each launch finds the cache cold.
-    The stream is then held busy for about 1 ms (``torch.cuda._sleep``), so
-    the host has queued the start event and ``fn``'s launches before the
-    device reaches them: a span of a short kernel does not hold the host's
-    time to check arguments and launch it."""
+    launch, outside the timed span, so each launch finds the cache cold."""
     fn()
     times = []
     for _ in range(iters):
         if flush is not None:
             flush.zero_()
-        torch.cuda._sleep(2_000_000)
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         start.record()
@@ -157,9 +154,15 @@ def stft_numbers(x: torch.Tensor, n_fft: int, hop: int, win: int,
                              f"torch.stft max err {lib_err:.3e}")
     ms = time_ms(lambda: stft_forward(x, **kw), flush=flush)
     plain_ms = time_ms(lambda: plain.stft(x, **kw), flush=flush)
-    library_ms = time_ms(lambda: torch.stft(
-        x, n_fft, hop, n_fft, window, center=True, pad_mode="reflect",
-        return_complex=True), flush=flush)
+    def library():
+        return torch.stft(x, n_fft, hop, n_fft, window, center=True,
+                          pad_mode="reflect", return_complex=True)
+
+    library_ms = time_ms(library, flush=flush)
+    # the device's own time, without the host's launch that the spans of
+    # time_ms hold: most of a span at the smaller shapes
+    kernel_device_ms = device_ms(lambda: stft_forward(x, **kw))
+    library_device_ms = device_ms(library)
 
     # the least the card could take for this function: a real FFT of
     # n_fft points per frame, about 2.5 * n_fft * log2(n_fft) FLOP (half a
@@ -178,8 +181,21 @@ def stft_numbers(x: torch.Tensor, n_fft: int, hop: int, win: int,
         "plain_ms": plain_ms,
         "library_ms": library_ms, "bound_ms": bound,
         "bound_by": "operations" if t_ops >= t_bytes else "bytes",
-        "bound_share": bound / ms, "flops": flops, "bytes": nbytes,
+        "bound_share": bound / ms, "device_ms": kernel_device_ms,
+        "library_device_ms": library_device_ms, "flops": flops,
+        "bytes": nbytes,
     }
+
+
+def stft_line(r: dict) -> str:
+    """One STFT record as printed: times, bound, share and errors."""
+    return (f"kernel {r['ms']:.3f} ms [{r['device_ms']:.4f}], plain "
+            f"{r['plain_ms']:.3f} ms, torch.stft {r['library_ms']:.3f} ms "
+            f"[{r['library_device_ms']:.4f}], bound {r['bound_ms']:.4f} ms "
+            f"({r['bound_by']}, {100 * r['bound_share']:.1f}% of it; "
+            f"{100 * r['bound_ms'] / r['device_ms']:.1f}% of the device "
+            f"time), max err {r['max_abs_err']:.2e} (vs torch.stft "
+            f"{r['err_vs_torch_stft']:.2e})")
 
 
 # --------------------------------------------------------------------------- #
@@ -292,16 +308,18 @@ def device_ms(fn, iters: int = 20) -> float:
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        for _ in range(iters):
-            fn()
-        torch.cuda.synchronize()
-    total_us = sum(evt.self_device_time_total for evt in prof.key_averages()
-                   if evt.device_type == torch.autograd.DeviceType.CUDA)
-    if total_us <= 0:
-        raise AssertionError("torch.profiler recorded no device time")
-    return total_us / 1e3 / iters
+    for _ in range(3):  # now and then a session hands back no device records
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(iters):
+                fn()
+            torch.cuda.synchronize()
+        total_us = sum(evt.self_device_time_total
+                       for evt in prof.key_averages()
+                       if evt.device_type == torch.autograd.DeviceType.CUDA)
+        if total_us > 0:
+            return total_us / 1e3 / iters
+    raise AssertionError("torch.profiler recorded no device time")
 
 
 def mini_conv_weight(w: torch.Tensor) -> torch.Tensor:
@@ -803,12 +821,7 @@ def main() -> int:
         r = stft_numbers(x, n_fft, hop, win, flush)
         record["stft_shapes"].append(r)
         print(f"stft n_fft={n_fft} hop={hop} win={win} x={r['shape']}: "
-              f"kernel {r['ms']:.3f} ms, plain {r['plain_ms']:.3f} ms, "
-              f"torch.stft {r['library_ms']:.3f} ms, bound {r['bound_ms']:.4f}"
-              f" ms ({r['bound_by']}, {100 * r['bound_share']:.1f}% of it), "
-              f"max err "
-              f"{r['max_abs_err']:.2e} (vs torch.stft "
-              f"{r['err_vs_torch_stft']:.2e}) [{card}]")
+              f"{stft_line(r)} [{card}]")
     del x
     # ... and the spec-conv kernels at the MRD's layer shapes
     record["spec_conv"] = {}
@@ -856,15 +869,23 @@ def main() -> int:
     torch.cuda.synchronize()
     for k in kernels:
         k.launches = 0
-    t_single, t_batch = [], []
+    # the allocator's new segments (cudaMalloc calls) in each request: the
+    # first request at a shape grows the cache
+    t_single, t_batch, segments = [], [], {"single": [], "batch8": []}
+
+    def allocated():
+        return torch.cuda.memory_stats()["segment.all.allocated"]
+
     for _ in range(3):
-        t0 = time.perf_counter()
+        t0, s0 = time.perf_counter(), allocated()
         audio = synth.synthesize(single, fixed_duration=8)
         t_single.append(time.perf_counter() - t0)
+        segments["single"].append(allocated() - s0)
     for _ in range(2):
-        t0 = time.perf_counter()
+        t0, s0 = time.perf_counter(), allocated()
         audios = synth.synthesize_batch(batch, fixed_duration=8)
         t_batch.append(time.perf_counter() - t0)
+        segments["batch8"].append(allocated() - s0)
     synth_launches = {k.name: k.launches for k in kernels}
     if synth_launches["stft_forward"] == 0:
         raise AssertionError("stft_forward never launched on synthesis")
@@ -881,13 +902,15 @@ def main() -> int:
         "batch8": {"phonemes": counts, "audio_s": sec_batch,
                    "wall_s": t_batch,
                    "rtf": sec_batch / float(np.median(t_batch))},
-        "launches": synth_launches, "card": card,
+        "launches": synth_launches, "new_segments": segments, "card": card,
     }
-    for name, sec, walls in (("synthesize", sec_single, t_single),
-                             ("synthesize_batch(8)", sec_batch, t_batch)):
+    for name, sec, walls, new in (
+            ("synthesize", sec_single, t_single, segments["single"]),
+            ("synthesize_batch(8)", sec_batch, t_batch, segments["batch8"])):
         print(f"{name}: {sec:.2f} s of audio in "
               f"{', '.join(f'{w * 1e3:.1f}' for w in walls)} ms, RTF "
-              f"{sec / float(np.median(walls)):.1f}x (median) [{card}]")
+              f"{sec / float(np.median(walls)):.1f}x (median), new allocator "
+              f"segments {new} [{card}]")
 
     # the STFT kernel against its plain version at the shapes this path
     # gave it: the prior of the batch request, [8, frames * 300] at the
@@ -903,12 +926,8 @@ def main() -> int:
     record["stft_main_path_single"] = stft_numbers(
         prior1, mc.n_fft, hop // 4, mc.win_length, flush)
     print(f"stft at the synthesis shapes {main['shape']} and "
-          f"{record['stft_main_path_single']['shape']}: kernel "
-          f"{main['ms']:.3f} ms, plain {main['plain_ms']:.3f} ms, torch.stft "
-          f"{main['library_ms']:.3f} ms, bound {main['bound_ms']:.4f} ms "
-          f"({main['bound_by']}, {100 * main['bound_share']:.1f}% of it), "
-          f"max err {main['max_abs_err']:.2e} (vs torch.stft "
-          f"{main['err_vs_torch_stft']:.2e}) [{card}]")
+          f"{record['stft_main_path_single']['shape']}: {stft_line(main)} "
+          f"[{card}]")
 
     if "--profile" in sys.argv[1:]:
         record["profile"] = profile_batch(synth, batch, card)
@@ -927,12 +946,8 @@ def main() -> int:
     train_stft = stft_numbers(tbatch["audio_gt"], mc.n_fft, hop // 4,
                               mc.win_length, flush)
     record["stft_train_path"] = train_stft
-    print(f"stft at the train step's shape {train_stft['shape']}: kernel "
-          f"{train_stft['ms']:.3f} ms, plain {train_stft['plain_ms']:.3f} ms,"
-          f" torch.stft {train_stft['library_ms']:.3f} ms, bound "
-          f"{train_stft['bound_ms']:.4f} ms ({train_stft['bound_by']}, "
-          f"{100 * train_stft['bound_share']:.1f}% of it), max err "
-          f"{train_stft['max_abs_err']:.2e} [{card}]")
+    print(f"stft at the train step's shape {train_stft['shape']}: "
+          f"{stft_line(train_stft)} [{card}]")
     if "--profile" in sys.argv[1:]:
         record["profile_train"] = profile_step(step, state, tbatch, gen,
                                                card)
@@ -962,7 +977,7 @@ def main() -> int:
             "max_abs_err": n["max_abs_err"], "ms": n["ms"],
             "plain_ms": n["plain_ms"], "bound_ms": n["bound_ms"],
             "bound_by": n["bound_by"], "library_ms": n["library_ms"],
-            "device_ms": n.get("device_ms"),  # the probes' profiler time
+            "device_ms": n.get("device_ms"),  # profiler: STFT, probes
         })
     print(card)
     print(json.dumps({"kernels": entries}))

@@ -54,12 +54,14 @@
 //    writes at a stride of 8 complex values (16 banks apart), which the
 //    padding spreads over all 32 banks, and the other passes' accesses are
 //    near-contiguous.
-//  * Accurate twiddles, read coalesced.  All are made in float64 on the
-//    host and rounded to f32 once (12 KB at N 2048), read through __ldg:
-//    first the unpacking's e^{-2πik/N}, k = 0..M/2, then for each Stockham
-//    pass after the first (sub-transform size NS, radix R) the rows
-//    r = 1..R-1 of e^{-2πi r k/(NS R)}, k = 0..NS-1.  Neighbouring threads
-//    of a pass have neighbouring k, so they read neighbouring entries.  No
+//  * Accurate twiddles, read coalesced.  All are made in double on the
+//    host by stft_fft_twiddles below and rounded to f32 once (12 KB at
+//    N 2048), read through __ldg: first the unpacking's e^{-2πik/N},
+//    k = 0..M/2, then for each Stockham pass after the first (sub-transform
+//    size NS, radix R) the rows r = 1..R-1 of e^{-2πi r k/(NS R)},
+//    k = 0..NS-1.  Neighbouring threads of a pass have neighbouring k, so
+//    they read neighbouring entries.  The passes and the table both follow
+//    pass_radix, so the layout is defined in this file alone.  No
 //    __sinf/__cosf and no fast-math.
 //  * Write once, coalesced.  Neighbouring threads unpack neighbouring
 //    pairs, so their stores to bins k (and to bins M-k) are neighbours,
@@ -71,9 +73,18 @@
 
 #include <cuda_runtime.h>
 
+#include <cmath>
+
 namespace {
 
 constexpr int THREADS = 256;
+
+// Radix of the Stockham pass at sub-transform size ns of an m-point FFT:
+// 8 while it fits, then one pass of 2 or 4.  The kernel's passes and the
+// twiddle table's rows both follow it.
+__host__ __device__ constexpr int pass_radix(int m, int ns) {
+  return m / ns >= 8 ? 8 : m / ns;
+}
 
 __device__ __forceinline__ int padded(int p) { return p + (p >> 3); }
 
@@ -137,7 +148,7 @@ template <int M, int NS>
 __device__ __forceinline__ void fft_passes(float2* buf, int j0,
                                            const float2* __restrict__ tw) {
   if constexpr (NS < M) {
-    constexpr int R = (M / NS >= 8) ? 8 : M / NS;
+    constexpr int R = pass_radix(M, NS);
     constexpr int PER = 8 / R;
     constexpr int TPF = M / 8;
     float2 v[8];
@@ -278,6 +289,33 @@ int launch(const void* x, const void* window, const void* tw, void* real,
 }
 
 }  // namespace
+
+// The kernel's twiddle table for n_fft, laid out as the note at the top
+// says: entry i is e^{-2πi p_i/n_fft}, made in double and rounded to float
+// once.  Writes the exponents p_i to `exponent` and the (real, imag) pairs
+// to `table`, each when it is not null; returns the number of entries, or
+// -1 for an n_fft the kernel does not take.
+extern "C" int stft_fft_twiddles(int n_fft, int* exponent, float* table) {
+  if (n_fft < 256 || n_fft > 4096 || (n_fft & (n_fft - 1))) return -1;
+  const int m = n_fft / 2;
+  int i = 0;
+  auto put = [&](int p) {
+    if (exponent) exponent[i] = p;
+    if (table) {
+      const double angle = -2.0 * M_PI * p / n_fft;
+      table[2 * i] = (float)std::cos(angle);
+      table[2 * i + 1] = (float)std::sin(angle);
+    }
+    ++i;
+  };
+  for (int k = 0; k <= m / 2; ++k) put(k);  // the unpacking's e^{-2πik/N}
+  for (int ns = 8; ns < m; ns *= pass_radix(m, ns)) {
+    const int radix = pass_radix(m, ns);
+    for (int r = 1; r < radix; ++r)  // e^{-2πi r k/(ns radix)}
+      for (int k = 0; k < ns; ++k) put(r * k * (n_fft / (ns * radix)));
+  }
+  return i;
+}
 
 // Shared memory one block needs: FPB padded FFT buffers and the span of
 // (FPB-1)*hop + taps floats.  -1 for an n_fft the kernel does not take.

@@ -7,7 +7,8 @@ on the CPU goes to the plain version (``ops/stft.py:stft``); a CUDA tensor
 goes to the kernel, a shared-memory real FFT, or the wrapper raises.
 
 The kernel reads two host-made tables: the port's f32 padded window and
-the FFT's twiddles (``twiddles``), each uploaded once per device.
+the FFT's twiddles (``StftKernel.twiddles``, which ``csrc/stft.cu`` makes
+and lays out), each uploaded once per device.
 
 The gradient is the transpose of the windowed-DFT product, then
 overlap-add, then the adjoint of the reflect pad, in torch ops: the JAX
@@ -18,8 +19,7 @@ kernel has no VJP), so there is no backward kernel to port.
 from __future__ import annotations
 
 import ctypes
-import functools
-from typing import List, Tuple
+from typing import Tuple
 
 import numpy as np
 import torch
@@ -38,39 +38,6 @@ def window_taps(n_fft: int, win_length: int) -> Tuple[int, int]:
     return int(nonzero[0]), int(nonzero[-1]) + 1
 
 
-def fft_passes(n_fft: int) -> List[Tuple[int, int]]:
-    """(sub-transform size, radix) of the kernel's Stockham passes after the
-    first (size 1, radix 8) over n_fft/2 complex points: radix 8 while it
-    fits, then one pass of radix 2 or 4."""
-    m, ns, passes = n_fft // 2, 8, []
-    while ns < m:
-        radix = min(8, m // ns)
-        passes.append((ns, radix))
-        ns *= radix
-    return passes
-
-
-def twiddles(n_fft: int) -> np.ndarray:
-    """The kernel's twiddle table, [entries, 2] f32 (real, imag) of
-    e^{-2πi f}, made in float64 and rounded once: first the unpacking's
-    f = k/n_fft, k = 0..n_fft/4, then for each pass of ``fft_passes`` the
-    rows r = 1..radix-1 of f = r*k/(size*radix), k = 0..size-1."""
-    parts = [np.arange(n_fft // 4 + 1) / n_fft]
-    for ns, radix in fft_passes(n_fft):
-        r = np.arange(1, radix)[:, None]
-        parts.append((r * np.arange(ns)[None, :] / (ns * radix)).ravel())
-    w = np.exp(-2j * np.pi * np.concatenate(parts))
-    return np.stack([w.real, w.imag], axis=1).astype(np.float32)
-
-
-@functools.lru_cache(maxsize=16)
-def _tables(n_fft: int, win_length: int, device: torch.device):
-    """The kernel's window and twiddles on ``device``, and its taps."""
-    window = plain._padded_window(win_length, n_fft).to(device)
-    tw = torch.from_numpy(twiddles(n_fft)).to(device)
-    return window, tw, *window_taps(n_fft, win_length)
-
-
 class StftKernel:
     """Callable wrapper; ``launches`` counts the kernel's launches."""
 
@@ -82,6 +49,7 @@ class StftKernel:
     def __init__(self):
         self.launches = 0
         self._lib = None
+        self._tables = {}
 
     def _library(self):
         if self._lib is None:
@@ -92,8 +60,35 @@ class StftKernel:
             lib.stft_fft_f32.restype = ctypes.c_int
             lib.stft_fft_smem_bytes.argtypes = [ctypes.c_int] * 3
             lib.stft_fft_smem_bytes.restype = ctypes.c_int
+            lib.stft_fft_twiddles.argtypes = [ctypes.c_int, ctypes.c_void_p,
+                                              ctypes.c_void_p]
+            lib.stft_fft_twiddles.restype = ctypes.c_int
             self._lib = lib
         return self._lib
+
+    def twiddles(self, n_fft: int) -> Tuple[np.ndarray, np.ndarray]:
+        """The kernel's twiddle table, made by the library: (exponents p,
+        int32 [entries]; values, f32 [entries, 2] (real, imag) of
+        e^{-2πi p/n_fft}, made in float64 and rounded once)."""
+        lib = self._library()
+        count = lib.stft_fft_twiddles(n_fft, None, None)
+        if count < 0:
+            raise ValueError(f"stft kernel takes n_fft in {N_FFT_SIZES}, "
+                             f"got {n_fft}")
+        exponent = np.empty(count, np.int32)
+        table = np.empty((count, 2), np.float32)
+        lib.stft_fft_twiddles(n_fft, exponent.ctypes.data, table.ctypes.data)
+        return exponent, table
+
+    def tables(self, n_fft: int, win_length: int, device: torch.device):
+        """The kernel's window and twiddles on ``device``, uploaded once,
+        and its taps."""
+        key = (n_fft, win_length, device)
+        if key not in self._tables:
+            window = plain._padded_window(win_length, n_fft).to(device)
+            tw = torch.from_numpy(self.twiddles(n_fft)[1]).to(device)
+            self._tables[key] = (window, tw, *window_taps(n_fft, win_length))
+        return self._tables[key]
 
     def __call__(self, x: torch.Tensor, *, n_fft: int, hop_length: int,
                  win_length: int) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -125,7 +120,7 @@ class StftKernel:
             raise ValueError(f"stft kernel indexes in 32 bits, got T={t}")
         freq_bins = n_fft // 2 + 1
         frames = 1 + (t + 2 * pad - n_fft) // hop_length
-        window, tw, lo, hi = _tables(n_fft, win_length, x.device)
+        window, tw, lo, hi = self.tables(n_fft, win_length, x.device)
         lib = self._library()
         smem = lib.stft_fft_smem_bytes(n_fft, hop_length, hi - lo)
         if smem > _MAX_SMEM:

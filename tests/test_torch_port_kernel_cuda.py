@@ -20,6 +20,7 @@ from stylish_tts_tpu_torch.ops import patch_probe as pp
 from stylish_tts_tpu_torch.ops import spec_conv as sc
 from stylish_tts_tpu_torch.ops import stft as plain
 from stylish_tts_tpu_torch.ops.stft_kernel import stft_forward
+from torch_port_stft_oracle import rfft_frames
 
 # (n_fft, hop, win): the generator's prior STFT, then the loss resolutions
 SHAPES = [(2048, 75, 1200), (512, 50, 240), (1024, 120, 600),
@@ -32,17 +33,6 @@ def cuda():
         pytest.skip("needs an NVIDIA card: the kernel is CUDA C++ with no "
                     "interpret mode")
     torch.backends.cuda.matmul.allow_tf32 = False  # the plain version in f32
-
-
-def rfft_frames(x: np.ndarray, n_fft: int, hop: int, win: int) -> np.ndarray:
-    """numpy.fft.rfft, in float64, of the reflect-padded frames of x [B, T]
-    times the port's f32 padded window: [B, frames, n_fft//2+1] complex."""
-    pad = n_fft // 2
-    xp = np.pad(x.astype(np.float64), ((0, 0), (pad, pad)), mode="reflect")
-    frames = 1 + (xp.shape[1] - n_fft) // hop
-    idx = np.arange(frames)[:, None] * hop + np.arange(n_fft)[None, :]
-    window = plain._padded_window(win, n_fft).numpy().astype(np.float64)
-    return np.fft.rfft(xp[:, idx] * window, axis=-1)
 
 
 def _kernel_input(case: str, n_fft: int, hop: int):
@@ -85,6 +75,41 @@ def test_kernel_matches_plain(cuda, n_fft, hop, win, case):
         assert err <= 1e-4 * want.abs().max().item(), err
         err = np.abs(got.cpu().numpy() - exact).max()
         assert err <= 1e-4 * np.abs(exact).max(), err
+
+
+def _within_one_f32_rounding(table: np.ndarray, exact: np.ndarray) -> bool:
+    """(real, imag) columns of ``table`` within half an f32 ulp of ``exact``,
+    plus 1e-15 for float64's own error in the cosine and sine (the values
+    near 0, such as cos(π/2), are below f32's ulp of 1 by far)."""
+    ok = True
+    for got, want in ((table[:, 0], exact.real), (table[:, 1], exact.imag)):
+        half_ulp = np.spacing(np.abs(want).astype(np.float32)) / 2
+        ok &= bool(np.all(np.abs(got.astype(np.float64) - want)
+                          <= half_ulp + 1e-15))
+    return ok
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n_fft", [512, 1024, 2048])
+def test_twiddle_table_is_rounded_once(cuda, n_fft):
+    # csrc/stft.cu makes and lays out the table: entry i is e^{-2πi p_i/N}
+    exponent, table = stft_forward.twiddles(n_fft)
+    assert table.dtype == np.float32 and table.shape == (len(exponent), 2)
+    assert _within_one_f32_rounding(
+        table, np.exp(-2j * np.pi * exponent.astype(np.float64) / n_fft))
+    assert exponent.min() >= 0 and exponent.max() < n_fft
+    # the unpacking's e^{-2πik/N}, k = 0..N/4, come first; then each
+    # Stockham pass's rows r = 1..R-1 of e^{-2πi r k/(size R)},
+    # k = 0..size-1: the pass at size 8 (radix 8) starts with r = 1, 2
+    pairs = n_fft // 4 + 1
+    np.testing.assert_array_equal(exponent[:pairs], np.arange(pairs))
+    step = n_fft // 64
+    np.testing.assert_array_equal(exponent[pairs:pairs + 16],
+                                  np.r_[np.arange(8), 2 * np.arange(8)] * step)
+    # radix 8 while it fits, then one pass of 4 or 2: 512 = 2 * 8 * 8 * 4
+    # (rows 7*8 + 3*64), 1024 = 2 * 8 * 8 * 8 (7*8 + 7*64), 2048 =
+    # 2 * 8 * 8 * 8 * 2 (7*8 + 7*64 + 1*512)
+    assert len(exponent) == pairs + {512: 248, 1024: 504, 2048: 1016}[n_fft]
 
 
 @pytest.mark.cuda

@@ -13,10 +13,9 @@ import torch
 
 from stylish_tts_tpu.ops import stft as jstft
 from stylish_tts_tpu_torch.ops import stft as pstft
-from stylish_tts_tpu_torch.ops.stft_kernel import (fft_passes, stft_forward,
-                                                   twiddles, window_taps)
+from stylish_tts_tpu_torch.ops.stft_kernel import stft_forward, window_taps
 from test_torch_port_helpers import assert_close
-from test_torch_port_kernel_cuda import rfft_frames
+from torch_port_stft_oracle import rfft_frames
 
 # (n_fft, hop, win): the generator's prior STFT, then the loss resolutions
 SHAPES = [(2048, 75, 1200), (512, 50, 240), (1024, 120, 600),
@@ -137,37 +136,3 @@ def test_stft_is_the_rfft_of_the_windowed_frames(n_fft, hop, win):
     assert np.abs(real.numpy() - ref.real).max() <= 1e-5 * scale
     assert np.abs(imag.numpy() - ref.imag).max() <= 1e-5 * scale
 
-
-def _within_one_f32_rounding(table: np.ndarray, exact: np.ndarray) -> bool:
-    """(real, imag) columns of ``table`` within half an f32 ulp of ``exact``,
-    plus 1e-15 for float64's own error in the cosine and sine (the values
-    near 0, such as cos(π/2), are below f32's ulp of 1 by far)."""
-    ok = True
-    for got, want in ((table[:, 0], exact.real), (table[:, 1], exact.imag)):
-        half_ulp = np.spacing(np.abs(want).astype(np.float32)) / 2
-        ok &= bool(np.all(np.abs(got.astype(np.float64) - want)
-                          <= half_ulp + 1e-15))
-    return ok
-
-
-@pytest.mark.parametrize("n_fft", [512, 1024, 2048])
-def test_twiddle_table_is_rounded_once(n_fft):
-    table = twiddles(n_fft)
-    m = n_fft // 2
-    # the unpacking's e^{-2πik/N}, k = 0..N/4, first
-    pairs = m // 2 + 1
-    assert table.dtype == np.float32
-    assert _within_one_f32_rounding(
-        table[:pairs], np.exp(-2j * np.pi * np.arange(pairs) / n_fft))
-    # then each pass's rows e^{-2πi r k/(size radix)}: the passes' radices
-    # multiply to the FFT's m points
-    passes = fft_passes(n_fft)
-    assert 8 * np.prod([radix for _, radix in passes]) == m
-    start = pairs
-    for ns, radix in passes:
-        for r in range(1, radix):
-            rows = table[start:start + ns]
-            exact = np.exp(-2j * np.pi * r * np.arange(ns) / (ns * radix))
-            assert _within_one_f32_rounding(rows, exact), (ns, radix, r)
-            start += ns
-    assert start == len(table)
