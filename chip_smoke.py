@@ -9,11 +9,14 @@ Phases, in order; any failure raises and the exit code is non-zero:
    ``nvcc`` each, started together), with the compiler's register and
    spill report;
 2. kernels vs plain: the STFT kernel on random f32 input at its shapes, and
-   the MRD's spec-conv forward, dgrad and wgrad kernels at the MRD's real
-   layer shapes (b8 x f460), each held against its plain PyTorch version,
-   with its time, the plain version's, a library call's (a yardstick the
-   port never calls) and its bound; the STFT and torch.stft also with
-   their device time by torch.profiler, which leaves out the host's launch;
+   the MRD's spec-conv forward, dgrad and wgrad kernels at three of the
+   MRD's real layer shapes (b8 x f460), each held against its plain
+   PyTorch version, with its time, the plain version's, a library call's
+   (a yardstick the port never calls) and its bound; each kernel and its
+   library call also with their device time by torch.profiler, which
+   leaves out the host's launch; then the spec-conv forward at all 12
+   layer shapes of the MRD at b8 x f460, each held against its plain
+   version, with its and cuDNN's device time and its launches per step;
 3. probes: the eight patch-staging probe kernels (``csrc/patch_probe.cu``)
    at the probe script's sizes and inputs, each held against its plain
    version (the five copies exactly, the three products within
@@ -61,12 +64,17 @@ from pathlib import Path
 import numpy as np
 import torch
 
+from stylish_tts_tpu_torch.scripts.spec_conv_times import (
+    FWD_LAUNCHES_PER_LAYER, TOL as CONV_TOL, device_ms, layer_times,
+    mrd_layers)
+
 # H100 SXM peaks (NVIDIA data sheet): f32 outside the tensor cores, bf16
 # dense on the tensor cores, HBM3
 PEAK_F32_FLOPS = 67e12
 PEAK_BF16_FLOPS = 989e12
 PEAK_BYTES = 3.35e12
 
+TRAIN_BATCH, TRAIN_FRAMES = 8, 460
 STFT_SHAPES = [(2048, 75, 1200), (512, 50, 240), (1024, 120, 600),
                (2048, 240, 1200), (2048, 300, 1200)]
 KERNEL_TOL = 1e-4  # max|kernel - plain| <= KERNEL_TOL * max|plain|
@@ -76,10 +84,6 @@ KERNEL_TOL = 1e-4  # max|kernel - plain| <= KERNEL_TOL * max|plain|
 CONV_SHAPES = [("res0 conv_1", (8, 257, 2761, 32), 9, 2),
                ("res1 conv_1", (8, 513, 1151, 32), 9, 2),
                ("res2 conv_4", (8, 1025, 72, 32), 3, 1)]
-# bf16 outputs: one bf16 rounding of f32 sums taken in another order; the
-# f32 weight gradient: sums of millions of bf16 products in another order
-CONV_TOL = {"forward": 1e-2, "dgrad": 1e-2, "wgrad": 1e-3}
-TRAIN_BATCH, TRAIN_FRAMES = 8, 460
 # the port's kernel functions on the two model paths, as the profiler
 # names them
 PORT_KERNEL_SYMBOLS = ("stft_fft_kernel", "spec_conv_",
@@ -271,6 +275,9 @@ def spec_conv_numbers(shape, kt: int, stride: int, flush: torch.Tensor,
             "max_abs_err": err, "max_abs_plain": scale, "ms": ms,
             "plain_ms": time_ms(plain, iters=3, flush=flush),
             "library_ms": time_ms(library, flush=flush),
+            # the device's own time, without the host's launch in the spans
+            "device_ms": device_ms(kernel),
+            "library_device_ms": device_ms(library),
             "bound_ms": max(t_ops, t_bytes),
             "bound_by": "operations" if t_ops >= t_bytes else "bytes",
             "flops": flops, "bytes": nbytes,
@@ -298,28 +305,6 @@ def time_mean_ms(fn, iters: int = 100) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
-
-
-def device_ms(fn, iters: int = 20) -> float:
-    """Device time of one call of ``fn``: the durations of the kernels it
-    launches (torch.profiler), summed and averaged over ``iters`` calls.
-    Unlike ``time_mean_ms`` it leaves out the gaps while the host launches."""
-    from torch.profiler import ProfilerActivity, profile
-
-    fn()
-    torch.cuda.synchronize()
-    for _ in range(3):  # now and then a session hands back no device records
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            for _ in range(iters):
-                fn()
-            torch.cuda.synchronize()
-        total_us = sum(evt.self_device_time_total
-                       for evt in prof.key_averages()
-                       if evt.device_type == torch.autograd.DeviceType.CUDA)
-        if total_us > 0:
-            return total_us / 1e3 / iters
-    raise AssertionError("torch.profiler recorded no device time")
 
 
 def mini_conv_weight(w: torch.Tensor) -> torch.Tensor:
@@ -830,11 +815,45 @@ def main() -> int:
         record["spec_conv"][label] = r
         for name, n in r.items():
             print(f"spec_conv_{name} {label} {shape} kt={kt} s={stride}: "
-                  f"kernel {n['ms']:.3f} ms ({n['tflops_per_s']:.1f} TFLOP/s)"
+                  f"kernel {n['ms']:.3f} ms [{n['device_ms']:.4f}] "
+                  f"({n['tflops_per_s']:.1f} TFLOP/s by span)"
                   f", plain {n['plain_ms']:.3f} ms, cuDNN bf16 "
-                  f"{n['library_ms']:.3f} ms, bound {n['bound_ms']:.3f} ms "
+                  f"{n['library_ms']:.3f} ms [{n['library_device_ms']:.4f}], "
+                  f"bound {n['bound_ms']:.3f} ms "
                   f"({n['bound_by']}), max err {n['max_abs_err']:.2e} of "
                   f"{n['max_abs_plain']:.2e} [{card}]")
+    torch.cuda.empty_cache()
+    # ... and the forward at every spec-conv layer shape of the MRD
+    record["spec_conv_forward_layers"] = {}
+    totals = [0.0, 0.0]
+    for seed, (label, shape, kt, stride) in enumerate(mrd_layers()):
+        r = layer_times(shape, kt, stride, 100 + seed)["forward"]
+        b, h, w, c = shape
+        w_out = sc.out_width(w, stride)
+        flops = 2.0 * b * h * w_out * 3 * kt * c * c
+        t_ops = flops / PEAK_BF16_FLOPS * 1e3
+        t_bytes = 2.0 * (b * h * w * c + 3 * kt * c * c + c
+                         + b * h * w_out * c) / PEAK_BYTES * 1e3
+        r.update(shape=list(shape), kt=kt, stride=stride,
+                 bound_ms=max(t_ops, t_bytes),
+                 bound_by="operations" if t_ops >= t_bytes else "bytes",
+                 tflops_per_s=flops / r["device_ms"] * 1e-9,
+                 plan=sc.spec_conv_forward.plan(b, h, w, kt, stride))
+        record["spec_conv_forward_layers"][label] = r
+        totals[0] += FWD_LAUNCHES_PER_LAYER * r["device_ms"]
+        totals[1] += FWD_LAUNCHES_PER_LAYER * r["library_device_ms"]
+        print(f"spec_conv_forward {label} {shape} kt={kt} s={stride}: "
+              f"device {r['device_ms']:.4f} ms ({r['tflops_per_s']:.1f} "
+              f"TFLOP/s), cuDNN bf16 {r['library_device_ms']:.4f} ms, bound "
+              f"{r['bound_ms']:.4f} ms ({r['bound_by']}), "
+              f"{FWD_LAUNCHES_PER_LAYER} per step, plan {r['plan']}, max err "
+              f"{r['max_abs_err']:.2e} of {r['max_abs_plain']:.2e} [{card}]")
+    record["spec_conv_forward_step_ms"] = {"kernel": totals[0],
+                                           "cudnn": totals[1]}
+    print(f"spec_conv_forward over the train step's "
+          f"{FWD_LAUNCHES_PER_LAYER * len(mrd_layers())} launches (device "
+          f"time, L2 warm): kernel {totals[0]:.3f} ms, cuDNN bf16 "
+          f"{totals[1]:.3f} ms [{card}]")
     torch.cuda.empty_cache()
 
     # 3. the patch-staging probes, then their entry point
@@ -951,6 +970,14 @@ def main() -> int:
     if "--profile" in sys.argv[1:]:
         record["profile_train"] = profile_step(step, state, tbatch, gen,
                                                card)
+        fwd = [v for k, v in record["profile_train"]["port_kernels"].items()
+               if k.startswith("spec_conv_fwd")]
+        print(f"profiled train step: spec_conv_forward "
+              f"{sum(v['ms'] for v in fwd):.3f} ms over "
+              f"{sum(v['count'] for v in fwd)} launches; the 12 layer shapes "
+              f"x {FWD_LAUNCHES_PER_LAYER} above: "
+              f"{record['spec_conv_forward_step_ms']['kernel']:.3f} ms "
+              f"[{card}]")
     del state, step, tbatch, gen
     torch.cuda.empty_cache()
     record["train_cpu_vs_card"] = cpu_vs_card_step(mc, card)
@@ -977,7 +1004,8 @@ def main() -> int:
             "max_abs_err": n["max_abs_err"], "ms": n["ms"],
             "plain_ms": n["plain_ms"], "bound_ms": n["bound_ms"],
             "bound_by": n["bound_by"], "library_ms": n["library_ms"],
-            "device_ms": n.get("device_ms"),  # profiler: STFT, probes
+            "device_ms": n["device_ms"],  # torch.profiler
+            "library_device_ms": n["library_device_ms"],
         })
     print(card)
     print(json.dumps({"kernels": entries}))

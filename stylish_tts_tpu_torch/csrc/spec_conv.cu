@@ -3,8 +3,9 @@
 //
 // Replaces the TPU kernels of stylish_tts_tpu/ops/spec_conv.py:
 //   * _fwd_kernel (launched by _fwd_call) in its two uses: the fused
-//     conv + bias + leaky_relu forward, and dx, which the TPU path computes
-//     with the same kernel on a zero-dilated gradient and flipped weights;
+//     conv + bias + leaky_relu forward (spec_conv_fwd_kernel), and dx,
+//     which the TPU path computes with the same kernel on a zero-dilated
+//     gradient and flipped weights (spec_conv_dgrad_kernel);
 //   * _dw_kernel (launched by _dw_call), the weight gradient.
 //
 // The function.  x [B, H, W, 32] bf16, plain channels-last; weights
@@ -26,28 +27,48 @@
 // balance point, so neither bound can be ignored.  conv_4 (kt 3, stride 1)
 // has a third of the FLOP per byte and is bound by bytes.
 //
-// What the design does about that, as a first kernel that is right:
+// What the design does about that.  The forward (redesigned for this card):
+//   * persistent blocks: as many blocks as fit on the card at once (one
+//     per SM at kt 9: 224 KB of shared memory), each loading the packed
+//     weights into shared memory once and then walking work items (b, a
+//     strip of 64 positions, a chunk of up to 32 rows) in a fixed order.
+//     The weights are read from L2 once per block, not once per tile;
+//   * a ring of input rows: the block walks down H, 8 output rows a step
+//     (one per warp), and keeps 20 staged rows; each input row is staged
+//     once per item and read by the three output rows that need it, so
+//     the halo on H is (32 + 2) / 32 instead of 2;
+//   * cp.async staging that overlaps the MMAs: while a step computes, its
+//     threads have the next step's 8 rows in flight (16-B copies whose
+//     zero-fill form writes the conv's padding); one barrier a step;
+//   * ldmatrix.x4 feeds mma.sync m16n8k16: a warp owns one row of 64
+//     positions x 32 channels (4 x 4 MMA tiles, 64 f32 sums), so each
+//     weight fragment (one 8-byte load per lane, packed by the caller in
+//     MMA-fragment order) serves 4 MMAs and each A fragment 4;
+//   * staged pixels are 64 B, split by parity on stride 2 so that a tap's
+//     run of positions is a run of pixels, with the 16-B chunks XOR-
+//     swizzled by pixel: ldmatrix's eight rows fall on distinct banks;
+//   * the last strip of a row skips the 16-position MMA tiles that lie
+//     wholly past W_out (W_out 72: 5 tiles, not 8);
+//   * the epilogue swaps words within each quad of lanes, so that each
+//     lane stores 8 consecutive channels (16 B).
+// dgrad and wgrad, the first kernels that are right (PR 2's design):
 //   * implicit GEMM: no patch matrix and, for dgrad, no zero-dilated
 //     gradient ever reach device memory.  Each block stages the input rows
 //     its tile covers (tile + halo) in shared memory once and reads every
-//     tap from there, so device memory sees each input about once (the
-//     halo adds (kt-1)/(64 s) along W and 2/2 along H);
-//   * forward and dgrad: a block owns 2 rows x 64 positions and all 32
-//     output channels; each of its 4 warps owns 32 positions (two 16-row
-//     MMA tiles that share the weight fragments).  The weights are packed
-//     by the caller in MMA-fragment order, so a warp reads them with one
-//     conflict-free 8-byte load per lane.  On the stride-2 axis the staged
-//     columns are split by parity and dgrad gives each warp one parity
-//     class, so it visits only the taps that reach it (the TPU path's
-//     dilated gradient multiplies zeros half the time there);
-//   * shared rows are padded to 40 bf16 per pixel (80 B): a warp's 8 rows
-//     then fall on distinct banks;
+//     tap from there (the halo adds (kt-1)/(64 s) along W and 2/2 along H);
+//   * dgrad: a block owns 2 rows x 64 positions and all 32 output
+//     channels; each of its 4 warps owns 32 positions (two 16-row MMA tiles
+//     that share the weight fragments).  The staged columns are split by
+//     parity and each warp takes one parity class, so it visits only the
+//     taps that reach it (the TPU path's dilated gradient multiplies zeros
+//     half the time there); shared rows are padded to 40 bf16 per pixel
+//     (80 B): a warp's 8 rows then fall on distinct banks;
 //   * wgrad: blocks run in no order, so each block walks a strided set of
 //     tiles, keeps its whole dW share in registers (one warp per column tap
 //     j, holding the kf x 32 x 32 products of that tap) and writes f32
 //     partials; a second kernel sums the partials in a fixed order, so the
 //     result is the same from run to run (no float atomics).
-// wgmma, TMA and a pipelined ring of tiles are later work.
+// wgmma and TMA are later work.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -100,115 +121,269 @@ __device__ __forceinline__ void stage_weights(uint16_t* ws, const uint16_t* wp,
 }
 
 // ------------------------------------------------------------------------- //
-// forward: y = act(conv(x, w) + bias)
+// forward: y = act(conv(x, w) + bias), persistent blocks over a ring of rows
+//
+// A work item is (b, a strip of FWD_STRIP output positions, a chunk of up
+// to FWD_CHUNK_STEPS steps of FWD_WARPS output rows).  The grid holds as
+// many blocks as fit on the card at once; each loads the packed weights
+// into shared memory once and walks the items blockIdx.x, + gridDim.x, ...
+// Within an item the block walks down H: warp w computes output row
+// h0 + w of the strip (64 positions, all 32 channels), reading input rows
+// h0 + w - 1 .. h0 + w + 1 from a ring of FWD_RING staged rows.  A step
+// stages only the FWD_WARPS rows its successor adds (the first step of an
+// item all FWD_WARPS + 2), by cp.async into the ring while the MMAs of
+// the current step run; one barrier a step hands the rows over.
+
+constexpr int FWD_WARPS = 8;                     // output rows per step
+constexpr int FWD_THREADS = 32 * FWD_WARPS;
+constexpr int FWD_STRIP = 64;                    // positions per warp
+constexpr int FWD_RING = 2 * (FWD_WARPS + 2);    // staged input rows
+constexpr int FWD_CHUNK_STEPS = 4;               // steps per item at most
 
 template <int KT, int S>
 struct Fwd {
   static constexpr int PT = KT / 2;
-  static constexpr int WIN = (TW - 1) * S + KT;  // staged columns
-  static constexpr int HALF = (WIN + 1) / 2;     // columns per parity plane
+  static constexpr int WIN = (FWD_STRIP - 1) * S + KT;  // staged columns
+  static constexpr int HALF = (WIN + 1) / 2;            // per parity plane
   static constexpr int ROWPIX = S == 2 ? 2 * HALF : WIN;
-  static constexpr int XS = (RH + 2) * ROWPIX * PIX;
-  static constexpr int SMEM = 2 * (XS + Packed<KT>::ELEMS);
-  // staged pixel of input column c of the tile (parity planes on stride 2)
-  __device__ static __forceinline__ int slot(int c) {
+  static constexpr int ROWBYTES = ROWPIX * C * 2;
+  static constexpr int WBYTES = 2 * Packed<KT>::ELEMS;
+  static constexpr int SMEM = WBYTES + FWD_RING * ROWBYTES;
+  // staged pixel of column o * S + j of the strip's window: on stride 2
+  // the columns are split by parity, so a tap's run of positions is a run
+  // of consecutive pixels in either case
+  __device__ static __forceinline__ int pixel(int o, int j) {
+    return S == 2 ? (j & 1) * HALF + o + (j >> 1) : o + j;
+  }
+  __device__ static __forceinline__ int pixel_of_column(int c) {
     return S == 2 ? (c & 1) * HALF + (c >> 1) : c;
+  }
+  // byte offset of 16-B chunk k (channels 8k..8k+7) of pixel q: the chunk
+  // is XOR-swizzled with bits 1-2 of q, so the eight rows of one ldmatrix
+  // (eight consecutive pixels, one chunk) fall on eight distinct bank groups
+  __device__ static __forceinline__ int offset(int q, int k) {
+    return q * (C * 2) + ((k ^ ((q >> 1) & 3)) << 4);
   }
 };
 
+static_assert(Fwd<9, 2>::SMEM <= 232448, "forward does not fit in shared memory");
+
+__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src, bool valid) {
+  // src-size 0 writes 16 zero bytes: the conv's padding
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
+               ::"r"(dst), "l"(src), "r"(valid ? 16 : 0) : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void ldmatrix_x4(uint32_t (&a)[4], uint32_t addr) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(a[0]), "=r"(a[1]), "=r"(a[2]), "=r"(a[3])
+               : "r"(addr));
+}
+
+__device__ __forceinline__ uint32_t pick4(const uint32_t (&v)[4], int i) {
+  return i == 0 ? v[0] : i == 1 ? v[1] : i == 2 ? v[2] : v[3];
+}
+
+// The work split of one forward launch, made on the host.
+struct FwdPlan {
+  int blocks, strips, chunk_steps, chunks, items;
+};
+
+inline FwdPlan fwd_plan(int B, int H, int Wout, int slots) {
+  FwdPlan p;
+  p.strips = (Wout + FWD_STRIP - 1) / FWD_STRIP;
+  const int steps_h = (H + FWD_WARPS - 1) / FWD_WARPS;
+  // as many steps per item as keep four items per block, up to
+  // FWD_CHUNK_STEPS (34 staged rows for 32 output rows)
+  const long long work = (long long)B * p.strips * steps_h;
+  long long chunk = work / (4LL * slots);
+  if (chunk > FWD_CHUNK_STEPS) chunk = FWD_CHUNK_STEPS;
+  if (chunk < 1) chunk = 1;
+  p.chunk_steps = (int)chunk;
+  p.chunks = (steps_h + p.chunk_steps - 1) / p.chunk_steps;
+  p.items = B * p.strips * p.chunks;
+  p.blocks = p.items < slots ? p.items : slots;
+  return p;
+}
+
 template <int KT, int S>
-__global__ void __launch_bounds__(THREADS)
+__global__ void __launch_bounds__(FWD_THREADS)
 spec_conv_fwd_kernel(const uint16_t* __restrict__ x, const uint16_t* __restrict__ wp,
                      const float* __restrict__ bias, __nv_bfloat16* __restrict__ y,
-                     int H, int W, int Wout, float slope) {
+                     int H, int W, int Wout, int strips, int chunk_steps,
+                     int chunks, int items, float slope) {
   using G = Fwd<KT, S>;
   extern __shared__ __align__(16) uint16_t smem[];
-  uint16_t* xs = smem;
-  uint16_t* ws = smem + G::XS;
+  const uint32_t ring = (uint32_t)__cvta_generic_to_shared(smem) + G::WBYTES;
+  const int tid = threadIdx.x;
+  const int lane = tid & 31, warp = tid >> 5;
+  const int steps_h = (H + FWD_WARPS - 1) / FWD_WARPS;
+  if ((int)blockIdx.x >= items) return;
 
-  const int b = blockIdx.z;
-  const int h0 = blockIdx.y * RH;
-  const int o0 = blockIdx.x * TW;
-
-  // stage rows h0-1 .. h0+RH, columns o0*S - PT .. + WIN, zero outside
-  const int items = (RH + 2) * G::WIN * 4;
-  for (int it = threadIdx.x; it < items; it += THREADS) {
-    const int chunk = it & 3;
-    const int c = (it >> 2) % G::WIN;
-    const int r = (it >> 2) / G::WIN;
-    const int h = h0 - 1 + r;
-    const int w = o0 * S - G::PT + c;
-    uint4 v = make_uint4(0u, 0u, 0u, 0u);
-    if (h >= 0 && h < H && w >= 0 && w < W)
-      v = __ldg(reinterpret_cast<const uint4*>(
-          x + (((size_t)b * H + h) * W + w) * C + chunk * 8));
-    *reinterpret_cast<uint4*>(xs + (r * G::ROWPIX + G::slot(c)) * PIX + chunk * 8) = v;
+  // the weights, once per block
+  {
+    const uint32_t ws = (uint32_t)__cvta_generic_to_shared(smem);
+    for (int i = tid; i < G::WBYTES / 16; i += FWD_THREADS)
+      cp_async16(ws + 16 * i, wp + 8 * i, true);
   }
-  stage_weights(ws, wp, Packed<KT>::ELEMS);
-  __syncthreads();
 
-  const int lane = threadIdx.x & 31;
-  const int g = lane >> 2, t = lane & 3;
-  const int warp = threadIdx.x >> 5;
-  const int hr = warp >> 1;
-  const int qb = (warp & 1) * 32;
+  // rows r_first .. r_first + nrows - 1 of image b, the strip's window
+  // from column o0 * S - PT, into ring positions pos, pos + 1, ...
+  auto stage = [&](int b, int o0, int r_first, int nrows, int pos) {
+    const int w0 = o0 * S - G::PT;
+    const int n = nrows * G::WIN * 4;
+    for (int it = tid; it < n; it += FWD_THREADS) {
+      const int k = it & 3;
+      const int c = (it >> 2) % G::WIN;
+      const int r = (it >> 2) / G::WIN;
+      const int h = r_first + r, w = w0 + c;
+      const bool ok = h >= 0 && h < H && w >= 0 && w < W;
+      const uint16_t* src = ok ? x + (((size_t)b * H + h) * W + w) * C + k * 8 : x;
+      cp_async16(ring + ((pos + r) % FWD_RING) * G::ROWBYTES +
+                     G::offset(G::pixel_of_column(c), k),
+                 src, ok);
+    }
+  };
 
-  float acc[2][4][4];
+  // the current step: item t, step k of it, rows h0 .. h0 + FWD_WARPS - 1,
+  // its input row h0 - 1 at ring position pos; head = next free position
+  int t = blockIdx.x, k = 0;
+  int b, o0, h0, nsteps;
+  auto decode = [&]() {
+    const int strip = t % strips;
+    const int chunk = (t / strips) % chunks;
+    b = t / (strips * chunks);
+    o0 = strip * FWD_STRIP;
+    h0 = chunk * chunk_steps * FWD_WARPS;
+    nsteps = min(chunk_steps, steps_h - chunk * chunk_steps);
+  };
+  decode();
+  int pos = 0, head = FWD_WARPS + 2;
+  stage(b, o0, h0 - 1, FWD_WARPS + 2, 0);
+  cp_async_commit();
+
+  const int g = lane >> 2, t4 = lane & 3;
+  // this lane's ldmatrix row (position within an m-tile) and chunk half
+  const int lrow = (lane & 7) + ((lane >> 3) & 1) * 8;
+  const int lk = lane >> 4;
+  const uint2* wfrag = reinterpret_cast<const uint2*>(smem) + lane;
+
+  for (;;) {
+    cp_async_wait_all();
+    __syncthreads();  // this step's rows are in; the previous step is done
+    const int cb = b, co0 = o0, ch0 = h0, cpos = pos;
+    // stage the next step's rows into positions the previous step freed
+    bool last = false;
+    if (k + 1 < nsteps) {
+      ++k;
+      h0 += FWD_WARPS;
+      pos = cpos + FWD_WARPS;
+      stage(b, o0, h0 + 1, FWD_WARPS, head);
+      head += FWD_WARPS;
+    } else {
+      t += gridDim.x;
+      k = 0;
+      if (t < items) {
+        decode();
+        pos = head;
+        stage(b, o0, h0 - 1, FWD_WARPS + 2, head);
+        head += FWD_WARPS + 2;
+      } else {
+        last = true;
+      }
+    }
+    cp_async_commit();
+
+    const int h = ch0 + warp;
+    if (h < H) {
+      const int mact = min(4, (Wout - co0 + 15) >> 4);  // m-tiles in range
+      float acc[4][4][4];
 #pragma unroll
-  for (int m = 0; m < 2; ++m)
+      for (int m = 0; m < 4; ++m)
 #pragma unroll
-    for (int n = 0; n < 4; ++n)
+        for (int n = 0; n < 4; ++n)
 #pragma unroll
-      for (int e = 0; e < 4; ++e) acc[m][n][e] = 0.f;
+          for (int e = 0; e < 4; ++e) acc[m][n][e] = 0.f;
 
 #pragma unroll 1
-  for (int i = 0; i < KF; ++i) {
+      for (int i = 0; i < KF; ++i) {
+        const uint32_t row = ring + ((cpos + warp + i) % FWD_RING) * G::ROWBYTES;
 #pragma unroll
-    for (int j = 0; j < KT; ++j) {
+        for (int j = 0; j < KT; ++j) {
 #pragma unroll
-      for (int ch = 0; ch < 2; ++ch) {
-        const uint2* wb = reinterpret_cast<const uint2*>(ws) +
-                          (((i * KT + j) * 2 + ch) * 4) * 32 + lane;
-        uint32_t bf[4][2];
+          for (int ch = 0; ch < 2; ++ch) {
+            const uint2* wb = wfrag + (((i * KT + j) * 2 + ch) * 4) * 32;
+            uint32_t bf[4][2];
 #pragma unroll
-        for (int n = 0; n < 4; ++n) {
-          const uint2 v = wb[n * 32];
-          bf[n][0] = v.x;
-          bf[n][1] = v.y;
-        }
-        const uint16_t* row = xs + (hr + i) * G::ROWPIX * PIX + ch * 16 + 2 * t;
+            for (int n = 0; n < 4; ++n) {
+              const uint2 v = wb[n * 32];
+              bf[n][0] = v.x;
+              bf[n][1] = v.y;
+            }
 #pragma unroll
-        for (int m = 0; m < 2; ++m) {
-          const int q0 = qb + m * 16 + g;
-          const uint16_t* p0 = row + G::slot(q0 * S + j) * PIX;
-          const uint16_t* p1 = row + G::slot((q0 + 8) * S + j) * PIX;
-          const uint32_t a[4] = {ld32(p0), ld32(p1), ld32(p0 + 8), ld32(p1 + 8)};
+            for (int m = 0; m < 4; ++m) {
+              if (m < mact) {
+                uint32_t a[4];
+                ldmatrix_x4(a, row + G::offset(G::pixel(m * 16 + lrow, j), ch * 2 + lk));
 #pragma unroll
-          for (int n = 0; n < 4; ++n) mma_bf16(acc[m][n], a, bf[n][0], bf[n][1]);
+                for (int n = 0; n < 4; ++n) mma_bf16(acc[m][n], a, bf[n][0], bf[n][1]);
+              }
+            }
+          }
         }
       }
-    }
-  }
 
-  const int h = h0 + hr;
-  if (h >= H) return;
-#pragma unroll
-  for (int m = 0; m < 2; ++m) {
-#pragma unroll
-    for (int half = 0; half < 2; ++half) {
-      const int o = o0 + qb + m * 16 + g + 8 * half;
-      if (o >= Wout) continue;
-      __nv_bfloat16* yp = y + (((size_t)b * H + h) * Wout + o) * C;
+      // epilogue: bias, leaky ReLU, bf16; a quad's four lanes swap words so
+      // that each holds 8 consecutive channels of one position, stored as
+      // 16 B
+      float bv[4][2];
 #pragma unroll
       for (int n = 0; n < 4; ++n) {
-        const int co = n * 8 + 2 * t;
-        float v0 = acc[m][n][2 * half] + bias[co];
-        float v1 = acc[m][n][2 * half + 1] + bias[co + 1];
-        v0 = v0 >= 0.f ? v0 : v0 * slope;
-        v1 = v1 >= 0.f ? v1 : v1 * slope;
-        *reinterpret_cast<__nv_bfloat162*>(yp + co) = __floats2bfloat162_rn(v0, v1);
+        bv[n][0] = __ldg(bias + n * 8 + 2 * t4);
+        bv[n][1] = __ldg(bias + n * 8 + 2 * t4 + 1);
+      }
+      __nv_bfloat16* yrow = y + ((size_t)cb * H + h) * Wout * C;
+#pragma unroll
+      for (int m = 0; m < 4; ++m) {
+        if (m < mact) {
+#pragma unroll
+          for (int half = 0; half < 2; ++half) {
+            uint32_t v[4];
+#pragma unroll
+            for (int n = 0; n < 4; ++n) {
+              float v0 = acc[m][n][2 * half] + bv[n][0];
+              float v1 = acc[m][n][2 * half + 1] + bv[n][1];
+              v0 = v0 >= 0.f ? v0 : v0 * slope;
+              v1 = v1 >= 0.f ? v1 : v1 * slope;
+              const __nv_bfloat162 p = __floats2bfloat162_rn(v0, v1);
+              v[n] = *reinterpret_cast<const uint32_t*>(&p);
+            }
+            // v[n] = channels 8n + 2*t4, +1; got[s] = channels 8*t4 +
+            // 2*(t4 ^ s), +1, from lane t4 ^ s of the quad
+            uint32_t got[4];
+            got[0] = pick4(v, t4);
+#pragma unroll
+            for (int s = 1; s < 4; ++s)
+              got[s] = __shfl_xor_sync(0xffffffffu, pick4(v, t4 ^ s), s);
+            const int o = co0 + m * 16 + g + 8 * half;
+            if (o < Wout) {
+              const uint4 out = make_uint4(pick4(got, t4), pick4(got, t4 ^ 1),
+                                           pick4(got, t4 ^ 2), pick4(got, t4 ^ 3));
+              *reinterpret_cast<uint4*>(yrow + (size_t)o * C + t4 * 8) = out;
+            }
+          }
+        }
       }
     }
+    if (last) break;
   }
 }
 
@@ -482,15 +657,26 @@ __global__ void sum_partials_kernel(const float* __restrict__ partial,
 
 template <int KT, int S>
 int launch_fwd(const void* x, const void* wp, const void* bias, void* y, int B,
-               int H, int W, int Wout, float slope, cudaStream_t stream) {
+               int H, int W, int Wout, int sms, float slope, FwdPlan* plan,
+               cudaStream_t stream) {
   auto kern = spec_conv_fwd_kernel<KT, S>;
   cudaError_t err = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, Fwd<KT, S>::SMEM);
   if (err != cudaSuccess) return (int)err;
-  dim3 grid((Wout + TW - 1) / TW, (H + RH - 1) / RH, B);
-  kern<<<grid, THREADS, Fwd<KT, S>::SMEM, stream>>>(
+  int per_sm = 0;
+  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kern, FWD_THREADS,
+                                                      Fwd<KT, S>::SMEM);
+  if (err != cudaSuccess) return (int)err;
+  if (per_sm < 1) return (int)cudaErrorInvalidConfiguration;
+  const FwdPlan p = fwd_plan(B, H, Wout, per_sm * sms);
+  if (plan) {  // the plan only, no launch
+    *plan = p;
+    return 0;
+  }
+  kern<<<p.blocks, FWD_THREADS, Fwd<KT, S>::SMEM, stream>>>(
       (const uint16_t*)x, (const uint16_t*)wp, (const float*)bias,
-      (__nv_bfloat16*)y, H, W, Wout, slope);
+      (__nv_bfloat16*)y, H, W, Wout, p.strips, p.chunk_steps, p.chunks,
+      p.items, slope);
   return (int)cudaGetLastError();
 }
 
@@ -530,17 +716,44 @@ int launch_wgrad(const void* x, const void* d, void* partial, void* dw, int B,
 // launches (0 = ok).  Tensors are contiguous; x, d, dx, y bf16 [B, H, *, 32];
 // wp the packed weights (see Packed); bias f32 [32]; kt 9 or 3; stride 1 or 2.
 
-extern "C" int spec_conv_forward_bf16(const void* x, const void* wp,
-                                      const void* bias, void* y, int B, int H,
-                                      int W, int Wout, int kt, int stride,
-                                      float slope, void* stream) {
-#define CALL_FWD(K, S2) launch_fwd<K, S2>(x, wp, bias, y, B, H, W, Wout, slope, (cudaStream_t)stream)
+// sms: the card's multiprocessor count; the launch holds as many blocks as
+// fit on them at once (see fwd_plan).
+static int forward_dispatch(const void* x, const void* wp, const void* bias,
+                            void* y, int B, int H, int W, int Wout, int kt,
+                            int stride, int sms, float slope, FwdPlan* plan,
+                            void* stream) {
+#define CALL_FWD(K, S2) launch_fwd<K, S2>(x, wp, bias, y, B, H, W, Wout, sms, slope, plan, (cudaStream_t)stream)
   if (kt == 9 && stride == 2) return CALL_FWD(9, 2);
   if (kt == 9 && stride == 1) return CALL_FWD(9, 1);
   if (kt == 3 && stride == 2) return CALL_FWD(3, 2);
   if (kt == 3 && stride == 1) return CALL_FWD(3, 1);
   return (int)cudaErrorInvalidValue;
 #undef CALL_FWD
+}
+
+extern "C" int spec_conv_forward_bf16(const void* x, const void* wp,
+                                      const void* bias, void* y, int B, int H,
+                                      int W, int Wout, int kt, int stride,
+                                      int sms, float slope, void* stream) {
+  return forward_dispatch(x, wp, bias, y, B, H, W, Wout, kt, stride, sms,
+                          slope, nullptr, stream);
+}
+
+// The forward's work split for a shape, without a launch: out[0..4] =
+// blocks, strips, steps per item, chunks, items.
+extern "C" int spec_conv_forward_plan(int B, int H, int Wout, int kt,
+                                      int stride, int sms, int* out) {
+  FwdPlan p;
+  const int err = forward_dispatch(nullptr, nullptr, nullptr, nullptr, B, H, 0,
+                                   Wout, kt, stride, sms, 0.f, &p, nullptr);
+  if (err == 0) {
+    out[0] = p.blocks;
+    out[1] = p.strips;
+    out[2] = p.chunk_steps;
+    out[3] = p.chunks;
+    out[4] = p.items;
+  }
+  return err;
 }
 
 extern "C" int spec_conv_dgrad_bf16(const void* d, const void* wp, void* dx,

@@ -132,15 +132,16 @@ def _check_weight(name: str, w: torch.Tensor, stride: int) -> int:
 
 @functools.lru_cache(maxsize=1)
 def _library() -> ctypes.CDLL:
-    """The built library with its three entry points typed."""
+    """The built library with its entry points typed."""
     lib = load_library("spec_conv")
     ptr, i32 = ctypes.c_void_p, ctypes.c_int
     lib.spec_conv_forward_bf16.argtypes = (
-        [ptr] * 4 + [i32] * 6 + [ctypes.c_float, ptr])
+        [ptr] * 4 + [i32] * 7 + [ctypes.c_float, ptr])
+    lib.spec_conv_forward_plan.argtypes = [i32] * 6 + [ptr]
     lib.spec_conv_dgrad_bf16.argtypes = [ptr] * 3 + [i32] * 6 + [ptr]
     lib.spec_conv_wgrad_bf16.argtypes = [ptr] * 4 + [i32] * 7 + [ptr]
-    for fn in (lib.spec_conv_forward_bf16, lib.spec_conv_dgrad_bf16,
-               lib.spec_conv_wgrad_bf16):
+    for fn in (lib.spec_conv_forward_bf16, lib.spec_conv_forward_plan,
+               lib.spec_conv_dgrad_bf16, lib.spec_conv_wgrad_bf16):
         fn.restype = ctypes.c_int
     return lib
 
@@ -162,7 +163,26 @@ class _Kernel:
         self.launches += 1
 
 
+def _sms(device: torch.device) -> int:
+    return torch.cuda.get_device_properties(device).multi_processor_count
+
+
 class SpecConvForward(_Kernel):
+    """The persistent forward: as many blocks as fit on the card at once,
+    each walking work items of (b, 64 positions, up to 32 rows)."""
+
+    def plan(self, batch: int, h: int, width: int, kt: int, stride: int,
+             device: torch.device | str = "cuda") -> dict:
+        """The work split of a launch at this shape, as the kernel makes it."""
+        device = torch.device(device)
+        out = (ctypes.c_int * 5)()
+        err = _library().spec_conv_forward_plan(
+            batch, h, out_width(width, stride), kt, stride, _sms(device), out)
+        if err != 0:
+            raise RuntimeError(f"{self.name} plan failed: CUDA error {err}")
+        return dict(zip(("blocks", "strips", "steps_per_item", "chunks",
+                         "items"), out))
+
     def __call__(self, x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
                  stride: int, leaky: float) -> torch.Tensor:
         """leaky_relu(conv(x, w) + b): x [B, H, W, 32] bf16 ->
@@ -184,7 +204,8 @@ class SpecConvForward(_Kernel):
             stream = torch.cuda.current_stream(device).cuda_stream
             err = _library().spec_conv_forward_bf16(
                 x.data_ptr(), packed.data_ptr(), bias.data_ptr(), y.data_ptr(),
-                batch, h, width, w_out, kt, stride, float(leaky), stream)
+                batch, h, width, w_out, kt, stride, _sms(device),
+                float(leaky), stream)
         self._done(err)
         return y
 

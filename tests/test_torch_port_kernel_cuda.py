@@ -175,6 +175,59 @@ def test_spec_conv_kernels_match_plain(cuda, h, w, kt, stride):
     assert _rel_err(dw, sc.wgrad_plain(x, d, kt, stride)) <= 1e-3
 
 
+# the persistent forward's tiling (8 output rows a step, up to 4 steps an
+# item, strips of 64 positions): (B, H, W, kt, stride)
+FWD_TILING = {
+    "H not a multiple of the step or the chunk": (2, 77, 141, 9, 2),
+    "H below one step": (2, 3, 141, 9, 2),
+    "partial last strip": (2, 19, 150, 9, 2),  # W_out 75: 64 + 11
+    "W_out below one strip": (2, 19, 9, 9, 2),  # W_out 5
+    "B = 1": (1, 19, 141, 9, 2),
+    "kt 9 stride 1": (2, 21, 100, 9, 1),
+    "kt 3 stride 2": (2, 21, 100, 3, 2),
+    "kt 3 stride 1": (2, 21, 100, 3, 1),
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", list(FWD_TILING))
+def test_spec_conv_forward_tiling(cuda, case):
+    batch, h, w, kt, stride = FWD_TILING[case]
+    x, wt, b, _ = _conv_inputs(h, w, kt, stride, seed=3)
+    x = x[:1].contiguous() if batch == 1 else x
+    before = sc.spec_conv_forward.launches
+    y = sc.spec_conv_forward(x, wt, b, stride, 0.1)
+    torch.cuda.synchronize()
+    assert sc.spec_conv_forward.launches == before + 1
+    want = sc.forward_plain(x, wt, b, stride, 0.1)
+    assert y.shape == want.shape
+    assert _rel_err(y, want) <= 1e-2
+
+
+@pytest.mark.cuda
+def test_spec_conv_forward_many_items_per_block(cuda):
+    # the MRD's largest layer: every persistent block walks many items
+    shape, kt, stride = (8, 257, 2761, 32), 9, 2
+    plan = sc.spec_conv_forward.plan(*shape[:3], kt, stride)
+    assert plan["items"] >= 8 * plan["blocks"], plan
+    gen = torch.Generator(device="cuda").manual_seed(4)
+    x = torch.randn(shape, generator=gen, device="cuda").bfloat16()
+    wt = (torch.randn((32, 32, 3, kt), generator=gen, device="cuda")
+          * (3 * kt * 32) ** -0.5).bfloat16()
+    b = (0.1 * torch.randn(32, generator=gen, device="cuda")).bfloat16()
+    y = sc.spec_conv_forward(x, wt, b, stride, 0.1)
+    assert _rel_err(y, sc.forward_plain(x, wt, b, stride, 0.1)) <= 1e-2
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kt,stride", [(9, 2), (3, 1)])
+def test_spec_conv_forward_is_deterministic(cuda, kt, stride):
+    x, wt, b, _ = _conv_inputs(37, 301, kt, stride, seed=5)
+    first = sc.spec_conv_forward(x, wt, b, stride, 0.1)
+    second = sc.spec_conv_forward(x, wt, b, stride, 0.1)
+    assert torch.equal(first, second)
+
+
 @pytest.mark.cuda
 def test_spec_conv_autograd_runs_the_kernels(cuda):
     x, wt, b, _ = _conv_inputs(19, 141, 9, 2, seed=1)
