@@ -16,8 +16,9 @@
 //                 (terms where (w+kt/2-j)/s is not a whole number vanish)
 //   dW[i,j,c,n] = sum_{b,h,o} x[b, h+i-1, o*s+j-kt/2, c] d[b,h,o,n]
 // where d is the gradient at the pre-activation (the caller applies the
-// leaky mask).  Every product is a bf16 x bf16 tensor-core MMA
-// (mma.sync m16n8k16, f32 accumulation).
+// leaky mask).  Every product is a bf16 x bf16 tensor-core MMA with f32
+// accumulation (wgmma m64n32k16 in the forward, mma.sync m16n8k16 in the
+// gradients).
 //
 // What bounds it on the card.  Each kernel does 2*B*H*W_out*kf*kt*32*32
 // useful FLOP and moves its inputs and output once.  At the MRD's largest
@@ -29,26 +30,26 @@
 //
 // What the design does about that.  The forward (redesigned for this card):
 //   * persistent blocks: as many blocks as fit on the card at once (one
-//     per SM at kt 9: 224 KB of shared memory), each loading the packed
-//     weights into shared memory once and then walking work items (b, a
-//     strip of 64 positions, a chunk of up to 32 rows) in a fixed order.
-//     The weights are read from L2 once per block, not once per tile;
-//   * a ring of input rows: the block walks down H, 8 output rows a step
-//     (one per warp), and keeps 20 staged rows; each input row is staged
-//     once per item and read by the three output rows that need it, so
-//     the halo on H is (32 + 2) / 32 instead of 2;
+//     per SM at kt 9: 224 KB of shared memory), each loading the weights
+//     into shared memory once and then walking work items (b, a strip of
+//     64 positions, a chunk of up to 32 rows) in a fixed order.  The
+//     weights are read from L2 once per block, not once per tile;
+//   * a ring of input rows: the block walks down H, 8 output rows a step,
+//     and keeps 20 staged rows; each input row is staged once per item and
+//     read by the three output rows that need it, so the halo on H is
+//     (32 + 2) / 32 instead of 2;
 //   * cp.async staging that overlaps the MMAs: while a step computes, its
 //     threads have the next step's 8 rows in flight (16-B copies whose
 //     zero-fill form writes the conv's padding); one barrier a step;
-//   * ldmatrix.x4 feeds mma.sync m16n8k16: a warp owns one row of 64
-//     positions x 32 channels (4 x 4 MMA tiles, 64 f32 sums), so each
-//     weight fragment (one 8-byte load per lane, packed by the caller in
-//     MMA-fragment order) serves 4 MMAs and each A fragment 4;
+//   * wgmma: each of the two warpgroups owns 4 output rows of 64 positions
+//     x 32 channels and issues one m64n32k16 per row and k-step, A (the
+//     tap's run of staged pixels) from registers loaded by ldmatrix.x4, B
+//     (the tap's weights, packed by the caller in wgmma's K-major layout)
+//     from shared memory through a descriptor; two A buffers keep one
+//     batch of wgmmas in flight while the next one's fragments load;
 //   * staged pixels are 64 B, split by parity on stride 2 so that a tap's
 //     run of positions is a run of pixels, with the 16-B chunks XOR-
 //     swizzled by pixel: ldmatrix's eight rows fall on distinct banks;
-//   * the last strip of a row skips the 16-position MMA tiles that lie
-//     wholly past W_out (W_out 72: 5 tiles, not 8);
 //   * the epilogue swaps words within each quad of lanes, so that each
 //     lane stores 8 consecutive channels (16 B).
 // dgrad and wgrad, the first kernels that are right (PR 2's design):
@@ -68,7 +69,7 @@
 //     j, holding the kf x 32 x 32 products of that tap) and writes f32
 //     partials; a second kernel sums the partials in a fixed order, so the
 //     result is the same from run to run (no float atomics).
-// wgmma and TMA are later work.
+// wgmma for the gradients, and TMA, are later work.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -124,21 +125,23 @@ __device__ __forceinline__ void stage_weights(uint16_t* ws, const uint16_t* wp,
 // forward: y = act(conv(x, w) + bias), persistent blocks over a ring of rows
 //
 // A work item is (b, a strip of FWD_STRIP output positions, a chunk of up
-// to FWD_CHUNK_STEPS steps of FWD_WARPS output rows).  The grid holds as
-// many blocks as fit on the card at once; each loads the packed weights
-// into shared memory once and walks the items blockIdx.x, + gridDim.x, ...
-// Within an item the block walks down H: warp w computes output row
-// h0 + w of the strip (64 positions, all 32 channels), reading input rows
-// h0 + w - 1 .. h0 + w + 1 from a ring of FWD_RING staged rows.  A step
-// stages only the FWD_WARPS rows its successor adds (the first step of an
-// item all FWD_WARPS + 2), by cp.async into the ring while the MMAs of
-// the current step run; one barrier a step hands the rows over.
+// to FWD_CHUNK_STEPS steps of FWD_ROWS output rows).  The grid holds as
+// many blocks as fit on the card at once; each loads the weights into
+// shared memory once and walks the items blockIdx.x, + gridDim.x, ...
+// Within an item the block walks down H, FWD_ROWS output rows a step:
+// warpgroup g computes rows 4g .. 4g+3 of the step, each a 64 x 32 wgmma
+// tile (64 positions, 32 channels), from a ring of FWD_RING staged input
+// rows.  A step stages only the FWD_ROWS rows its successor adds (the
+// first step of an item all FWD_ROWS + 2), by cp.async into the ring while
+// the current step's wgmmas run; one barrier a step hands the rows over.
 
-constexpr int FWD_WARPS = 8;                     // output rows per step
-constexpr int FWD_THREADS = 32 * FWD_WARPS;
-constexpr int FWD_STRIP = 64;                    // positions per warp
-constexpr int FWD_RING = 2 * (FWD_WARPS + 2);    // staged input rows
+constexpr int FWD_WARPGROUPS = 2;
+constexpr int FWD_THREADS = 128 * FWD_WARPGROUPS;
+constexpr int FWD_ROWS = 4 * FWD_WARPGROUPS;     // output rows per step
+constexpr int FWD_STRIP = 64;                    // positions per wgmma tile
+constexpr int FWD_RING = 2 * (FWD_ROWS + 2);     // staged input rows
 constexpr int FWD_CHUNK_STEPS = 4;               // steps per item at most
+constexpr int FWD_SLAB = 1024;                   // bytes of one 16 x 32 weight slab
 
 template <int KT, int S>
 struct Fwd {
@@ -147,7 +150,7 @@ struct Fwd {
   static constexpr int HALF = (WIN + 1) / 2;            // per parity plane
   static constexpr int ROWPIX = S == 2 ? 2 * HALF : WIN;
   static constexpr int ROWBYTES = ROWPIX * C * 2;
-  static constexpr int WBYTES = 2 * Packed<KT>::ELEMS;
+  static constexpr int WBYTES = KF * KT * 2 * FWD_SLAB;
   static constexpr int SMEM = WBYTES + FWD_RING * ROWBYTES;
   // staged pixel of column o * S + j of the strip's window: on stride 2
   // the columns are split by parity, so a tap's run of positions is a run
@@ -188,8 +191,82 @@ __device__ __forceinline__ void ldmatrix_x4(uint32_t (&a)[4], uint32_t addr) {
                : "r"(addr));
 }
 
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+
+template <int N>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
+}
+
+// wgmma's shared-memory descriptor of one weight slab (16 k x 32 n, laid
+// out by the caller, see pack_weights_gmma): no swizzle, K-major core
+// matrices of 8 rows x 16 B; 128 B from one 8-wide k half to the next
+// (leading byte offset), 256 B from one group of 8 output channels to the
+// next (stride byte offset)
+__device__ __forceinline__ uint64_t gmma_desc(uint32_t addr) {
+  return (uint64_t)((addr & 0x3FFFF) >> 4) | ((uint64_t)(128 >> 4) << 16) |
+         ((uint64_t)(256 >> 4) << 32);
+}
+
+// d[64 x 32] += a[64 x 16] . b[16 x 32]: a in registers (each warp of the
+// warpgroup its 16 rows, in mma.sync's m16n8k16 A layout), b in shared
+// memory; d[4n + e] holds this warp's m16n8 accumulator of n-tile n
+__device__ __forceinline__ void wgmma_m64n32k16(float (&d)[16], const uint32_t (&a)[4],
+                                                uint64_t desc) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15}, "
+      "{%16, %17, %18, %19}, %20, p, 1, 1, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(1));
+}
+
 __device__ __forceinline__ uint32_t pick4(const uint32_t (&v)[4], int i) {
   return i == 0 ? v[0] : i == 1 ? v[1] : i == 2 ? v[2] : v[3];
+}
+
+// bias, leaky ReLU and one bf16 rounding of a warp's 16 positions x 32
+// channels (d[4n + e]: the m16n8 accumulator of n-tile n), positions
+// o_first + 0..15 of the output row yrow; a quad's four lanes swap words so
+// that each holds 8 consecutive channels of one position, stored as 16 B
+__device__ __forceinline__ void store_tile(const float (&d)[16], const float (&bv)[4][2],
+                                           float slope, __nv_bfloat16* yrow,
+                                           int o_first, int Wout, int lane) {
+  const int g = lane >> 2, t4 = lane & 3;
+#pragma unroll
+  for (int half = 0; half < 2; ++half) {
+    uint32_t v[4];
+#pragma unroll
+    for (int n = 0; n < 4; ++n) {
+      float v0 = d[4 * n + 2 * half] + bv[n][0];
+      float v1 = d[4 * n + 2 * half + 1] + bv[n][1];
+      v0 = v0 >= 0.f ? v0 : v0 * slope;
+      v1 = v1 >= 0.f ? v1 : v1 * slope;
+      const __nv_bfloat162 p = __floats2bfloat162_rn(v0, v1);
+      v[n] = *reinterpret_cast<const uint32_t*>(&p);
+    }
+    // v[n] = channels 8n + 2*t4, +1; got[s] = channels 8*t4 + 2*(t4 ^ s),
+    // +1, from lane t4 ^ s of the quad
+    uint32_t got[4];
+    got[0] = pick4(v, t4);
+#pragma unroll
+    for (int s = 1; s < 4; ++s) got[s] = __shfl_xor_sync(0xffffffffu, pick4(v, t4 ^ s), s);
+    const int o = o_first + g + 8 * half;
+    if (o < Wout) {
+      const uint4 out = make_uint4(pick4(got, t4), pick4(got, t4 ^ 1), pick4(got, t4 ^ 2),
+                                   pick4(got, t4 ^ 3));
+      *reinterpret_cast<uint4*>(yrow + (size_t)o * C + t4 * 8) = out;
+    }
+  }
 }
 
 // The work split of one forward launch, made on the host.
@@ -200,7 +277,7 @@ struct FwdPlan {
 inline FwdPlan fwd_plan(int B, int H, int Wout, int slots) {
   FwdPlan p;
   p.strips = (Wout + FWD_STRIP - 1) / FWD_STRIP;
-  const int steps_h = (H + FWD_WARPS - 1) / FWD_WARPS;
+  const int steps_h = (H + FWD_ROWS - 1) / FWD_ROWS;
   // as many steps per item as keep four items per block, up to
   // FWD_CHUNK_STEPS (34 staged rows for 32 output rows)
   const long long work = (long long)B * p.strips * steps_h;
@@ -222,18 +299,16 @@ spec_conv_fwd_kernel(const uint16_t* __restrict__ x, const uint16_t* __restrict_
                      int chunks, int items, float slope) {
   using G = Fwd<KT, S>;
   extern __shared__ __align__(16) uint16_t smem[];
-  const uint32_t ring = (uint32_t)__cvta_generic_to_shared(smem) + G::WBYTES;
+  const uint32_t wsm = (uint32_t)__cvta_generic_to_shared(smem);
+  const uint32_t ring = wsm + G::WBYTES;
   const int tid = threadIdx.x;
   const int lane = tid & 31, warp = tid >> 5;
-  const int steps_h = (H + FWD_WARPS - 1) / FWD_WARPS;
+  const int steps_h = (H + FWD_ROWS - 1) / FWD_ROWS;
   if ((int)blockIdx.x >= items) return;
 
   // the weights, once per block
-  {
-    const uint32_t ws = (uint32_t)__cvta_generic_to_shared(smem);
-    for (int i = tid; i < G::WBYTES / 16; i += FWD_THREADS)
-      cp_async16(ws + 16 * i, wp + 8 * i, true);
-  }
+  for (int i = tid; i < G::WBYTES / 16; i += FWD_THREADS)
+    cp_async16(wsm + 16 * i, wp + 8 * i, true);
 
   // rows r_first .. r_first + nrows - 1 of image b, the strip's window
   // from column o0 * S - PT, into ring positions pos, pos + 1, ...
@@ -253,7 +328,7 @@ spec_conv_fwd_kernel(const uint16_t* __restrict__ x, const uint16_t* __restrict_
     }
   };
 
-  // the current step: item t, step k of it, rows h0 .. h0 + FWD_WARPS - 1,
+  // the current step: item t, step k of it, rows h0 .. h0 + FWD_ROWS - 1,
   // its input row h0 - 1 at ring position pos; head = next free position
   int t = blockIdx.x, k = 0;
   int b, o0, h0, nsteps;
@@ -262,19 +337,25 @@ spec_conv_fwd_kernel(const uint16_t* __restrict__ x, const uint16_t* __restrict_
     const int chunk = (t / strips) % chunks;
     b = t / (strips * chunks);
     o0 = strip * FWD_STRIP;
-    h0 = chunk * chunk_steps * FWD_WARPS;
+    h0 = chunk * chunk_steps * FWD_ROWS;
     nsteps = min(chunk_steps, steps_h - chunk * chunk_steps);
   };
   decode();
-  int pos = 0, head = FWD_WARPS + 2;
-  stage(b, o0, h0 - 1, FWD_WARPS + 2, 0);
+  int pos = 0, head = FWD_ROWS + 2;
+  stage(b, o0, h0 - 1, FWD_ROWS + 2, 0);
   cp_async_commit();
 
-  const int g = lane >> 2, t4 = lane & 3;
-  // this lane's ldmatrix row (position within an m-tile) and chunk half
+  // this lane's ldmatrix row (position within its warp's 16) and k half
   const int lrow = (lane & 7) + ((lane >> 3) & 1) * 8;
   const int lk = lane >> 4;
-  const uint2* wfrag = reinterpret_cast<const uint2*>(smem) + lane;
+  const int wg = warp >> 2, wq = warp & 3;
+  float bv[4][2];
+#pragma unroll
+  for (int n = 0; n < 4; ++n) {
+    bv[n][0] = __ldg(bias + n * 8 + 2 * (lane & 3));
+    bv[n][1] = __ldg(bias + n * 8 + 2 * (lane & 3) + 1);
+  }
+  const uint64_t desc0 = gmma_desc(wsm);
 
   for (;;) {
     cp_async_wait_all();
@@ -284,104 +365,63 @@ spec_conv_fwd_kernel(const uint16_t* __restrict__ x, const uint16_t* __restrict_
     bool last = false;
     if (k + 1 < nsteps) {
       ++k;
-      h0 += FWD_WARPS;
-      pos = cpos + FWD_WARPS;
-      stage(b, o0, h0 + 1, FWD_WARPS, head);
-      head += FWD_WARPS;
+      h0 += FWD_ROWS;
+      pos = cpos + FWD_ROWS;
+      stage(b, o0, h0 + 1, FWD_ROWS, head);
+      head += FWD_ROWS;
     } else {
       t += gridDim.x;
       k = 0;
       if (t < items) {
         decode();
         pos = head;
-        stage(b, o0, h0 - 1, FWD_WARPS + 2, head);
-        head += FWD_WARPS + 2;
+        stage(b, o0, h0 - 1, FWD_ROWS + 2, head);
+        head += FWD_ROWS + 2;
       } else {
         last = true;
       }
     }
     cp_async_commit();
 
-    const int h = ch0 + warp;
-    if (h < H) {
-      const int mact = min(4, (Wout - co0 + 15) >> 4);  // m-tiles in range
-      float acc[4][4][4];
+    // rows hb .. hb + 3 (this warpgroup's; warpgroup-uniform branch)
+    const int hb = ch0 + 4 * wg;
+    if (hb < H) {
+      float acc[4][16];
 #pragma unroll
-      for (int m = 0; m < 4; ++m)
+      for (int r = 0; r < 4; ++r)
 #pragma unroll
-        for (int n = 0; n < 4; ++n)
-#pragma unroll
-          for (int e = 0; e < 4; ++e) acc[m][n][e] = 0.f;
-
+        for (int e = 0; e < 16; ++e) acc[r][e] = 0.f;
+      uint32_t a[2][4][4];
 #pragma unroll 1
       for (int i = 0; i < KF; ++i) {
-        const uint32_t row = ring + ((cpos + warp + i) % FWD_RING) * G::ROWBYTES;
+        uint32_t row[4];  // input row hb + r + i - 1 of output row hb + r
+#pragma unroll
+        for (int r = 0; r < 4; ++r)
+          row[r] = ring + ((cpos + 4 * wg + r + i) % FWD_RING) * G::ROWBYTES;
 #pragma unroll
         for (int j = 0; j < KT; ++j) {
 #pragma unroll
           for (int ch = 0; ch < 2; ++ch) {
-            const uint2* wb = wfrag + (((i * KT + j) * 2 + ch) * 4) * 32;
-            uint32_t bf[4][2];
+            // A buffer ch: the batch that last read it, two back, is done
 #pragma unroll
-            for (int n = 0; n < 4; ++n) {
-              const uint2 v = wb[n * 32];
-              bf[n][0] = v.x;
-              bf[n][1] = v.y;
-            }
+            for (int r = 0; r < 4; ++r)
+              ldmatrix_x4(a[ch][r], row[r] + G::offset(G::pixel(wq * 16 + lrow, j), ch * 2 + lk));
+            wgmma_fence();
+            const uint64_t desc =
+                desc0 + (uint64_t)(((i * KT + j) * 2 + ch) * (FWD_SLAB >> 4));
 #pragma unroll
-            for (int m = 0; m < 4; ++m) {
-              if (m < mact) {
-                uint32_t a[4];
-                ldmatrix_x4(a, row + G::offset(G::pixel(m * 16 + lrow, j), ch * 2 + lk));
-#pragma unroll
-                for (int n = 0; n < 4; ++n) mma_bf16(acc[m][n], a, bf[n][0], bf[n][1]);
-              }
-            }
+            for (int r = 0; r < 4; ++r) wgmma_m64n32k16(acc[r], a[ch][r], desc);
+            wgmma_commit();
+            wgmma_wait<1>();
           }
         }
       }
-
-      // epilogue: bias, leaky ReLU, bf16; a quad's four lanes swap words so
-      // that each holds 8 consecutive channels of one position, stored as
-      // 16 B
-      float bv[4][2];
+      wgmma_wait<0>();
 #pragma unroll
-      for (int n = 0; n < 4; ++n) {
-        bv[n][0] = __ldg(bias + n * 8 + 2 * t4);
-        bv[n][1] = __ldg(bias + n * 8 + 2 * t4 + 1);
-      }
-      __nv_bfloat16* yrow = y + ((size_t)cb * H + h) * Wout * C;
-#pragma unroll
-      for (int m = 0; m < 4; ++m) {
-        if (m < mact) {
-#pragma unroll
-          for (int half = 0; half < 2; ++half) {
-            uint32_t v[4];
-#pragma unroll
-            for (int n = 0; n < 4; ++n) {
-              float v0 = acc[m][n][2 * half] + bv[n][0];
-              float v1 = acc[m][n][2 * half + 1] + bv[n][1];
-              v0 = v0 >= 0.f ? v0 : v0 * slope;
-              v1 = v1 >= 0.f ? v1 : v1 * slope;
-              const __nv_bfloat162 p = __floats2bfloat162_rn(v0, v1);
-              v[n] = *reinterpret_cast<const uint32_t*>(&p);
-            }
-            // v[n] = channels 8n + 2*t4, +1; got[s] = channels 8*t4 +
-            // 2*(t4 ^ s), +1, from lane t4 ^ s of the quad
-            uint32_t got[4];
-            got[0] = pick4(v, t4);
-#pragma unroll
-            for (int s = 1; s < 4; ++s)
-              got[s] = __shfl_xor_sync(0xffffffffu, pick4(v, t4 ^ s), s);
-            const int o = co0 + m * 16 + g + 8 * half;
-            if (o < Wout) {
-              const uint4 out = make_uint4(pick4(got, t4), pick4(got, t4 ^ 1),
-                                           pick4(got, t4 ^ 2), pick4(got, t4 ^ 3));
-              *reinterpret_cast<uint4*>(yrow + (size_t)o * C + t4 * 8) = out;
-            }
-          }
-        }
-      }
+      for (int r = 0; r < 4; ++r)
+        if (hb + r < H)
+          store_tile(acc[r], bv, slope, y + ((size_t)cb * H + hb + r) * Wout * C,
+                     co0 + 16 * wq, Wout, lane);
     }
     if (last) break;
   }

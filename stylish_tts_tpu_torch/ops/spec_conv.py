@@ -83,7 +83,7 @@ def wgrad_plain(x: torch.Tensor, d: torch.Tensor, kt: int,
 
 def pack_weights(w: torch.Tensor) -> torch.Tensor:
     """[n, k, 3, kt] (torch layout, n the GEMM's output channel and k its
-    reduction channel) -> the kernels' MMA-fragment order
+    reduction channel) -> the dgrad kernel's MMA-fragment order
     [3, kt, 2, 4, 32 lanes, 4]: lane (g, t) = (lane // 4, lane % 4) of
     channel half h and n-tile u holds k = 16h + (2t, 2t+1, 2t+8, 2t+9) of
     column n = 8u + g."""
@@ -95,6 +95,17 @@ def pack_weights(w: torch.Tensor) -> torch.Tensor:
         + g[None, None, :, None]
     w_kkin = w.permute(2, 3, 1, 0)  # [3, kt, k, n]
     return w_kkin[:, :, k, n].contiguous()
+
+
+def pack_weights_gmma(w: torch.Tensor) -> torch.Tensor:
+    """[n, k, 3, kt] (torch layout) -> the forward's wgmma operand order
+    [3, kt, 2 channel halves h, 4 groups u, 2 k halves v, 8 rows r, 8 e]:
+    one 1 KB slab per (tap, channel half), each a K-major array of 8 x 16 B
+    core matrices holding output channel n = 8u + r and input channel
+    k = 16h + 8v + e."""
+    kt = w.shape[-1]
+    slabs = w.permute(2, 3, 1, 0).reshape(KF, kt, 2, 2, 8, 4, 8)
+    return slabs.permute(0, 1, 2, 5, 3, 6, 4).contiguous()  # h, u, v, r, e
 
 
 def _check(name: str, **tensors: torch.Tensor) -> torch.device:
@@ -169,7 +180,7 @@ def _sms(device: torch.device) -> int:
 
 class SpecConvForward(_Kernel):
     """The persistent forward: as many blocks as fit on the card at once,
-    each walking work items of (b, 64 positions, up to 32 rows)."""
+    each walking work items of (b, 64 positions, up to 32 rows) on wgmma."""
 
     def plan(self, batch: int, h: int, width: int, kt: int, stride: int,
              device: torch.device | str = "cuda") -> dict:
@@ -196,7 +207,7 @@ class SpecConvForward(_Kernel):
             raise ValueError(f"{self.name}: bias must be [32]")
         batch, h, width, _ = x.shape
         w_out = out_width(width, stride)
-        packed = pack_weights(w)
+        packed = pack_weights_gmma(w)
         bias = b.float().contiguous()
         y = torch.empty((batch, h, w_out, CHANNELS), dtype=x.dtype,
                         device=device)

@@ -125,8 +125,23 @@ def test_backward_computes_only_what_is_needed():
 
 
 @pytest.mark.parametrize("kt", [9, 3])
+def test_pack_weights_gmma_unpacks_by_index(kt):
+    # the forward's wgmma slabs [3, kt, 2 channel halves h, 4 groups u,
+    # 2 k halves v, 8 rows r, 8 e]: output channel n = 8u + r, input
+    # channel k = 16h + 8v + e
+    w = torch.from_numpy(np.random.default_rng(kt + 1).standard_normal(
+        (32, 32, 3, kt)).astype(np.float32))
+    packed = sc.pack_weights_gmma(w).numpy()
+    assert packed.shape == (3, kt, 2, 4, 2, 8, 8)
+    back = np.full((32, 32, 3, kt), np.nan, np.float32)
+    for i, j, h, u, v, r, e in np.ndindex(packed.shape):
+        back[8 * u + r, 16 * h + 8 * v + e, i, j] = packed[i, j, h, u, v, r, e]
+    np.testing.assert_array_equal(back, w.numpy())
+
+
+@pytest.mark.parametrize("kt", [9, 3])
 def test_pack_weights_unpacks_by_index(kt):
-    # the kernels' MMA-fragment order [3, kt, 2 channel halves, 4 n-tiles,
+    # the dgrad kernel's MMA-fragment order [3, kt, 2 channel halves, 4 n-tiles,
     # 32 lanes, 4]: lane (g, t) holds k = 16h + 2t + (0, 1, 8, 9) of
     # output channel n = 8u + g
     w = torch.from_numpy(np.random.default_rng(kt).standard_normal(
