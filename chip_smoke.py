@@ -65,7 +65,7 @@ import numpy as np
 import torch
 
 from stylish_tts_tpu_torch.scripts.spec_conv_times import (
-    FWD_LAUNCHES_PER_LAYER, TOL as CONV_TOL, device_ms, layer_times,
+    FWD_LAUNCHES_PER_LAYER, conv_calls, device_ms, layer_times, max_error,
     mrd_layers)
 
 # H100 SXM peaks (NVIDIA data sheet): f32 outside the tensor cores, bf16
@@ -211,47 +211,18 @@ def spec_conv_numbers(shape, kt: int, stride: int, flush: torch.Tensor,
     """Forward, dgrad and wgrad at one MRD layer shape: each kernel held
     against its plain version and timed beside it, cuDNN's bf16
     channels-last call and its bound."""
-    import torch.nn.functional as F
-
     from stylish_tts_tpu_torch.ops import spec_conv as sc
 
-    gen = torch.Generator(device="cuda").manual_seed(seed)
     b, h, w, c = shape
     w_out = sc.out_width(w, stride)
-
-    def randn(*size, scale=1.0):
-        return (scale * torch.randn(size, generator=gen, device="cuda")
-                ).bfloat16()
-
-    x = randn(b, h, w, c)
-    wt = randn(c, c, 3, kt, scale=(3 * kt * c) ** -0.5)
-    bias = randn(c, scale=0.1)
-    d = randn(b, h, w_out, c)
-    pad = (1, kt // 2)
-    x_cl, d_cl = x.permute(0, 3, 1, 2), d.permute(0, 3, 1, 2)  # NHWC views
-    runs = {
-        "forward": (lambda: sc.spec_conv_forward(x, wt, bias, stride, 0.1),
-                    lambda: sc.forward_plain(x, wt, bias, stride, 0.1),
-                    lambda: F.conv2d(x_cl, wt, bias, stride=(1, stride),
-                                     padding=pad),
-                    2 * (x.numel() + wt.numel() + bias.numel()
-                         + b * h * w_out * c)),
-        "dgrad": (lambda: sc.spec_conv_dgrad(d, wt, w, stride),
-                  lambda: sc.dgrad_plain(d, wt, w, stride),
-                  lambda: torch.nn.grad.conv2d_input(
-                      (b, c, h, w), wt, d_cl, stride=(1, stride),
-                      padding=pad),
-                  2 * (d.numel() + wt.numel() + x.numel())),
-        "wgrad": (lambda: sc.spec_conv_wgrad(x, d, kt, stride),
-                  lambda: sc.wgrad_plain(x, d, kt, stride),
-                  lambda: torch.nn.grad.conv2d_weight(
-                      x_cl, (c, c, 3, kt), d_cl, stride=(1, stride),
-                      padding=pad),
-                  2 * (x.numel() + d.numel()) + 4 * wt.numel()),
-    }
+    x_elems, d_elems, w_elems = b * h * w * c, b * h * w_out * c, 3 * kt * c * c
+    nbytes = {"forward": 2 * (x_elems + w_elems + c + d_elems),
+              "dgrad": 2 * (d_elems + w_elems + x_elems),
+              "wgrad": 2 * (x_elems + d_elems) + 4 * w_elems}
     flops = 2.0 * b * h * w_out * 3 * kt * c * c
     out = {}
-    for name, (kernel, plain, library, nbytes) in runs.items():
+    for name, (kernel, plain, library) in conv_calls(
+            shape, kt, stride, seed).items():
         counter = getattr(sc, f"spec_conv_{name}")
         before = counter.launches
         got = kernel()
@@ -259,16 +230,10 @@ def spec_conv_numbers(shape, kt: int, stride: int, flush: torch.Tensor,
             raise AssertionError(f"spec_conv_{name}: no kernel launch")
         want = plain()
         torch.cuda.synchronize()
-        if got.shape != want.shape:
-            raise AssertionError(f"spec_conv_{name}: {tuple(got.shape)} vs "
-                                 f"{tuple(want.shape)}")
-        err = (got.float() - want.float()).abs().max().item()
-        scale = want.float().abs().max().item()
-        if not err <= CONV_TOL[name] * scale:
-            raise AssertionError(f"spec_conv_{name} {shape}: max err "
-                                 f"{err:.3e} > {CONV_TOL[name]} * {scale:.3e}")
+        err, scale = max_error(name, shape, got, want)
+        del got, want
         t_ops = flops / PEAK_BF16_FLOPS * 1e3
-        t_bytes = nbytes / PEAK_BYTES * 1e3
+        t_bytes = nbytes[name] / PEAK_BYTES * 1e3
         ms = time_ms(kernel, flush=flush)
         out[name] = {
             "shape": list(shape), "kt": kt, "stride": stride,
@@ -280,10 +245,9 @@ def spec_conv_numbers(shape, kt: int, stride: int, flush: torch.Tensor,
             "library_device_ms": device_ms(library),
             "bound_ms": max(t_ops, t_bytes),
             "bound_by": "operations" if t_ops >= t_bytes else "bytes",
-            "flops": flops, "bytes": nbytes,
+            "flops": flops, "bytes": nbytes[name],
             "tflops_per_s": flops / ms * 1e-9,
         }
-        del got, want
     return out
 
 

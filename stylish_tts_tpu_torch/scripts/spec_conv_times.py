@@ -73,10 +73,10 @@ def device_ms(fn: Callable, iters: int = 20) -> float:
     raise AssertionError("torch.profiler recorded no device time")
 
 
-def layer_times(shape, kt: int, stride: int, seed: int,
-                kernels=("forward",)) -> dict:
-    """Each of ``kernels`` at one layer shape: its max error against the
-    plain version, its device time and cuDNN's."""
+def conv_calls(shape, kt: int, stride: int, seed: int) -> dict:
+    """Inputs made on the card from ``seed`` for one layer shape, and for
+    each kernel (forward, dgrad, wgrad) three calls on them: the kernel's
+    wrapper, its plain version and cuDNN's bf16 call."""
     from stylish_tts_tpu_torch.ops import spec_conv as sc
 
     gen = torch.Generator(device="cuda").manual_seed(seed)
@@ -93,7 +93,7 @@ def layer_times(shape, kt: int, stride: int, seed: int,
     d = randn(b, h, w_out, c)
     pad = (1, kt // 2)
     x_cl, d_cl = x.permute(0, 3, 1, 2), d.permute(0, 3, 1, 2)  # NHWC views
-    runs = {
+    return {
         "forward": (lambda: sc.spec_conv_forward(x, wt, bias, stride, 0.1),
                     lambda: sc.forward_plain(x, wt, bias, stride, 0.1),
                     lambda: F.conv2d(x_cl, wt, bias, stride=(1, stride),
@@ -109,19 +109,33 @@ def layer_times(shape, kt: int, stride: int, seed: int,
                       x_cl, (c, c, 3, kt), d_cl, stride=(1, stride),
                       padding=pad)),
     }
+
+
+def max_error(name: str, shape, got: torch.Tensor,
+              want: torch.Tensor) -> tuple:
+    """(max |got - want|, max |want|); raises beyond ``TOL[name]``."""
+    if got.shape != want.shape:
+        raise AssertionError(f"spec_conv_{name} {shape}: "
+                             f"{tuple(got.shape)} vs {tuple(want.shape)}")
+    err = (got.float() - want.float()).abs().max().item()
+    scale = want.float().abs().max().item()
+    if not err <= TOL[name] * scale:
+        raise AssertionError(f"spec_conv_{name} {shape}: max err "
+                             f"{err:.3e} > {TOL[name]} * {scale:.3e}")
+    return err, scale
+
+
+def layer_times(shape, kt: int, stride: int, seed: int,
+                kernels=("forward",)) -> dict:
+    """Each of ``kernels`` at one layer shape: its max error against the
+    plain version, its device time and cuDNN's."""
+    calls = conv_calls(shape, kt, stride, seed)
     out = {}
     for name in kernels:
-        kernel, plain, library = runs[name]
+        kernel, plain, library = calls[name]
         got, want = kernel(), plain()
         torch.cuda.synchronize()
-        if got.shape != want.shape:
-            raise AssertionError(f"spec_conv_{name} {shape}: "
-                                 f"{tuple(got.shape)} vs {tuple(want.shape)}")
-        err = (got.float() - want.float()).abs().max().item()
-        scale = want.float().abs().max().item()
-        if not err <= TOL[name] * scale:
-            raise AssertionError(f"spec_conv_{name} {shape}: max err "
-                                 f"{err:.3e} > {TOL[name]} * {scale:.3e}")
+        err, scale = max_error(name, shape, got, want)
         del got, want
         out[name] = {"max_abs_err": err, "max_abs_plain": scale,
                      "device_ms": device_ms(kernel),
