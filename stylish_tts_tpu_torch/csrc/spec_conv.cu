@@ -52,7 +52,7 @@
 //     swizzled by pixel: ldmatrix's eight rows fall on distinct banks;
 //   * the epilogue swaps words within each quad of lanes, so that each
 //     lane stores 8 consecutive channels (16 B).
-// dgrad and wgrad, the first kernels that are right (PR 2's design):
+// dgrad and wgrad, first kernels that are right:
 //   * implicit GEMM: no patch matrix and, for dgrad, no zero-dilated
 //     gradient ever reach device memory.  Each block stages the input rows
 //     its tile covers (tile + halo) in shared memory once and reads every

@@ -59,7 +59,7 @@ def device_ms(fn: Callable, iters: int = 20) -> float:
 
     fn()
     torch.cuda.synchronize()
-    for _ in range(3):  # now and then a session hands back no device records
+    for _ in range(3):  # now and then a profiler run records no device time
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
             for _ in range(iters):
