@@ -97,10 +97,6 @@ __device__ __forceinline__ uint32_t ld32(const uint16_t* p) {
   return *reinterpret_cast<const uint32_t*>(p);
 }
 
-__device__ __forceinline__ uint32_t pack2(uint16_t lo, uint16_t hi) {
-  return (uint32_t)lo | ((uint32_t)hi << 16);
-}
-
 __device__ __forceinline__ int floordiv(int a, int b) {
   return a >= 0 ? a / b : -((-a + b - 1) / b);
 }
@@ -540,40 +536,50 @@ spec_conv_dgrad_kernel(const uint16_t* __restrict__ d, const uint16_t* __restric
 
 // ------------------------------------------------------------------------- //
 // wgrad: per-block partial sums of patch^T . d, then a fixed-order reduction
+//
+// GEMM per tap (i, j): M = 32 input channels (two 16-row MMA tiles), N = 32
+// output channels (four n-tiles), K = positions.  The operands come from
+// rows staged in the forward's layout (Fwd: 64-B pixels, parity planes on
+// stride 2, swizzled 16-B chunks): A = x^T and B = d, both read with
+// ldmatrix.x4.trans, whose transpose turns position-major pixels into the
+// MMA's channel-major A and K-major B fragments.
 
 template <int KT, int S>
 struct Wgr {
-  static constexpr int PT = KT / 2;
-  static constexpr int XW = (TW - 1) * S + KT;  // staged input columns
-  // columns per channel row in shared memory: parity planes of 68 on
-  // stride 2, 72 on stride 1 (36 words: the 8 rows of a fragment land on
-  // distinct banks)
-  static constexpr int PLANE = 68;
-  static constexpr int XWP = S == 2 ? 2 * PLANE : 72;
-  static constexpr int DTP = 72;
-  static constexpr int XS = (RH + 2) * C * XWP;
-  static constexpr int DS = RH * C * DTP;
-  static constexpr int SMEM = 2 * (XS + DS);
+  using F = Fwd<KT, S>;
+  static constexpr int DROW = FWD_STRIP * C * 2;  // bytes of one staged d row
+  static constexpr int SMEM = (RH + 2) * F::ROWBYTES + RH * DROW;
   static constexpr int ELEMS = KF * KT * C * C;
-  static_assert(S == 2 ? (XW + 1) / 2 <= PLANE : XW <= XWP, "tile too wide");
-  __device__ static __forceinline__ int slot(int c) {
-    return S == 2 ? (c & 1) * PLANE + (c >> 1) : c;
-  }
 };
+
+__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&a)[4], uint32_t addr) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(a[0]), "=r"(a[1]), "=r"(a[2]), "=r"(a[3])
+               : "r"(addr));
+}
 
 template <int KT, int S>
 __global__ void __launch_bounds__(KT * 32)
 spec_conv_wgrad_kernel(const uint16_t* __restrict__ x, const uint16_t* __restrict__ d,
                        float* __restrict__ partial, int B, int H, int W, int Wout) {
   using G = Wgr<KT, S>;
+  using F = Fwd<KT, S>;
   extern __shared__ __align__(16) uint16_t smem[];
-  uint16_t* xs = smem;        // [RH+2][32 channels][XWP columns]
-  uint16_t* dt = smem + G::XS;  // [RH][32 channels][DTP positions]
+  const uint32_t xs = (uint32_t)__cvta_generic_to_shared(smem);  // RH + 2 x rows
+  const uint32_t ds = xs + (RH + 2) * F::ROWBYTES;               // RH d rows
 
   const int nthreads = KT * 32;
   const int lane = threadIdx.x & 31;
   const int g = lane >> 2, t = lane & 3;
   const int j = threadIdx.x >> 5;  // this warp's column tap
+  // ldmatrix.trans lane maps.  A (x^T, 16 channels x 16 positions): matrix
+  // l >> 3 is (positions 8 * (l >> 4).., chunk (l >> 3) & 1 of the channel
+  // half); B (d, 16 positions x two n-tiles): matrix l >> 3 is (positions
+  // 8 * ((l >> 3) & 1).., n-tile l >> 4 of the pair)
+  const int la = (lane & 7) + 8 * (lane >> 4);
+  const int ka = (lane >> 3) & 1;
+  const int lb = (lane & 7) + 8 * ((lane >> 3) & 1);
+  const int kb = lane >> 4;
 
   float acc[KF][2][4][4];
 #pragma unroll
@@ -594,71 +600,53 @@ spec_conv_wgrad_kernel(const uint16_t* __restrict__ x, const uint16_t* __restric
     const int b = tile / (tiles_w * tiles_h);
     __syncthreads();  // the previous tile's reads are done
 
-    // x rows h0-1 .. h0+RH, columns o0*S - PT .. + XW, transposed to
-    // channel-major; zero outside
-    const int xitems = (RH + 2) * G::XW * 4;
+    // x rows h0-1 .. h0+RH, the strip's window from column o0 * S - PT;
+    // zero outside
+    const int xitems = (RH + 2) * F::WIN * 4;
     for (int it = threadIdx.x; it < xitems; it += nthreads) {
-      const int chunk = it & 3;
-      const int c = (it >> 2) % G::XW;
-      const int r = (it >> 2) / G::XW;
-      const int h = h0 - 1 + r;
-      const int w = o0 * S - G::PT + c;
-      uint4 v = make_uint4(0u, 0u, 0u, 0u);
-      if (h >= 0 && h < H && w >= 0 && w < W)
-        v = __ldg(reinterpret_cast<const uint4*>(
-            x + (((size_t)b * H + h) * W + w) * C + chunk * 8));
-      const uint16_t* e = reinterpret_cast<const uint16_t*>(&v);
-      uint16_t* dst = xs + (r * C + chunk * 8) * G::XWP + G::slot(c);
-#pragma unroll
-      for (int k = 0; k < 8; ++k) dst[k * G::XWP] = e[k];
+      const int k = it & 3;
+      const int c = (it >> 2) % F::WIN;
+      const int r = (it >> 2) / F::WIN;
+      const int h = h0 - 1 + r, w = o0 * S - F::PT + c;
+      const bool ok = h >= 0 && h < H && w >= 0 && w < W;
+      const uint16_t* src = ok ? x + (((size_t)b * H + h) * W + w) * C + k * 8 : x;
+      cp_async16(xs + r * F::ROWBYTES + F::offset(F::pixel_of_column(c), k), src, ok);
     }
-    // d rows h0 .. h0+RH-1, positions o0 .. o0+TW-1, channel-major; zero
-    // outside, so padded positions add nothing
+    // d rows h0 .. h0+RH-1, positions o0 .. o0+TW-1; zero outside, so
+    // padded positions add nothing
     const int ditems = RH * TW * 4;
     for (int it = threadIdx.x; it < ditems; it += nthreads) {
-      const int chunk = it & 3;
+      const int k = it & 3;
       const int q = (it >> 2) % TW;
       const int r = (it >> 2) / TW;
-      const int h = h0 + r;
-      const int o = o0 + q;
-      uint4 v = make_uint4(0u, 0u, 0u, 0u);
-      if (h < H && o < Wout)
-        v = __ldg(reinterpret_cast<const uint4*>(
-            d + (((size_t)b * H + h) * Wout + o) * C + chunk * 8));
-      const uint16_t* e = reinterpret_cast<const uint16_t*>(&v);
-      uint16_t* dst = dt + (r * C + chunk * 8) * G::DTP + q;
-#pragma unroll
-      for (int k = 0; k < 8; ++k) dst[k * G::DTP] = e[k];
+      const int h = h0 + r, o = o0 + q;
+      const bool ok = h < H && o < Wout;
+      const uint16_t* src = ok ? d + (((size_t)b * H + h) * Wout + o) * C + k * 8 : d;
+      cp_async16(ds + r * G::DROW + F::offset(q, k), src, ok);
     }
+    cp_async_commit();
+    cp_async_wait_all();
     __syncthreads();
 
 #pragma unroll 1
     for (int hr = 0; hr < RH; ++hr) {
 #pragma unroll 1
-      for (int q0 = 0; q0 < TW; q0 += 16) {
-        // B = d[positions q0.., channel n]: two registers per n-tile
-        uint32_t bf[4][2];
+      for (int q0 = 0; q0 < TW && o0 + q0 < Wout; q0 += 16) {
+        // B = d[positions q0.., channels]: n-tile 2p + e in bf[p][2e], [2e+1]
+        uint32_t bf[2][4];
 #pragma unroll
-        for (int n = 0; n < 4; ++n) {
-          const uint16_t* p = dt + (hr * C + n * 8 + g) * G::DTP + q0 + 2 * t;
-          bf[n][0] = ld32(p);
-          bf[n][1] = ld32(p + 8);
-        }
-        // staged columns of positions q0+2t, +1, +8, +9 at tap j
-        const int s0 = G::slot((q0 + 2 * t) * S + j);
-        const int s1 = G::slot((q0 + 2 * t + 1) * S + j);
-        const int s2 = G::slot((q0 + 2 * t + 8) * S + j);
-        const int s3 = G::slot((q0 + 2 * t + 9) * S + j);
+        for (int p = 0; p < 2; ++p)
+          ldmatrix_x4_trans(bf[p], ds + hr * G::DROW + F::offset(q0 + lb, 2 * p + kb));
 #pragma unroll
         for (int i = 0; i < KF; ++i) {
 #pragma unroll
           for (int ch = 0; ch < 2; ++ch) {
-            const uint16_t* r0 = xs + ((hr + i) * C + ch * 16 + g) * G::XWP;
-            const uint16_t* r1 = r0 + 8 * G::XWP;
-            const uint32_t a[4] = {pack2(r0[s0], r0[s1]), pack2(r1[s0], r1[s1]),
-                                   pack2(r0[s2], r0[s3]), pack2(r1[s2], r1[s3])};
+            uint32_t a[4];
+            ldmatrix_x4_trans(a, xs + (hr + i) * F::ROWBYTES +
+                                     F::offset(F::pixel(q0 + la, j), 2 * ch + ka));
 #pragma unroll
-            for (int n = 0; n < 4; ++n) mma_bf16(acc[i][ch][n], a, bf[n][0], bf[n][1]);
+            for (int n = 0; n < 4; ++n)
+              mma_bf16(acc[i][ch][n], a, bf[n >> 1][2 * (n & 1)], bf[n >> 1][2 * (n & 1) + 1]);
           }
         }
       }

@@ -4,13 +4,14 @@ shapes, beside cuDNN's bf16 call for the same function.
     python -m stylish_tts_tpu_torch.scripts.spec_conv_times [--out FILE]
 
 For each of the 12 spec-conv layers of the MRD at b8 x f460 (three
-resolutions, conv_1..conv_4), the forward kernel is held against its plain
-version and timed by torch.profiler (the kernels' own durations, without
-the host's launch); at three of them (res 0 conv_1, res 1 conv_1, res 2
-conv_4) the dgrad and wgrad kernels too.  One line per kernel and shape,
-then the forward's total over the 48 launches of a train step, and one JSON
-object of all numbers.  Inputs are made on the card from fixed seeds.
-Runs on the card only.
+resolutions, conv_1..conv_4), the forward and wgrad kernels are held
+against their plain versions and timed by torch.profiler (the kernels' own
+durations, without the host's launch; the wgrad also by kernel function,
+its main kernel and its partial sum); at three of them (res 0 conv_1,
+res 1 conv_1, res 2 conv_4) the dgrad too.  One line per kernel and shape,
+then the forward's total over the 48 launches of a train step and the
+wgrad's over its 24, and one JSON object of all numbers.  Inputs are made
+on the card from fixed seeds.  Runs on the card only.
 
 To time another checkout's kernels with the same ruler, put that checkout
 first on the path: ``PYTHONPATH=<checkout> python <this file>``.
@@ -35,7 +36,12 @@ MRD_CONVS = [(9, 2), (9, 2), (9, 2), (3, 1)]
 # each layer runs the forward 4 times a train step: real and generated
 # input, in the discriminator's and the generator's pass
 FWD_LAUNCHES_PER_LAYER = 4
-BACKWARD_LAYERS = ("res0 conv_1", "res1 conv_1", "res2 conv_4")
+# ... and the wgrad twice: real and generated input in the discriminator's
+# pass (the generator's pass needs no weight gradient of the MRD)
+WGRAD_LAUNCHES_PER_LAYER = 2
+DGRAD_LAYERS = ("res0 conv_1", "res1 conv_1", "res2 conv_4")
+# the wgrad's kernel functions, as the profiler names them
+WGRAD_FUNCTIONS = ("spec_conv_wgrad_kernel", "sum_partials_kernel")
 # bf16 outputs: one bf16 rounding of f32 sums taken in another order; the
 # f32 weight gradient: sums of millions of bf16 products in another order
 TOL = {"forward": 1e-2, "dgrad": 1e-2, "wgrad": 1e-3}
@@ -52,9 +58,10 @@ def mrd_layers() -> List[Tuple[str, Tuple[int, int, int, int], int, int]]:
     return layers
 
 
-def device_ms(fn: Callable, iters: int = 20) -> float:
-    """Device time of one call of ``fn``: the durations of the kernels it
-    launches (torch.profiler), summed and averaged over ``iters`` calls."""
+def device_ms_by_kernel(fn: Callable, iters: int = 20) -> dict:
+    """Device time of one call of ``fn`` by kernel name: the durations of
+    the kernels it launches (torch.profiler), averaged over ``iters``
+    calls."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
@@ -65,12 +72,28 @@ def device_ms(fn: Callable, iters: int = 20) -> float:
             for _ in range(iters):
                 fn()
             torch.cuda.synchronize()
-        total_us = sum(evt.self_device_time_total
-                       for evt in prof.key_averages()
-                       if evt.device_type == torch.autograd.DeviceType.CUDA)
-        if total_us > 0:
-            return total_us / 1e3 / iters
+        times = {evt.key: evt.self_device_time_total / 1e3 / iters
+                 for evt in prof.key_averages()
+                 if evt.device_type == torch.autograd.DeviceType.CUDA}
+        if sum(times.values()) > 0:
+            return times
     raise AssertionError("torch.profiler recorded no device time")
+
+
+def device_ms(fn: Callable, iters: int = 20) -> float:
+    """Device time of one call of ``fn``: the durations of the kernels it
+    launches, summed."""
+    return sum(device_ms_by_kernel(fn, iters).values())
+
+
+def by_function(times: dict, functions) -> dict:
+    """``times`` by kernel name summed by the function each name holds."""
+    out = {f: 0.0 for f in functions}
+    for key, ms in times.items():
+        for f in functions:
+            if f in key:
+                out[f] += ms
+    return out
 
 
 def conv_calls(shape, kt: int, stride: int, seed: int) -> dict:
@@ -137,9 +160,13 @@ def layer_times(shape, kt: int, stride: int, seed: int,
         torch.cuda.synchronize()
         err, scale = max_error(name, shape, got, want)
         del got, want
+        times = device_ms_by_kernel(kernel)
         out[name] = {"max_abs_err": err, "max_abs_plain": scale,
-                     "device_ms": device_ms(kernel),
+                     "device_ms": sum(times.values()),
                      "library_device_ms": device_ms(library)}
+        if name == "wgrad":
+            out[name]["function_device_ms"] = by_function(times,
+                                                          WGRAD_FUNCTIONS)
     return out
 
 
@@ -158,26 +185,33 @@ def main(argv=None) -> int:
         text=True, timeout=60).stdout.strip().splitlines()[0]
     print(f"{card}; package {stylish_tts_tpu_torch.__file__}")
     record = {"card": card, "layers": {}}
-    total = [0.0, 0.0]
+    per_step = {"forward": FWD_LAUNCHES_PER_LAYER,
+                "wgrad": WGRAD_LAUNCHES_PER_LAYER}
+    totals = {name: {"kernel": 0.0, "cudnn": 0.0} for name in per_step}
     for seed, (label, shape, kt, stride) in enumerate(mrd_layers()):
-        kernels = ("forward", "dgrad", "wgrad") if label in BACKWARD_LAYERS \
-            else ("forward",)
+        kernels = ("forward", "dgrad", "wgrad") if label in DGRAD_LAYERS \
+            else ("forward", "wgrad")
         r = layer_times(shape, kt, stride, 100 + seed, kernels)
         record["layers"][label] = {"shape": list(shape), "kt": kt,
                                    "stride": stride, **r}
-        total[0] += FWD_LAUNCHES_PER_LAYER * r["forward"]["device_ms"]
-        total[1] += FWD_LAUNCHES_PER_LAYER * r["forward"]["library_device_ms"]
+        for name, n in per_step.items():
+            totals[name]["kernel"] += n * r[name]["device_ms"]
+            totals[name]["cudnn"] += n * r[name]["library_device_ms"]
         for name, n in r.items():
+            split = "".join(f", {f} {ms:.4f}" for f, ms in
+                            n.get("function_device_ms", {}).items())
             print(f"spec_conv_{name} {label} {shape} kt={kt} s={stride}: "
-                  f"device {n['device_ms']:.4f} ms, cuDNN bf16 "
+                  f"device {n['device_ms']:.4f} ms{split}, cuDNN bf16 "
                   f"{n['library_device_ms']:.4f} ms, max err "
                   f"{n['max_abs_err']:.2e} of {n['max_abs_plain']:.2e} "
                   f"[{card}]")
         torch.cuda.empty_cache()
-    record["forward_step_ms"] = {"kernel": total[0], "cudnn": total[1]}
-    print(f"spec_conv_forward over a train step's "
-          f"{FWD_LAUNCHES_PER_LAYER * len(mrd_layers())} launches: kernel "
-          f"{total[0]:.3f} ms, cuDNN bf16 {total[1]:.3f} ms [{card}]")
+    for name, n in per_step.items():
+        record[f"{name}_step_ms"] = totals[name]
+        print(f"spec_conv_{name} over a train step's "
+              f"{n * len(mrd_layers())} launches: kernel "
+              f"{totals[name]['kernel']:.3f} ms, cuDNN bf16 "
+              f"{totals[name]['cudnn']:.3f} ms [{card}]")
     line = json.dumps(record)
     if args.out:
         with open(args.out, "w") as f:
