@@ -52,23 +52,28 @@
 //     swizzled by pixel: ldmatrix's eight rows fall on distinct banks;
 //   * the epilogue swaps words within each quad of lanes, so that each
 //     lane stores 8 consecutive channels (16 B).
-// dgrad and wgrad, first kernels that are right:
-//   * implicit GEMM: no patch matrix and, for dgrad, no zero-dilated
-//     gradient ever reach device memory.  Each block stages the input rows
-//     its tile covers (tile + halo) in shared memory once and reads every
-//     tap from there (the halo adds (kt-1)/(64 s) along W and 2/2 along H);
-//   * dgrad: a block owns 2 rows x 64 positions and all 32 output
-//     channels; each of its 4 warps owns 32 positions (two 16-row MMA tiles
-//     that share the weight fragments).  The staged columns are split by
-//     parity and each warp takes one parity class, so it visits only the
-//     taps that reach it (the TPU path's dilated gradient multiplies zeros
-//     half the time there); shared rows are padded to 40 bf16 per pixel
-//     (80 B): a warp's 8 rows then fall on distinct banks;
-//   * wgrad: blocks run in no order, so each block walks a strided set of
-//     tiles, keeps its whole dW share in registers (one warp per column tap
-//     j, holding the kf x 32 x 32 products of that tap) and writes f32
-//     partials; a second kernel sums the partials in a fixed order, so the
-//     result is the same from run to run (no float atomics).
+// The wgrad (redesigned on the forward's staging):
+//   * the same persistent blocks, work items and ring of staged x rows as
+//     the forward (4 output rows a step at kt 9, 2 at kt 3, so that several
+//     blocks share an SM there), with the step's d rows double-buffered;
+//     no weights in shared memory, and the next step's rows arrive by
+//     cp.async while the current step's MMAs run;
+//   * one warp per column tap j, holding the kf x 32 x 32 sums of that tap
+//     in registers across all the block's items; both operands (x^T and d)
+//     come from the staged rows by ldmatrix.x4.trans, and each x fragment
+//     serves the up to three output rows that read its input row;
+//   * blocks run in no order, so each writes f32 partials once; a second
+//     kernel sums them in a fixed order, so the result is the same from run
+//     to run (no float atomics).
+// The dgrad, a first kernel that is right: an implicit GEMM (no
+// zero-dilated gradient reaches device memory) in which a block stages the
+// d rows its tile of 2 rows x 64 positions covers, plus the halo, and reads
+// every tap from there; each of its 4 warps owns 32 positions (two 16-row
+// MMA tiles that share the weight fragments).  The staged columns are split
+// by parity and each warp takes one parity class, so it visits only the
+// taps that reach it (the TPU path's dilated gradient multiplies zeros half
+// the time there); shared rows are padded to 40 bf16 per pixel (80 B): a
+// warp's 8 rows then fall on distinct banks.
 // wgmma for the gradients, and TMA, are later work.
 
 #include <cuda_bf16.h>
@@ -535,22 +540,60 @@ spec_conv_dgrad_kernel(const uint16_t* __restrict__ d, const uint16_t* __restric
 }
 
 // ------------------------------------------------------------------------- //
-// wgrad: per-block partial sums of patch^T . d, then a fixed-order reduction
+// wgrad: dW = sum over positions of patch^T . d, persistent blocks over a
+// ring of rows, per-block partial sums, then a fixed-order reduction
 //
 // GEMM per tap (i, j): M = 32 input channels (two 16-row MMA tiles), N = 32
-// output channels (four n-tiles), K = positions.  The operands come from
-// rows staged in the forward's layout (Fwd: 64-B pixels, parity planes on
-// stride 2, swizzled 16-B chunks): A = x^T and B = d, both read with
-// ldmatrix.x4.trans, whose transpose turns position-major pixels into the
-// MMA's channel-major A and K-major B fragments.
+// output channels (four n-tiles), K = positions.  A work item is (b, a strip
+// of FWD_STRIP positions, a chunk of output rows); the grid holds as many
+// blocks as fit on the card at once, each walking the items blockIdx.x,
+// + gridDim.x, ...  Within an item the block walks down H, ROWS output rows
+// a step, from a ring of staged x rows (the forward's layout: 64-B pixels,
+// parity planes on stride 2, swizzled 16-B chunks) and double-buffered d
+// rows; a step stages the next step's rows by cp.async while its MMAs run,
+// and one barrier a step hands them over.  Warp j owns column tap j and
+// keeps its KF x 32 x 32 sums in registers across all its items.  Both
+// operands come from the staged rows by ldmatrix.x4.trans, whose transpose
+// turns position-major pixels into the MMA's channel-major A (x^T) and
+// K-major B (d) fragments; each A fragment (one input row) serves the up to
+// three output rows that read it.
 
 template <int KT, int S>
 struct Wgr {
   using F = Fwd<KT, S>;
-  static constexpr int DROW = FWD_STRIP * C * 2;  // bytes of one staged d row
-  static constexpr int SMEM = (RH + 2) * F::ROWBYTES + RH * DROW;
+  // output rows per step: kt 3 has a third of the MMAs per staged byte, so
+  // smaller steps let more blocks share an SM
+  static constexpr int ROWS = KT == 9 ? 4 : 2;
+  static constexpr int RING = 2 * (ROWS + 2);      // staged x rows
+  static constexpr int CHUNK_STEPS = 32 / ROWS;    // steps per item at most
+  static constexpr int DROW = FWD_STRIP * C * 2;   // bytes of one staged d row
+  static constexpr int SMEM = RING * F::ROWBYTES + 2 * ROWS * DROW;
   static constexpr int ELEMS = KF * KT * C * C;
 };
+
+static_assert(Wgr<9, 2>::SMEM <= 232448, "wgrad does not fit in shared memory");
+
+// The work split of one wgrad launch, made on the host: items of up to
+// CHUNK_STEPS steps, the steps of a row spread evenly over its chunks.
+struct WgrPlan {
+  int blocks, strips, steps_h, chunks, items;
+};
+
+inline WgrPlan wgr_plan(int B, int H, int Wout, int rows, int chunk_steps_max,
+                        int slots) {
+  WgrPlan p;
+  p.strips = (Wout + FWD_STRIP - 1) / FWD_STRIP;
+  p.steps_h = (H + rows - 1) / rows;
+  // as many steps per item as keep four items per block
+  const long long work = (long long)B * p.strips * p.steps_h;
+  long long chunk = work / (4LL * slots);
+  if (chunk > chunk_steps_max) chunk = chunk_steps_max;
+  if (chunk < 1) chunk = 1;
+  p.chunks = (int)((p.steps_h + chunk - 1) / chunk);
+  p.items = B * p.strips * p.chunks;
+  p.blocks = p.items < slots ? p.items : slots;
+  return p;
+}
 
 __device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&a)[4], uint32_t addr) {
   asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
@@ -561,17 +604,72 @@ __device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&a)[4], uint32_t add
 template <int KT, int S>
 __global__ void __launch_bounds__(KT * 32)
 spec_conv_wgrad_kernel(const uint16_t* __restrict__ x, const uint16_t* __restrict__ d,
-                       float* __restrict__ partial, int B, int H, int W, int Wout) {
+                       float* __restrict__ partial, int H, int W, int Wout,
+                       int strips, int steps_h, int chunks, int items) {
   using G = Wgr<KT, S>;
-  using F = Fwd<KT, S>;
+  using F = typename G::F;
+  constexpr int R = G::ROWS;
   extern __shared__ __align__(16) uint16_t smem[];
-  const uint32_t xs = (uint32_t)__cvta_generic_to_shared(smem);  // RH + 2 x rows
-  const uint32_t ds = xs + (RH + 2) * F::ROWBYTES;               // RH d rows
+  const uint32_t ring = (uint32_t)__cvta_generic_to_shared(smem);
+  const uint32_t dsm = ring + G::RING * F::ROWBYTES;  // two buffers of R d rows
+  const int tid = threadIdx.x;
+  const int lane = tid & 31;
+  const int j = tid >> 5;  // this warp's column tap
+  constexpr int NT = KT * 32;
 
-  const int nthreads = KT * 32;
-  const int lane = threadIdx.x & 31;
-  const int g = lane >> 2, t = lane & 3;
-  const int j = threadIdx.x >> 5;  // this warp's column tap
+  // rows r_first .. r_first + nrows - 1 of x (image b), the strip's window
+  // from column o0 * S - PT, into ring positions pos, pos + 1, ...; zero
+  // outside the image
+  auto stage_x = [&](int b, int o0, int r_first, int nrows, int pos) {
+    const int w0 = o0 * S - F::PT;
+    const int n = nrows * F::WIN * 4;
+    for (int it = tid; it < n; it += NT) {
+      const int k = it & 3;
+      const int c = (it >> 2) % F::WIN;
+      const int r = (it >> 2) / F::WIN;
+      const int h = r_first + r, w = w0 + c;
+      const bool ok = h >= 0 && h < H && w >= 0 && w < W;
+      const uint16_t* src = ok ? x + (((size_t)b * H + h) * W + w) * C + k * 8 : x;
+      cp_async16(ring + ((pos + r) % G::RING) * F::ROWBYTES +
+                     F::offset(F::pixel_of_column(c), k),
+                 src, ok);
+    }
+  };
+  // d rows h_first .. h_first + R - 1, positions o0 .. o0 + FWD_STRIP - 1,
+  // into d buffer buf; zero past H and W_out, so those rows and positions
+  // add nothing
+  auto stage_d = [&](int b, int o0, int h_first, int buf) {
+    for (int it = tid; it < R * FWD_STRIP * 4; it += NT) {
+      const int k = it & 3;
+      const int q = (it >> 2) % FWD_STRIP;
+      const int r = (it >> 2) / FWD_STRIP;
+      const int h = h_first + r, o = o0 + q;
+      const bool ok = h < H && o < Wout;
+      const uint16_t* src = ok ? d + (((size_t)b * H + h) * Wout + o) * C + k * 8 : d;
+      cp_async16(dsm + (buf * R + r) * G::DROW + F::offset(q, k), src, ok);
+    }
+  };
+
+  // the current step: item t, step k of it, output rows h0 .. h0 + R - 1,
+  // input row h0 - 1 at ring position pos, d rows in buffer buf; head =
+  // next free ring position
+  int t = blockIdx.x, k = 0;
+  int b, o0, h0, nsteps;
+  auto decode = [&]() {
+    const int strip = t % strips;
+    const int chunk = (t / strips) % chunks;
+    b = t / (strips * chunks);
+    o0 = strip * FWD_STRIP;
+    const int first = chunk * steps_h / chunks;
+    h0 = first * R;
+    nsteps = (chunk + 1) * steps_h / chunks - first;
+  };
+  decode();  // the plan gives every block an item
+  int pos = 0, head = R + 2, buf = 0;
+  stage_x(b, o0, h0 - 1, R + 2, 0);
+  stage_d(b, o0, h0, 0);
+  cp_async_commit();
+
   // ldmatrix.trans lane maps.  A (x^T, 16 channels x 16 positions): matrix
   // l >> 3 is (positions 8 * (l >> 4).., chunk (l >> 3) & 1 of the channel
   // half); B (d, 16 positions x two n-tiles): matrix l >> 3 is (positions
@@ -591,69 +689,78 @@ spec_conv_wgrad_kernel(const uint16_t* __restrict__ x, const uint16_t* __restric
 #pragma unroll
         for (int e = 0; e < 4; ++e) acc[i][h][n][e] = 0.f;
 
-  const int tiles_w = (Wout + TW - 1) / TW;
-  const int tiles_h = (H + RH - 1) / RH;
-  const int tiles = B * tiles_h * tiles_w;
-  for (int tile = blockIdx.x; tile < tiles; tile += gridDim.x) {
-    const int o0 = (tile % tiles_w) * TW;
-    const int h0 = ((tile / tiles_w) % tiles_h) * RH;
-    const int b = tile / (tiles_w * tiles_h);
-    __syncthreads();  // the previous tile's reads are done
-
-    // x rows h0-1 .. h0+RH, the strip's window from column o0 * S - PT;
-    // zero outside
-    const int xitems = (RH + 2) * F::WIN * 4;
-    for (int it = threadIdx.x; it < xitems; it += nthreads) {
-      const int k = it & 3;
-      const int c = (it >> 2) % F::WIN;
-      const int r = (it >> 2) / F::WIN;
-      const int h = h0 - 1 + r, w = o0 * S - F::PT + c;
-      const bool ok = h >= 0 && h < H && w >= 0 && w < W;
-      const uint16_t* src = ok ? x + (((size_t)b * H + h) * W + w) * C + k * 8 : x;
-      cp_async16(xs + r * F::ROWBYTES + F::offset(F::pixel_of_column(c), k), src, ok);
-    }
-    // d rows h0 .. h0+RH-1, positions o0 .. o0+TW-1; zero outside, so
-    // padded positions add nothing
-    const int ditems = RH * TW * 4;
-    for (int it = threadIdx.x; it < ditems; it += nthreads) {
-      const int k = it & 3;
-      const int q = (it >> 2) % TW;
-      const int r = (it >> 2) / TW;
-      const int h = h0 + r, o = o0 + q;
-      const bool ok = h < H && o < Wout;
-      const uint16_t* src = ok ? d + (((size_t)b * H + h) * Wout + o) * C + k * 8 : d;
-      cp_async16(ds + r * G::DROW + F::offset(q, k), src, ok);
-    }
-    cp_async_commit();
+  for (;;) {
     cp_async_wait_all();
-    __syncthreads();
-
-#pragma unroll 1
-    for (int hr = 0; hr < RH; ++hr) {
-#pragma unroll 1
-      for (int q0 = 0; q0 < TW && o0 + q0 < Wout; q0 += 16) {
-        // B = d[positions q0.., channels]: n-tile 2p + e in bf[p][2e], [2e+1]
-        uint32_t bf[2][4];
-#pragma unroll
-        for (int p = 0; p < 2; ++p)
-          ldmatrix_x4_trans(bf[p], ds + hr * G::DROW + F::offset(q0 + lb, 2 * p + kb));
-#pragma unroll
-        for (int i = 0; i < KF; ++i) {
-#pragma unroll
-          for (int ch = 0; ch < 2; ++ch) {
-            uint32_t a[4];
-            ldmatrix_x4_trans(a, xs + (hr + i) * F::ROWBYTES +
-                                     F::offset(F::pixel(q0 + la, j), 2 * ch + ka));
-#pragma unroll
-            for (int n = 0; n < 4; ++n)
-              mma_bf16(acc[i][ch][n], a, bf[n >> 1][2 * (n & 1)], bf[n >> 1][2 * (n & 1) + 1]);
-          }
-        }
+    __syncthreads();  // this step's rows are in; the previous step is done
+    const int co0 = o0, cpos = pos;
+    const uint32_t drows = dsm + buf * R * G::DROW;
+    // stage the next step's rows into ring positions and the d buffer that
+    // the previous step freed
+    bool last = false;
+    if (k + 1 < nsteps) {
+      ++k;
+      h0 += R;
+      pos = cpos + R;
+      stage_x(b, o0, h0 + 1, R, head);
+      head += R;
+      stage_d(b, o0, h0, buf ^ 1);
+    } else {
+      t += gridDim.x;
+      k = 0;
+      if (t < items) {
+        decode();
+        pos = head;
+        stage_x(b, o0, h0 - 1, R + 2, head);
+        head += R + 2;
+        stage_d(b, o0, h0, buf ^ 1);
+      } else {
+        last = true;
       }
     }
+    buf ^= 1;
+    cp_async_commit();
+
+    uint32_t xrow[R + 2];  // input row h0 - 1 + u of the current step
+#pragma unroll
+    for (int u = 0; u < R + 2; ++u) xrow[u] = ring + ((cpos + u) % G::RING) * F::ROWBYTES;
+#pragma unroll 1
+    for (int q0 = 0; q0 < FWD_STRIP && co0 + q0 < Wout; q0 += 16) {
+      // input row u is tap i = u - r of output row r: each A fragment (row
+      // u, channel half ch; load s = 2u + ch) serves the B fragments of up
+      // to three output rows (row r in bf[r], n-tile 2p + e in bf[r][p][2e],
+      // [2e+1]).  Each load is issued one load ahead of the MMAs that use it.
+      const int xa = F::pixel(q0 + la, j);
+      uint32_t bf[R][2][4], a[2][4];
+#pragma unroll
+      for (int p = 0; p < 2; ++p)
+        ldmatrix_x4_trans(bf[0][p], drows + F::offset(q0 + lb, 2 * p + kb));
+      ldmatrix_x4_trans(a[0], xrow[0] + F::offset(xa, ka));
+#pragma unroll
+      for (int s = 0; s < 2 * (R + 2); ++s) {
+        const int u = s >> 1, ch = s & 1;
+        if (s + 1 < 2 * (R + 2)) {
+          const int un = (s + 1) >> 1, chn = (s + 1) & 1;
+          if (chn == 0 && un < R) {
+#pragma unroll
+            for (int p = 0; p < 2; ++p)
+              ldmatrix_x4_trans(bf[un][p],
+                                drows + un * G::DROW + F::offset(q0 + lb, 2 * p + kb));
+          }
+          ldmatrix_x4_trans(a[(s + 1) & 1], xrow[un] + F::offset(xa, 2 * chn + ka));
+        }
+#pragma unroll
+        for (int r = (u >= 2 ? u - 2 : 0); r <= (u < R ? u : R - 1); ++r)
+#pragma unroll
+          for (int n = 0; n < 4; ++n)
+            mma_bf16(acc[u - r][ch][n], a[s & 1], bf[r][n >> 1][2 * (n & 1)],
+                     bf[r][n >> 1][2 * (n & 1) + 1]);
+      }
+    }
+    if (last) break;
   }
 
   // this block's partial dW[i][j][c][n]
+  const int g = lane >> 2, t4 = lane & 3;
   float* out = partial + (size_t)blockIdx.x * G::ELEMS;
 #pragma unroll
   for (int i = 0; i < KF; ++i)
@@ -662,7 +769,7 @@ spec_conv_wgrad_kernel(const uint16_t* __restrict__ x, const uint16_t* __restric
 #pragma unroll
       for (int n = 0; n < 4; ++n) {
         const int ci = ch * 16 + g;
-        const int co = n * 8 + 2 * t;
+        const int co = n * 8 + 2 * t4;
         float* p = out + ((i * KT + j) * C + ci) * C + co;
         *reinterpret_cast<float2*>(p) = make_float2(acc[i][ch][n][0], acc[i][ch][n][1]);
         *reinterpret_cast<float2*>(p + 8 * C) =
@@ -670,13 +777,27 @@ spec_conv_wgrad_kernel(const uint16_t* __restrict__ x, const uint16_t* __restric
       }
 }
 
-__global__ void sum_partials_kernel(const float* __restrict__ partial,
-                                    float* __restrict__ out, int elems, int blocks) {
-  for (int e = blockIdx.x * blockDim.x + threadIdx.x; e < elems;
-       e += gridDim.x * blockDim.x) {
-    float s = 0.f;
-    for (int k = 0; k < blocks; ++k) s += partial[(size_t)k * elems + e];
-    out[e] = s;
+// out[e] = sum over the blocks' partials, in a fixed order: a block of
+// SUM_WARPS warps takes 32 consecutive elements, warp w sums partials w,
+// w + SUM_WARPS, ... in turn, then one warp adds the SUM_WARPS sums in turn
+constexpr int SUM_WARPS = 8;
+
+__global__ void __launch_bounds__(SUM_WARPS * 32)
+sum_partials_kernel(const float* __restrict__ partial, float* __restrict__ out,
+                    int elems, int blocks) {
+  __shared__ float part[SUM_WARPS][32];
+  const int lane = threadIdx.x & 31, w = threadIdx.x >> 5;
+  const int e = blockIdx.x * 32 + lane;
+  float s = 0.f;
+  if (e < elems)
+    for (int k = w; k < blocks; k += SUM_WARPS) s += partial[(size_t)k * elems + e];
+  part[w][lane] = s;
+  __syncthreads();
+  if (w == 0 && e < elems) {
+    float total = 0.f;
+#pragma unroll
+    for (int v = 0; v < SUM_WARPS; ++v) total += part[v][lane];
+    out[e] = total;
   }
 }
 
@@ -723,18 +844,30 @@ int launch_dgrad(const void* d, const void* wp, void* dx, int B, int H, int W,
 
 template <int KT, int S>
 int launch_wgrad(const void* x, const void* d, void* partial, void* dw, int B,
-                 int H, int W, int Wout, int blocks, cudaStream_t stream) {
+                 int H, int W, int Wout, int sms, int partial_blocks,
+                 WgrPlan* plan, cudaStream_t stream) {
+  using G = Wgr<KT, S>;
   auto kern = spec_conv_wgrad_kernel<KT, S>;
-  cudaError_t err = cudaFuncSetAttribute(
-      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, Wgr<KT, S>::SMEM);
+  cudaError_t err =
+      cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, G::SMEM);
   if (err != cudaSuccess) return (int)err;
-  kern<<<blocks, KT * 32, Wgr<KT, S>::SMEM, stream>>>(
-      (const uint16_t*)x, (const uint16_t*)d, (float*)partial, B, H, W, Wout);
+  int per_sm = 0;
+  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kern, KT * 32, G::SMEM);
+  if (err != cudaSuccess) return (int)err;
+  if (per_sm < 1) return (int)cudaErrorInvalidConfiguration;
+  const WgrPlan p = wgr_plan(B, H, Wout, G::ROWS, G::CHUNK_STEPS, per_sm * sms);
+  if (plan) {  // the plan only, no launch
+    *plan = p;
+    return 0;
+  }
+  if (p.blocks != partial_blocks) return (int)cudaErrorInvalidValue;
+  kern<<<p.blocks, KT * 32, G::SMEM, stream>>>(
+      (const uint16_t*)x, (const uint16_t*)d, (float*)partial, H, W, Wout, p.strips,
+      p.steps_h, p.chunks, p.items);
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
-  const int elems = Wgr<KT, S>::ELEMS;
-  sum_partials_kernel<<<(elems + 255) / 256, 256, 0, stream>>>(
-      (const float*)partial, (float*)dw, elems, blocks);
+  sum_partials_kernel<<<(G::ELEMS + 31) / 32, SUM_WARPS * 32, 0, stream>>>(
+      (const float*)partial, (float*)dw, G::ELEMS, p.blocks);
   return (int)cudaGetLastError();
 }
 
@@ -796,15 +929,41 @@ extern "C" int spec_conv_dgrad_bf16(const void* d, const void* wp, void* dx,
 #undef CALL_DGR
 }
 
-// partial: f32 [blocks, 3*kt*32*32] scratch; dw: f32 [3, kt, 32, 32].
-extern "C" int spec_conv_wgrad_bf16(const void* x, const void* d, void* partial,
-                                    void* dw, int B, int H, int W, int Wout,
-                                    int kt, int stride, int blocks, void* stream) {
-#define CALL_WGR(K, S2) launch_wgrad<K, S2>(x, d, partial, dw, B, H, W, Wout, blocks, (cudaStream_t)stream)
+static int wgrad_dispatch(const void* x, const void* d, void* partial, void* dw,
+                          int B, int H, int W, int Wout, int kt, int stride,
+                          int sms, int partial_blocks, WgrPlan* plan, void* stream) {
+#define CALL_WGR(K, S2) launch_wgrad<K, S2>(x, d, partial, dw, B, H, W, Wout, sms, partial_blocks, plan, (cudaStream_t)stream)
   if (kt == 9 && stride == 2) return CALL_WGR(9, 2);
   if (kt == 9 && stride == 1) return CALL_WGR(9, 1);
   if (kt == 3 && stride == 2) return CALL_WGR(3, 2);
   if (kt == 3 && stride == 1) return CALL_WGR(3, 1);
   return (int)cudaErrorInvalidValue;
 #undef CALL_WGR
+}
+
+// partial: f32 [blocks, 3*kt*32*32] scratch, blocks as spec_conv_wgrad_plan
+// gives them for this shape and sms; dw: f32 [3, kt, 32, 32].
+extern "C" int spec_conv_wgrad_bf16(const void* x, const void* d, void* partial,
+                                    void* dw, int B, int H, int W, int Wout,
+                                    int kt, int stride, int sms, int blocks,
+                                    void* stream) {
+  return wgrad_dispatch(x, d, partial, dw, B, H, W, Wout, kt, stride, sms, blocks,
+                        nullptr, stream);
+}
+
+// The wgrad's work split for a shape, without a launch: out[0..4] =
+// blocks, strips, steps down H, chunks, items.
+extern "C" int spec_conv_wgrad_plan(int B, int H, int Wout, int kt, int stride,
+                                    int sms, int* out) {
+  WgrPlan p;
+  const int err = wgrad_dispatch(nullptr, nullptr, nullptr, nullptr, B, H, 0, Wout, kt,
+                                 stride, sms, 0, &p, nullptr);
+  if (err == 0) {
+    out[0] = p.blocks;
+    out[1] = p.strips;
+    out[2] = p.steps_h;
+    out[3] = p.chunks;
+    out[4] = p.items;
+  }
+  return err;
 }

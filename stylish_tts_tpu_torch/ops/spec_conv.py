@@ -150,9 +150,11 @@ def _library() -> ctypes.CDLL:
         [ptr] * 4 + [i32] * 7 + [ctypes.c_float, ptr])
     lib.spec_conv_forward_plan.argtypes = [i32] * 6 + [ptr]
     lib.spec_conv_dgrad_bf16.argtypes = [ptr] * 3 + [i32] * 6 + [ptr]
-    lib.spec_conv_wgrad_bf16.argtypes = [ptr] * 4 + [i32] * 7 + [ptr]
+    lib.spec_conv_wgrad_bf16.argtypes = [ptr] * 4 + [i32] * 8 + [ptr]
+    lib.spec_conv_wgrad_plan.argtypes = [i32] * 6 + [ptr]
     for fn in (lib.spec_conv_forward_bf16, lib.spec_conv_forward_plan,
-               lib.spec_conv_dgrad_bf16, lib.spec_conv_wgrad_bf16):
+               lib.spec_conv_dgrad_bf16, lib.spec_conv_wgrad_bf16,
+               lib.spec_conv_wgrad_plan):
         fn.restype = ctypes.c_int
     return lib
 
@@ -178,6 +180,18 @@ def _sms(device: torch.device) -> int:
     return torch.cuda.get_device_properties(device).multi_processor_count
 
 
+@functools.lru_cache(maxsize=None)
+def _plan(entry: str, batch: int, h: int, w_out: int, kt: int, stride: int,
+          sms: int) -> tuple:
+    """The five numbers of a kernel's work split, as its C entry point
+    ``entry`` makes it for this shape on ``sms`` multiprocessors."""
+    out = (ctypes.c_int * 5)()
+    err = getattr(_library(), entry)(batch, h, w_out, kt, stride, sms, out)
+    if err != 0:
+        raise RuntimeError(f"{entry} failed: CUDA error {err}")
+    return tuple(out)
+
+
 class SpecConvForward(_Kernel):
     """The persistent forward: as many blocks as fit on the card at once,
     each walking work items of (b, 64 positions, up to 32 rows) on wgmma."""
@@ -185,14 +199,11 @@ class SpecConvForward(_Kernel):
     def plan(self, batch: int, h: int, width: int, kt: int, stride: int,
              device: torch.device | str = "cuda") -> dict:
         """The work split of a launch at this shape, as the kernel makes it."""
-        device = torch.device(device)
-        out = (ctypes.c_int * 5)()
-        err = _library().spec_conv_forward_plan(
-            batch, h, out_width(width, stride), kt, stride, _sms(device), out)
-        if err != 0:
-            raise RuntimeError(f"{self.name} plan failed: CUDA error {err}")
         return dict(zip(("blocks", "strips", "steps_per_item", "chunks",
-                         "items"), out))
+                         "items"),
+                        _plan("spec_conv_forward_plan", batch, h,
+                              out_width(width, stride), kt, stride,
+                              _sms(torch.device(device)))))
 
     def __call__(self, x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
                  stride: int, leaky: float) -> torch.Tensor:
@@ -249,6 +260,19 @@ class SpecConvDgrad(_Kernel):
 
 
 class SpecConvWgrad(_Kernel):
+    """The persistent wgrad: as many blocks as fit on the card at once, each
+    walking work items of (b, 64 positions, up to 32 rows) and writing its
+    f32 partial sums once, then a fixed-order sum of the partials."""
+
+    def plan(self, batch: int, h: int, width: int, kt: int, stride: int,
+             device: torch.device | str = "cuda") -> dict:
+        """The work split of a launch at this shape, as the kernel makes it:
+        ``blocks`` is also the number of partials."""
+        return dict(zip(("blocks", "strips", "steps_h", "chunks", "items"),
+                        _plan("spec_conv_wgrad_plan", batch, h,
+                              out_width(width, stride), kt, stride,
+                              _sms(torch.device(device)))))
+
     def __call__(self, x: torch.Tensor, d: torch.Tensor, kt: int,
                  stride: int) -> torch.Tensor:
         """Weight gradient f32 [32, 32, 3, kt] from x [B, H, W, 32] and the
@@ -265,9 +289,9 @@ class SpecConvWgrad(_Kernel):
         if tuple(d.shape) != (batch, h, w_out, CHANNELS):
             raise ValueError(f"{self.name}: d {tuple(d.shape)} does not match "
                              f"x {tuple(x.shape)} at stride {stride}")
-        tiles = batch * -(-h // 2) * -(-w_out // 64)
-        sms = torch.cuda.get_device_properties(device).multi_processor_count
-        blocks = max(1, min(tiles, 2 * sms))
+        sms = _sms(device)
+        blocks = _plan("spec_conv_wgrad_plan", batch, h, w_out, kt, stride,
+                       sms)[0]
         partial = torch.empty((blocks, KF * kt * CHANNELS * CHANNELS),
                               dtype=torch.float32, device=device)
         dw = torch.empty((KF, kt, CHANNELS, CHANNELS), dtype=torch.float32,
@@ -276,7 +300,7 @@ class SpecConvWgrad(_Kernel):
             stream = torch.cuda.current_stream(device).cuda_stream
             err = _library().spec_conv_wgrad_bf16(
                 x.data_ptr(), d.data_ptr(), partial.data_ptr(), dw.data_ptr(),
-                batch, h, width, w_out, kt, stride, blocks, stream)
+                batch, h, width, w_out, kt, stride, sms, blocks, stream)
         self._done(err)
         return dw.permute(3, 2, 0, 1)  # [3, kt, in, out] -> [out, in, 3, kt]
 

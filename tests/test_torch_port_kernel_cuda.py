@@ -228,6 +228,51 @@ def test_spec_conv_forward_is_deterministic(cuda, kt, stride):
     assert torch.equal(first, second)
 
 
+# the persistent wgrad's tiling (4 output rows a step at kt 9, 2 at kt 3,
+# up to 32 rows an item, strips of 64 positions): the forward's cases
+WGRAD_TILING = dict(FWD_TILING)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", list(WGRAD_TILING))
+def test_spec_conv_wgrad_tiling(cuda, case):
+    batch, h, w, kt, stride = WGRAD_TILING[case]
+    x, _, _, d = _conv_inputs(h, w, kt, stride, seed=6)
+    if batch == 1:
+        x, d = x[:1].contiguous(), d[:1].contiguous()
+    before = sc.spec_conv_wgrad.launches
+    dw = sc.spec_conv_wgrad(x, d, kt, stride)
+    torch.cuda.synchronize()
+    assert sc.spec_conv_wgrad.launches == before + 1
+    want = sc.wgrad_plain(x, d, kt, stride)
+    assert dw.shape == want.shape
+    # f32 sums of up to 2 * 77 * 71 bf16 products in another order
+    assert _rel_err(dw, want) <= 1e-3
+
+
+@pytest.mark.cuda
+def test_spec_conv_wgrad_many_items_per_block(cuda):
+    # the MRD's largest layer: every persistent block walks many items
+    shape, kt, stride = (8, 257, 2761, 32), 9, 2
+    plan = sc.spec_conv_wgrad.plan(*shape[:3], kt, stride)
+    assert plan["items"] >= 8 * plan["blocks"], plan
+    gen = torch.Generator(device="cuda").manual_seed(7)
+    x = torch.randn(shape, generator=gen, device="cuda").bfloat16()
+    d = torch.randn((8, 257, sc.out_width(2761, stride), 32), generator=gen,
+                    device="cuda").bfloat16()
+    dw = sc.spec_conv_wgrad(x, d, kt, stride)
+    assert _rel_err(dw, sc.wgrad_plain(x, d, kt, stride)) <= 1e-3
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kt,stride", [(9, 2), (3, 1)])
+def test_spec_conv_wgrad_is_deterministic(cuda, kt, stride):
+    x, _, _, d = _conv_inputs(37, 301, kt, stride, seed=8)
+    first = sc.spec_conv_wgrad(x, d, kt, stride)
+    second = sc.spec_conv_wgrad(x, d, kt, stride)
+    assert torch.equal(first, second)
+
+
 @pytest.mark.cuda
 def test_spec_conv_autograd_runs_the_kernels(cuda):
     x, wt, b, _ = _conv_inputs(19, 141, 9, 2, seed=1)
