@@ -54,12 +54,13 @@
 //     lane stores 8 consecutive channels (16 B).
 // The wgrad (redesigned on the forward's staging):
 //   * the same persistent blocks, work items and ring of staged x rows as
-//     the forward (4 output rows a step at kt 9, 2 at kt 3, so that several
-//     blocks share an SM there), with the step's d rows double-buffered;
+//     the forward (4 output rows a step), with the step's d rows
+//     double-buffered;
 //     no weights in shared memory, and the next step's rows arrive by
 //     cp.async while the current step's MMAs run;
-//   * one warp per column tap j, holding the kf x 32 x 32 sums of that tap
-//     in registers across all the block's items; both operands (x^T and d)
+//   * one warp per column tap j (four at kt 3, each on a quarter of the
+//     positions), holding the kf x 32 x 32 sums of that tap in registers
+//     across all the block's items; both operands (x^T and d)
 //     come from the staged rows by ldmatrix.x4.trans, and each x fragment
 //     serves the up to three output rows that read its input row;
 //   * blocks run in no order, so each writes f32 partials once; a second
@@ -561,9 +562,13 @@ spec_conv_dgrad_kernel(const uint16_t* __restrict__ d, const uint16_t* __restric
 template <int KT, int S>
 struct Wgr {
   using F = Fwd<KT, S>;
-  // output rows per step: kt 3 has a third of the MMAs per staged byte, so
-  // smaller steps let more blocks share an SM
-  static constexpr int ROWS = KT == 9 ? 4 : 2;
+  static constexpr int ROWS = 4;                   // output rows per step
+  // warps per column tap: at kt 3 four warps share a tap, each taking one
+  // group of 16 positions, and add their sums in the block before it writes
+  // its partial: one block of 12 warps an SM (of 9 at kt 9), so 132
+  // partials to sum instead of the 528 of four 3-warp blocks an SM
+  static constexpr int WPT = KT == 9 ? 1 : 4;
+  static constexpr int THREADS = KT * WPT * 32;
   static constexpr int RING = 2 * (ROWS + 2);      // staged x rows
   static constexpr int CHUNK_STEPS = 32 / ROWS;    // steps per item at most
   static constexpr int DROW = FWD_STRIP * C * 2;   // bytes of one staged d row
@@ -572,6 +577,7 @@ struct Wgr {
 };
 
 static_assert(Wgr<9, 2>::SMEM <= 232448, "wgrad does not fit in shared memory");
+static_assert(3 * 96 * 32 * 4 <= Wgr<3, 1>::SMEM, "no room to add the kt 3 sums");
 
 // The work split of one wgrad launch, made on the host: items of up to
 // CHUNK_STEPS steps, the steps of a row spread evenly over its chunks.
@@ -602,7 +608,7 @@ __device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&a)[4], uint32_t add
 }
 
 template <int KT, int S>
-__global__ void __launch_bounds__(KT * 32)
+__global__ void __launch_bounds__(Wgr<KT, S>::THREADS)
 spec_conv_wgrad_kernel(const uint16_t* __restrict__ x, const uint16_t* __restrict__ d,
                        float* __restrict__ partial, int H, int W, int Wout,
                        int strips, int steps_h, int chunks, int items) {
@@ -614,8 +620,9 @@ spec_conv_wgrad_kernel(const uint16_t* __restrict__ x, const uint16_t* __restric
   const uint32_t dsm = ring + G::RING * F::ROWBYTES;  // two buffers of R d rows
   const int tid = threadIdx.x;
   const int lane = tid & 31;
-  const int j = tid >> 5;  // this warp's column tap
-  constexpr int NT = KT * 32;
+  const int j = (tid >> 5) % KT;   // this warp's column tap
+  const int part = (tid >> 5) / KT;  // ... and its share of the positions
+  constexpr int NT = G::THREADS;
 
   // rows r_first .. r_first + nrows - 1 of x (image b), the strip's window
   // from column o0 * S - PT, into ring positions pos, pos + 1, ...; zero
@@ -724,7 +731,7 @@ spec_conv_wgrad_kernel(const uint16_t* __restrict__ x, const uint16_t* __restric
 #pragma unroll
     for (int u = 0; u < R + 2; ++u) xrow[u] = ring + ((cpos + u) % G::RING) * F::ROWBYTES;
 #pragma unroll 1
-    for (int q0 = 0; q0 < FWD_STRIP && co0 + q0 < Wout; q0 += 16) {
+    for (int q0 = 16 * part; q0 < FWD_STRIP && co0 + q0 < Wout; q0 += 16 * G::WPT) {
       // input row u is tap i = u - r of output row r: each A fragment (row
       // u, channel half ch; load s = 2u + ch) serves the B fragments of up
       // to three output rows (row r in bf[r], n-tile 2p + e in bf[r][p][2e],
@@ -758,6 +765,35 @@ spec_conv_wgrad_kernel(const uint16_t* __restrict__ x, const uint16_t* __restric
     }
     if (last) break;
   }
+
+  // the warps that share a tap add their sums in turn, through the ring
+  // (free now: no copy is in flight after the last step)
+  float* red = reinterpret_cast<float*>(smem);
+  for (int sh = 1; sh < G::WPT; ++sh) {
+    __syncthreads();  // every warp is done with the ring, or with red
+    float* mine = red + j * (KF * 2 * 4 * 4) * 32 + lane;
+    const bool put = part == sh;
+#pragma unroll
+    for (int i = 0; i < KF; ++i)
+#pragma unroll
+      for (int ch = 0; ch < 2; ++ch)
+#pragma unroll
+        for (int n = 0; n < 4; ++n)
+#pragma unroll
+          for (int e = 0; e < 4; ++e)
+            if (put) mine[(((i * 2 + ch) * 4 + n) * 4 + e) * 32] = acc[i][ch][n][e];
+    __syncthreads();
+#pragma unroll
+    for (int i = 0; i < KF; ++i)
+#pragma unroll
+      for (int ch = 0; ch < 2; ++ch)
+#pragma unroll
+        for (int n = 0; n < 4; ++n)
+#pragma unroll
+          for (int e = 0; e < 4; ++e)
+            if (part == 0) acc[i][ch][n][e] += mine[(((i * 2 + ch) * 4 + n) * 4 + e) * 32];
+  }
+  if (part != 0) return;
 
   // this block's partial dW[i][j][c][n]
   const int g = lane >> 2, t4 = lane & 3;
@@ -852,7 +888,7 @@ int launch_wgrad(const void* x, const void* d, void* partial, void* dw, int B,
       cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, G::SMEM);
   if (err != cudaSuccess) return (int)err;
   int per_sm = 0;
-  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kern, KT * 32, G::SMEM);
+  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kern, G::THREADS, G::SMEM);
   if (err != cudaSuccess) return (int)err;
   if (per_sm < 1) return (int)cudaErrorInvalidConfiguration;
   const WgrPlan p = wgr_plan(B, H, Wout, G::ROWS, G::CHUNK_STEPS, per_sm * sms);
@@ -861,7 +897,7 @@ int launch_wgrad(const void* x, const void* d, void* partial, void* dw, int B,
     return 0;
   }
   if (p.blocks != partial_blocks) return (int)cudaErrorInvalidValue;
-  kern<<<p.blocks, KT * 32, G::SMEM, stream>>>(
+  kern<<<p.blocks, G::THREADS, G::SMEM, stream>>>(
       (const uint16_t*)x, (const uint16_t*)d, (float*)partial, H, W, Wout, p.strips,
       p.steps_h, p.chunks, p.items);
   err = cudaGetLastError();
