@@ -14,9 +14,11 @@ Phases, in order; any failure raises and the exit code is non-zero:
    PyTorch version, with its time, the plain version's, a library call's
    (a yardstick the port never calls) and its bound; each kernel and its
    library call also with their device time by torch.profiler, which
-   leaves out the host's launch; then the spec-conv forward at all 12
-   layer shapes of the MRD at b8 x f460, each held against its plain
-   version, with its and cuDNN's device time and its launches per step;
+   leaves out the host's launch; then the spec-conv forward and wgrad at
+   all 12 layer shapes of the MRD at b8 x f460, each held against its
+   plain version, with its and cuDNN's device time (the wgrad's also split
+   between its main kernel and its partial sum) and their totals over the
+   launches of a train step;
 3. probes: the eight patch-staging probe kernels (``csrc/patch_probe.cu``)
    at the probe script's sizes and inputs, each held against its plain
    version (the five copies exactly, the three products within
@@ -39,7 +41,8 @@ Phases, in order; any failure raises and the exit code is non-zero:
    3 timed steps on one synthetic batch of 8 x 460 mel frames; the launch
    counts are set to 0 before the timed steps and read after; the metrics
    are finite, every train model and the MRD moved, the discriminator EMA
-   changed and every kernel launched; then one f32 step at full width on
+   changed and every kernel launched, the spec-conv forward and wgrad as
+   often as the MRD's 12 layers give; then one f32 step at full width on
    1 x 64 frames runs on the CPU and on the card from the same weights and
    their metrics are compared;
 6. one JSON line of every kernel's numbers, with its launches on the path
@@ -65,8 +68,8 @@ import numpy as np
 import torch
 
 from stylish_tts_tpu_torch.scripts.spec_conv_times import (
-    FWD_LAUNCHES_PER_LAYER, conv_calls, device_ms, layer_times, max_error,
-    mrd_layers)
+    FWD_LAUNCHES_PER_LAYER, WGRAD_LAUNCHES_PER_LAYER, conv_calls, device_ms,
+    layer_times, max_error, mrd_layers)
 
 # H100 SXM peaks (NVIDIA data sheet): f32 outside the tensor cores, bf16
 # dense on the tensor cores, HBM3
@@ -787,37 +790,50 @@ def main() -> int:
                   f"({n['bound_by']}), max err {n['max_abs_err']:.2e} of "
                   f"{n['max_abs_plain']:.2e} [{card}]")
     torch.cuda.empty_cache()
-    # ... and the forward at every spec-conv layer shape of the MRD
-    record["spec_conv_forward_layers"] = {}
-    totals = [0.0, 0.0]
+    # ... and the forward and wgrad at every spec-conv layer shape of the MRD
+    per_step = {"forward": FWD_LAUNCHES_PER_LAYER,
+                "wgrad": WGRAD_LAUNCHES_PER_LAYER}
+    for name in per_step:
+        record[f"spec_conv_{name}_layers"] = {}
+    totals = {name: [0.0, 0.0] for name in per_step}
     for seed, (label, shape, kt, stride) in enumerate(mrd_layers()):
-        r = layer_times(shape, kt, stride, 100 + seed)["forward"]
+        both = layer_times(shape, kt, stride, 100 + seed, tuple(per_step))
         b, h, w, c = shape
         w_out = sc.out_width(w, stride)
         flops = 2.0 * b * h * w_out * 3 * kt * c * c
         t_ops = flops / PEAK_BF16_FLOPS * 1e3
-        t_bytes = 2.0 * (b * h * w * c + 3 * kt * c * c + c
-                         + b * h * w_out * c) / PEAK_BYTES * 1e3
-        r.update(shape=list(shape), kt=kt, stride=stride,
-                 bound_ms=max(t_ops, t_bytes),
-                 bound_by="operations" if t_ops >= t_bytes else "bytes",
-                 tflops_per_s=flops / r["device_ms"] * 1e-9,
-                 plan=sc.spec_conv_forward.plan(b, h, w, kt, stride))
-        record["spec_conv_forward_layers"][label] = r
-        totals[0] += FWD_LAUNCHES_PER_LAYER * r["device_ms"]
-        totals[1] += FWD_LAUNCHES_PER_LAYER * r["library_device_ms"]
-        print(f"spec_conv_forward {label} {shape} kt={kt} s={stride}: "
-              f"device {r['device_ms']:.4f} ms ({r['tflops_per_s']:.1f} "
-              f"TFLOP/s), cuDNN bf16 {r['library_device_ms']:.4f} ms, bound "
-              f"{r['bound_ms']:.4f} ms ({r['bound_by']}), "
-              f"{FWD_LAUNCHES_PER_LAYER} per step, plan {r['plan']}, max err "
-              f"{r['max_abs_err']:.2e} of {r['max_abs_plain']:.2e} [{card}]")
-    record["spec_conv_forward_step_ms"] = {"kernel": totals[0],
-                                           "cudnn": totals[1]}
-    print(f"spec_conv_forward over the train step's "
-          f"{FWD_LAUNCHES_PER_LAYER * len(mrd_layers())} launches (device "
-          f"time, L2 warm): kernel {totals[0]:.3f} ms, cuDNN bf16 "
-          f"{totals[1]:.3f} ms [{card}]")
+        nbytes = {"forward": 2.0 * (b * h * w * c + 3 * kt * c * c + c
+                                    + b * h * w_out * c),
+                  "wgrad": 2.0 * (b * h * w * c + b * h * w_out * c)
+                  + 4.0 * 3 * kt * c * c}
+        for name, r in both.items():
+            t_bytes = nbytes[name] / PEAK_BYTES * 1e3
+            kernel = getattr(sc, f"spec_conv_{name}")
+            r.update(shape=list(shape), kt=kt, stride=stride,
+                     bound_ms=max(t_ops, t_bytes),
+                     bound_by="operations" if t_ops >= t_bytes else "bytes",
+                     tflops_per_s=flops / r["device_ms"] * 1e-9,
+                     plan=kernel.plan(b, h, w, kt, stride))
+            record[f"spec_conv_{name}_layers"][label] = r
+            totals[name][0] += per_step[name] * r["device_ms"]
+            totals[name][1] += per_step[name] * r["library_device_ms"]
+            split = "".join(f", {f} {ms:.4f}" for f, ms in
+                            r.get("function_device_ms", {}).items())
+            print(f"spec_conv_{name} {label} {shape} kt={kt} s={stride}: "
+                  f"device {r['device_ms']:.4f} ms{split} "
+                  f"({r['tflops_per_s']:.1f} TFLOP/s), cuDNN bf16 "
+                  f"{r['library_device_ms']:.4f} ms, bound "
+                  f"{r['bound_ms']:.4f} ms ({r['bound_by']}), "
+                  f"{per_step[name]} per step, plan {r['plan']}, max err "
+                  f"{r['max_abs_err']:.2e} of {r['max_abs_plain']:.2e} "
+                  f"[{card}]")
+    for name, n in per_step.items():
+        record[f"spec_conv_{name}_step_ms"] = {"kernel": totals[name][0],
+                                               "cudnn": totals[name][1]}
+        print(f"spec_conv_{name} over the train step's "
+              f"{n * len(mrd_layers())} launches (device time, L2 warm): "
+              f"kernel {totals[name][0]:.3f} ms, cuDNN bf16 "
+              f"{totals[name][1]:.3f} ms [{card}]")
     torch.cuda.empty_cache()
 
     # 3. the patch-staging probes, then their entry point
@@ -924,6 +940,12 @@ def main() -> int:
     # 5. training: the acoustic step at full width
     train, state, step, tbatch, gen = train_path(mc, device, card, kernels)
     record["train"] = train
+    for name, n in per_step.items():
+        want = n * len(mrd_layers())
+        got = train["launches_per_step"][f"spec_conv_{name}"]
+        if got != want:
+            raise AssertionError(f"spec_conv_{name}: {got} launches a train "
+                                 f"step, the MRD's layers give {want}")
     # the STFT at the train step's largest shape: the magphase target and
     # the posterior encoder, [8, 138000] at n_fft 2048, hop 75
     train_stft = stft_numbers(tbatch["audio_gt"], mc.n_fft, hop // 4,
@@ -934,14 +956,19 @@ def main() -> int:
     if "--profile" in sys.argv[1:]:
         record["profile_train"] = profile_step(step, state, tbatch, gen,
                                                card)
-        fwd = [v for k, v in record["profile_train"]["port_kernels"].items()
-               if k.startswith("spec_conv_fwd")]
-        print(f"profiled train step: spec_conv_forward "
-              f"{sum(v['ms'] for v in fwd):.3f} ms over "
-              f"{sum(v['count'] for v in fwd)} launches; the 12 layer shapes "
-              f"x {FWD_LAUNCHES_PER_LAYER} above: "
-              f"{record['spec_conv_forward_step_ms']['kernel']:.3f} ms "
-              f"[{card}]")
+        port = record["profile_train"]["port_kernels"]
+        for name, prefixes in (("forward", ("spec_conv_fwd",)),
+                               ("wgrad", ("spec_conv_wgrad",
+                                          "sum_partials"))):
+            found = [v for k, v in port.items() if k.startswith(prefixes)]
+            main_launches = sum(v["count"] for k, v in port.items()
+                                if k.startswith(prefixes[0]))
+            print(f"profiled train step: spec_conv_{name} "
+                  f"{sum(v['ms'] for v in found):.3f} ms over "
+                  f"{main_launches} launches; the 12 layer shapes x "
+                  f"{per_step[name]} above: "
+                  f"{record[f'spec_conv_{name}_step_ms']['kernel']:.3f} ms "
+                  f"[{card}]")
     del state, step, tbatch, gen
     torch.cuda.empty_cache()
     record["train_cpu_vs_card"] = cpu_vs_card_step(mc, card)
