@@ -14,11 +14,11 @@ Phases, in order; any failure raises and the exit code is non-zero:
    PyTorch version, with its time, the plain version's, a library call's
    (a yardstick the port never calls) and its bound; each kernel and its
    library call also with their device time by torch.profiler, which
-   leaves out the host's launch; then the spec-conv forward and wgrad at
-   all 12 layer shapes of the MRD at b8 x f460, each held against its
-   plain version, with its and cuDNN's device time (the wgrad's also split
-   between its main kernel and its partial sum) and their totals over the
-   launches of a train step;
+   leaves out the host's launch; then the spec-conv forward, dgrad and
+   wgrad at all 12 layer shapes of the MRD at b8 x f460, each held against
+   its plain version, with its and cuDNN's device time (the wgrad's also
+   split between its main kernel and its partial sum) and their totals over
+   the launches of a train step;
 3. probes: the eight patch-staging probe kernels (``csrc/patch_probe.cu``)
    at the probe script's sizes and inputs, each held against its plain
    version (the five copies exactly, the three products within
@@ -41,8 +41,8 @@ Phases, in order; any failure raises and the exit code is non-zero:
    3 timed steps on one synthetic batch of 8 x 460 mel frames; the launch
    counts are set to 0 before the timed steps and read after; the metrics
    are finite, every train model and the MRD moved, the discriminator EMA
-   changed and every kernel launched, the spec-conv forward and wgrad as
-   often as the MRD's 12 layers give; then one f32 step at full width on
+   changed and every kernel launched, the spec-conv forward, dgrad and
+   wgrad as often as the MRD's 12 layers give; then one f32 step at full width on
    1 x 64 frames runs on the CPU and on the card from the same weights and
    their metrics are compared;
 6. one JSON line of every kernel's numbers, with its launches on the path
@@ -68,8 +68,8 @@ import numpy as np
 import torch
 
 from stylish_tts_tpu_torch.scripts.spec_conv_times import (
-    FWD_LAUNCHES_PER_LAYER, WGRAD_LAUNCHES_PER_LAYER, conv_calls, device_ms,
-    layer_times, max_error, mrd_layers)
+    LAUNCHES_PER_LAYER, conv_calls, device_ms, layer_times, max_error,
+    mrd_layers)
 
 # H100 SXM peaks (NVIDIA data sheet): f32 outside the tensor cores, bf16
 # dense on the tensor cores, HBM3
@@ -790,23 +790,24 @@ def main() -> int:
                   f"({n['bound_by']}), max err {n['max_abs_err']:.2e} of "
                   f"{n['max_abs_plain']:.2e} [{card}]")
     torch.cuda.empty_cache()
-    # ... and the forward and wgrad at every spec-conv layer shape of the MRD
-    per_step = {"forward": FWD_LAUNCHES_PER_LAYER,
-                "wgrad": WGRAD_LAUNCHES_PER_LAYER}
+    # ... and the three kernels at every spec-conv layer shape of the MRD
+    per_step = LAUNCHES_PER_LAYER
     for name in per_step:
         record[f"spec_conv_{name}_layers"] = {}
     totals = {name: [0.0, 0.0] for name in per_step}
     for seed, (label, shape, kt, stride) in enumerate(mrd_layers()):
-        both = layer_times(shape, kt, stride, 100 + seed, tuple(per_step))
+        times = layer_times(shape, kt, stride, 100 + seed, tuple(per_step))
         b, h, w, c = shape
         w_out = sc.out_width(w, stride)
         flops = 2.0 * b * h * w_out * 3 * kt * c * c
         t_ops = flops / PEAK_BF16_FLOPS * 1e3
         nbytes = {"forward": 2.0 * (b * h * w * c + 3 * kt * c * c + c
                                     + b * h * w_out * c),
+                  "dgrad": 2.0 * (b * h * w_out * c + 3 * kt * c * c
+                                  + b * h * w * c),
                   "wgrad": 2.0 * (b * h * w * c + b * h * w_out * c)
                   + 4.0 * 3 * kt * c * c}
-        for name, r in both.items():
+        for name, r in times.items():
             t_bytes = nbytes[name] / PEAK_BYTES * 1e3
             kernel = getattr(sc, f"spec_conv_{name}")
             r.update(shape=list(shape), kt=kt, stride=stride,
@@ -958,6 +959,7 @@ def main() -> int:
                                                card)
         port = record["profile_train"]["port_kernels"]
         for name, prefixes in (("forward", ("spec_conv_fwd",)),
+                               ("dgrad", ("spec_conv_dgrad",)),
                                ("wgrad", ("spec_conv_wgrad",
                                           "sum_partials"))):
             found = [v for k, v in port.items() if k.startswith(prefixes)]

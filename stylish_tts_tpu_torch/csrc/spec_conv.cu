@@ -163,6 +163,8 @@ struct Fwd {
   __device__ static __forceinline__ int pixel_of_column(int c) {
     return S == 2 ? (c & 1) * HALF + (c >> 1) : c;
   }
+  // the first staged column of the strip from position o0
+  __device__ static __forceinline__ int column0(int o0) { return o0 * S - PT; }
   // byte offset of 16-B chunk k (channels 8k..8k+7) of pixel q: the chunk
   // is XOR-swizzled with bits 1-2 of q, so the eight rows of one ldmatrix
   // (eight consecutive pixels, one chunk) fall on eight distinct bank groups
@@ -236,24 +238,34 @@ __device__ __forceinline__ uint32_t pick4(const uint32_t (&v)[4], int i) {
   return i == 0 ? v[0] : i == 1 ? v[1] : i == 2 ? v[2] : v[3];
 }
 
-// bias, leaky ReLU and one bf16 rounding of a warp's 16 positions x 32
-// channels (d[4n + e]: the m16n8 accumulator of n-tile n), positions
-// o_first + 0..15 of the output row yrow; a quad's four lanes swap words so
-// that each holds 8 consecutive channels of one position, stored as 16 B
-__device__ __forceinline__ void store_tile(const float (&d)[16], const float (&bv)[4][2],
-                                           float slope, __nv_bfloat16* yrow,
-                                           int o_first, int Wout, int lane) {
+// bias and leaky ReLU, in place, on a warp's 16 positions x 32 channels
+// (d[4n + e]: the m16n8 accumulator of n-tile n)
+__device__ __forceinline__ void bias_leaky(float (&d)[16], const float (&bv)[4][2],
+                                           float slope) {
+#pragma unroll
+  for (int n = 0; n < 4; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const float v = d[4 * n + e] + bv[n][e & 1];
+      d[4 * n + e] = v >= 0.f ? v : v * slope;
+    }
+}
+
+// one bf16 rounding of a warp's 16 positions x 32 channels (as bias_leaky),
+// positions o_first + 0..15: position o to column CS * o + cls of the row
+// `row`, if that is below `limit`; a quad's four lanes swap words so that
+// each holds 8 consecutive channels of one position, stored as 16 B
+template <int CS>
+__device__ __forceinline__ void store_tile(const float (&d)[16], __nv_bfloat16* row,
+                                           int o_first, int cls, int limit, int lane) {
   const int g = lane >> 2, t4 = lane & 3;
 #pragma unroll
   for (int half = 0; half < 2; ++half) {
     uint32_t v[4];
 #pragma unroll
     for (int n = 0; n < 4; ++n) {
-      float v0 = d[4 * n + 2 * half] + bv[n][0];
-      float v1 = d[4 * n + 2 * half + 1] + bv[n][1];
-      v0 = v0 >= 0.f ? v0 : v0 * slope;
-      v1 = v1 >= 0.f ? v1 : v1 * slope;
-      const __nv_bfloat162 p = __floats2bfloat162_rn(v0, v1);
+      const __nv_bfloat162 p =
+          __floats2bfloat162_rn(d[4 * n + 2 * half], d[4 * n + 2 * half + 1]);
       v[n] = *reinterpret_cast<const uint32_t*>(&p);
     }
     // v[n] = channels 8n + 2*t4, +1; got[s] = channels 8*t4 + 2*(t4 ^ s),
@@ -262,11 +274,11 @@ __device__ __forceinline__ void store_tile(const float (&d)[16], const float (&b
     got[0] = pick4(v, t4);
 #pragma unroll
     for (int s = 1; s < 4; ++s) got[s] = __shfl_xor_sync(0xffffffffu, pick4(v, t4 ^ s), s);
-    const int o = o_first + g + 8 * half;
-    if (o < Wout) {
+    const int col = CS * (o_first + g + 8 * half) + cls;
+    if (col < limit) {
       const uint4 out = make_uint4(pick4(got, t4), pick4(got, t4 ^ 1), pick4(got, t4 ^ 2),
                                    pick4(got, t4 ^ 3));
-      *reinterpret_cast<uint4*>(yrow + (size_t)o * C + t4 * 8) = out;
+      *reinterpret_cast<uint4*>(row + (size_t)col * C + t4 * 8) = out;
     }
   }
 }
@@ -293,40 +305,42 @@ inline FwdPlan fwd_plan(int B, int H, int Wout, int slots) {
   return p;
 }
 
-template <int KT, int S>
-__global__ void __launch_bounds__(FWD_THREADS)
-spec_conv_fwd_kernel(const uint16_t* __restrict__ x, const uint16_t* __restrict__ wp,
-                     const float* __restrict__ bias, __nv_bfloat16* __restrict__ y,
-                     int H, int W, int Wout, int strips, int chunk_steps,
-                     int chunks, int items, float slope) {
-  using G = Fwd<KT, S>;
-  extern __shared__ __align__(16) uint16_t smem[];
-  const uint32_t wsm = (uint32_t)__cvta_generic_to_shared(smem);
-  const uint32_t ring = wsm + G::WBYTES;
+// Walk this block's work items (blockIdx.x, + gridDim.x, ... below items)
+// through the ring of staged rows.  First the packed weights (WBYTES) into
+// shared memory at wsm, once; then, for each step of FWD_ROWS rows, the
+// rows of src [B, H, src_w, 32] in the row layout L (strip window from
+// column L::column0(o0), zero outside the image), staged by cp.async while
+// the previous step computes.  step(b, o0, h0, ring, pos) computes rows
+// h0 .. h0 + FWD_ROWS - 1 of strip o0, whose input row h0 - 1 is at ring
+// position pos (mod FWD_RING).
+template <class L, int WBYTES, class Step>
+__device__ __forceinline__ void walk_rows(const uint16_t* __restrict__ src,
+                                          const uint16_t* __restrict__ wp, uint32_t wsm,
+                                          int H, int src_w, int strips, int chunk_steps,
+                                          int chunks, int items, Step&& step) {
+  const uint32_t ring = wsm + WBYTES;
   const int tid = threadIdx.x;
-  const int lane = tid & 31, warp = tid >> 5;
   const int steps_h = (H + FWD_ROWS - 1) / FWD_ROWS;
   if ((int)blockIdx.x >= items) return;
 
-  // the weights, once per block
-  for (int i = tid; i < G::WBYTES / 16; i += FWD_THREADS)
+  for (int i = tid; i < WBYTES / 16; i += FWD_THREADS)
     cp_async16(wsm + 16 * i, wp + 8 * i, true);
 
-  // rows r_first .. r_first + nrows - 1 of image b, the strip's window
-  // from column o0 * S - PT, into ring positions pos, pos + 1, ...
+  // rows r_first .. r_first + nrows - 1 of image b, the strip's window,
+  // into ring positions pos, pos + 1, ...
   auto stage = [&](int b, int o0, int r_first, int nrows, int pos) {
-    const int w0 = o0 * S - G::PT;
-    const int n = nrows * G::WIN * 4;
+    const int w0 = L::column0(o0);
+    const int n = nrows * L::WIN * 4;
     for (int it = tid; it < n; it += FWD_THREADS) {
       const int k = it & 3;
-      const int c = (it >> 2) % G::WIN;
-      const int r = (it >> 2) / G::WIN;
+      const int c = (it >> 2) % L::WIN;
+      const int r = (it >> 2) / L::WIN;
       const int h = r_first + r, w = w0 + c;
-      const bool ok = h >= 0 && h < H && w >= 0 && w < W;
-      const uint16_t* src = ok ? x + (((size_t)b * H + h) * W + w) * C + k * 8 : x;
-      cp_async16(ring + ((pos + r) % FWD_RING) * G::ROWBYTES +
-                     G::offset(G::pixel_of_column(c), k),
-                 src, ok);
+      const bool ok = h >= 0 && h < H && w >= 0 && w < src_w;
+      const uint16_t* s = ok ? src + (((size_t)b * H + h) * src_w + w) * C + k * 8 : src;
+      cp_async16(ring + ((pos + r) % FWD_RING) * L::ROWBYTES +
+                     L::offset(L::pixel_of_column(c), k),
+                 s, ok);
     }
   };
 
@@ -346,18 +360,6 @@ spec_conv_fwd_kernel(const uint16_t* __restrict__ x, const uint16_t* __restrict_
   int pos = 0, head = FWD_ROWS + 2;
   stage(b, o0, h0 - 1, FWD_ROWS + 2, 0);
   cp_async_commit();
-
-  // this lane's ldmatrix row (position within its warp's 16) and k half
-  const int lrow = (lane & 7) + ((lane >> 3) & 1) * 8;
-  const int lk = lane >> 4;
-  const int wg = warp >> 2, wq = warp & 3;
-  float bv[4][2];
-#pragma unroll
-  for (int n = 0; n < 4; ++n) {
-    bv[n][0] = __ldg(bias + n * 8 + 2 * (lane & 3));
-    bv[n][1] = __ldg(bias + n * 8 + 2 * (lane & 3) + 1);
-  }
-  const uint64_t desc0 = gmma_desc(wsm);
 
   for (;;) {
     cp_async_wait_all();
@@ -384,56 +386,182 @@ spec_conv_fwd_kernel(const uint16_t* __restrict__ x, const uint16_t* __restrict_
       }
     }
     cp_async_commit();
-
-    // rows hb .. hb + 3 (this warpgroup's; warpgroup-uniform branch)
-    const int hb = ch0 + 4 * wg;
-    if (hb < H) {
-      float acc[4][16];
-#pragma unroll
-      for (int r = 0; r < 4; ++r)
-#pragma unroll
-        for (int e = 0; e < 16; ++e) acc[r][e] = 0.f;
-      uint32_t a[2][4][4];
-#pragma unroll 1
-      for (int i = 0; i < KF; ++i) {
-        uint32_t row[4];  // input row hb + r + i - 1 of output row hb + r
-#pragma unroll
-        for (int r = 0; r < 4; ++r)
-          row[r] = ring + ((cpos + 4 * wg + r + i) % FWD_RING) * G::ROWBYTES;
-#pragma unroll
-        for (int j = 0; j < KT; ++j) {
-#pragma unroll
-          for (int ch = 0; ch < 2; ++ch) {
-            // A buffer ch: the batch that last read it, two back, is done
-#pragma unroll
-            for (int r = 0; r < 4; ++r)
-              ldmatrix_x4(a[ch][r], row[r] + G::offset(G::pixel(wq * 16 + lrow, j), ch * 2 + lk));
-            wgmma_fence();
-            const uint64_t desc =
-                desc0 + (uint64_t)(((i * KT + j) * 2 + ch) * (FWD_SLAB >> 4));
-#pragma unroll
-            for (int r = 0; r < 4; ++r) wgmma_m64n32k16(acc[r], a[ch][r], desc);
-            wgmma_commit();
-            wgmma_wait<1>();
-          }
-        }
-      }
-      wgmma_wait<0>();
-#pragma unroll
-      for (int r = 0; r < 4; ++r)
-        if (hb + r < H)
-          store_tile(acc[r], bv, slope, y + ((size_t)cb * H + hb + r) * Wout * C,
-                     co0 + 16 * wq, Wout, lane);
-    }
+    step(cb, co0, ch0, ring, cpos);
     if (last) break;
   }
 }
 
+// Window taps u of the forward (and of the dgrad at stride 1): tap u
+// multiplies weight slab u.
+struct AllTaps {
+  __device__ static constexpr int slab(int u) { return u; }
+};
+
+// acc[r] = the sums of output row r (0..3) of a warpgroup's four rows, whose
+// input row r + i (tap i = 0..2 on H) is at ring position rowpos + r + i, in
+// the row layout L.  Window tap u = 0..NU-1 on W reads staged pixel
+// L::pixel(q, u) (q: this lane's ldmatrix row within the warpgroup's 64
+// positions, lk its k half) and multiplies weight slab (i, Taps::slab(u))
+// of the KT packed per i; a tap whose slab is outside [0, KT) is skipped.
+// A (the tap's run of pixels) goes to registers by ldmatrix.x4, B by
+// descriptor from the weights at desc0; two A buffers keep one batch of
+// wgmmas in flight while the next one's fragments load.
+template <class L, int KT, int NU, class Taps>
+__device__ __forceinline__ void mma_rows(float (&acc)[4][16], uint32_t ring, int rowpos,
+                                         int q, int lk, uint64_t desc0) {
+#pragma unroll
+  for (int r = 0; r < 4; ++r)
+#pragma unroll
+    for (int e = 0; e < 16; ++e) acc[r][e] = 0.f;
+  uint32_t a[2][4][4];
+#pragma unroll 1
+  for (int i = 0; i < KF; ++i) {
+    uint32_t row[4];
+#pragma unroll
+    for (int r = 0; r < 4; ++r) row[r] = ring + ((rowpos + r + i) % FWD_RING) * L::ROWBYTES;
+#pragma unroll
+    for (int u = 0; u < NU; ++u) {
+      const int j = Taps::slab(u);
+      if (j < 0 || j >= KT) continue;  // the tap misses this class
+#pragma unroll
+      for (int ch = 0; ch < 2; ++ch) {
+        // A buffer ch: the batch that last read it, two back, is done
+#pragma unroll
+        for (int r = 0; r < 4; ++r)
+          ldmatrix_x4(a[ch][r], row[r] + L::offset(L::pixel(q, u), ch * 2 + lk));
+        wgmma_fence();
+        const uint64_t desc = desc0 + (uint64_t)(((i * KT + j) * 2 + ch) * (FWD_SLAB >> 4));
+#pragma unroll
+        for (int r = 0; r < 4; ++r) wgmma_m64n32k16(acc[r], a[ch][r], desc);
+        wgmma_commit();
+        wgmma_wait<1>();
+      }
+    }
+  }
+  wgmma_wait<0>();
+}
+
+template <int KT, int S>
+__global__ void __launch_bounds__(FWD_THREADS)
+spec_conv_fwd_kernel(const uint16_t* __restrict__ x, const uint16_t* __restrict__ wp,
+                     const float* __restrict__ bias, __nv_bfloat16* __restrict__ y,
+                     float slope, int H, int W, int Wout, int strips, int chunk_steps,
+                     int chunks, int items) {
+  using G = Fwd<KT, S>;
+  extern __shared__ __align__(16) uint16_t smem[];
+  const uint32_t wsm = (uint32_t)__cvta_generic_to_shared(smem);
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  // this lane's ldmatrix row (position within its warp's 16) and k half
+  const int wg = warp >> 2, wq = warp & 3;
+  const int q = wq * 16 + (lane & 7) + ((lane >> 3) & 1) * 8;
+  const int lk = lane >> 4;
+  float bv[4][2];
+#pragma unroll
+  for (int n = 0; n < 4; ++n) {
+    bv[n][0] = __ldg(bias + n * 8 + 2 * (lane & 3));
+    bv[n][1] = __ldg(bias + n * 8 + 2 * (lane & 3) + 1);
+  }
+  const uint64_t desc0 = gmma_desc(wsm);
+  walk_rows<G, G::WBYTES>(
+      x, wp, wsm, H, W, strips, chunk_steps, chunks, items,
+      [&](int b, int o0, int h0, uint32_t ring, int pos) {
+        // rows hb .. hb + 3 (this warpgroup's; warpgroup-uniform branch)
+        const int hb = h0 + 4 * wg;
+        if (hb >= H) return;
+        float acc[4][16];
+        mma_rows<G, KT, KT, AllTaps>(acc, ring, pos + 4 * wg, q, lk, desc0);
+#pragma unroll
+        for (int r = 0; r < 4; ++r)
+          if (hb + r < H) {
+            bias_leaky(acc[r], bv, slope);
+            store_tile<1>(acc[r], y + ((size_t)b * H + hb + r) * Wout * C, o0 + 16 * wq, 0,
+                          Wout, lane);
+          }
+      });
+}
+
 // ------------------------------------------------------------------------- //
-// dgrad: dx = conv_transpose(d, w), gathered directly
+// dgrad: dx = conv_transpose(d, w), the forward's walk over d
+//
+// dx is a correlation of d with the flipped weights w'[i][j] = w[2-i][kt-1-j]
+// (transposed: d's channels are the reduction), packed as the forward's.  At
+// stride 1 that is the forward itself, without bias and activation.  At
+// stride 2, dx column w = 2m + p reads d column m + e through tap
+// j = p + PT - 2e only, so each parity class p is a stride-1 correlation of
+// d with its own taps and no dilated zeros: at kt 9 class 0 takes taps
+// j = 8, 6, 4, 2, 0 (e = -2..2), class 1 j = 7, 5, 3, 1 (e = -1..2).  The
+// ring stages d columns m0 - PE .. m0 + 63 + PE of a strip of 64 d
+// positions in the stride-1 row layout, and window tap u = e + PE; each
+// warpgroup computes its four rows for class 0 and stores them, then for
+// class 1 from the same staged rows.
 
 template <int KT, int S>
 struct Dgr {
+  static constexpr int PT = KT / 2;
+  // d columns a strip reads on either side: e = -PE..PE
+  static constexpr int PE = S == 2 ? (PT + 1) / 2 : PT;
+  static constexpr int NU = 2 * PE + 1;  // window taps
+  using L = Fwd<NU, 1>;                 // the staged row layout
+  static constexpr int WBYTES = Fwd<KT, S>::WBYTES;
+  static constexpr int SMEM = WBYTES + FWD_RING * L::ROWBYTES;
+};
+
+static_assert(Dgr<9, 2>::SMEM <= 232448, "dgrad does not fit in shared memory");
+
+// Window tap u of parity class P at stride 2: the slab of the flipped
+// weights, j' = kt - 1 - j for j = P + PT - 2 (u - PE)
+template <int KT, int P>
+struct ClassTaps {
+  __device__ static constexpr int slab(int u) {
+    return 2 * u - P + KT - 1 - KT / 2 - 2 * Dgr<KT, 2>::PE;
+  }
+};
+
+template <int KT, int S>
+__global__ void __launch_bounds__(FWD_THREADS)
+spec_conv_dgrad_kernel(const uint16_t* __restrict__ d, const uint16_t* __restrict__ wp,
+                       __nv_bfloat16* __restrict__ dx, int H, int W, int Wout,
+                       int strips, int chunk_steps, int chunks, int items) {
+  using G = Dgr<KT, S>;
+  using L = typename G::L;
+  extern __shared__ __align__(16) uint16_t smem[];
+  const uint32_t wsm = (uint32_t)__cvta_generic_to_shared(smem);
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int wg = warp >> 2, wq = warp & 3;
+  const int q = wq * 16 + (lane & 7) + ((lane >> 3) & 1) * 8;
+  const int lk = lane >> 4;
+  const uint64_t desc0 = gmma_desc(wsm);
+  walk_rows<L, G::WBYTES>(
+      d, wp, wsm, H, Wout, strips, chunk_steps, chunks, items,
+      [&](int b, int m0, int h0, uint32_t ring, int pos) {
+        const int hb = h0 + 4 * wg;
+        if (hb >= H) return;
+        float acc[4][16];
+        // dx column S * m + cls of d position m, below W
+        auto store = [&](int cls) {
+#pragma unroll
+          for (int r = 0; r < 4; ++r)
+            if (hb + r < H)
+              store_tile<S>(acc[r], dx + ((size_t)b * H + hb + r) * W * C, m0 + 16 * wq, cls,
+                            W, lane);
+        };
+        if constexpr (S == 1) {
+          mma_rows<L, KT, G::NU, AllTaps>(acc, ring, pos + 4 * wg, q, lk, desc0);
+          store(0);
+        } else {
+          mma_rows<L, KT, G::NU, ClassTaps<KT, 0>>(acc, ring, pos + 4 * wg, q, lk, desc0);
+          store(0);
+          mma_rows<L, KT, G::NU, ClassTaps<KT, 1>>(acc, ring, pos + 4 * wg, q, lk, desc0);
+          store(1);
+        }
+      });
+}
+
+// ------------------------------------------------------------------------- //
+// dgrad at stride 2, gathered directly
+
+template <int KT, int S>
+struct DgrGather {
   static constexpr int PT = KT / 2;
   static constexpr int DWIN = (TW - 1 + KT - 1) / S + 2;  // staged d columns
   static constexpr int DS = (RH + 2) * DWIN * PIX;
@@ -442,9 +570,9 @@ struct Dgr {
 
 template <int KT, int S>
 __global__ void __launch_bounds__(THREADS)
-spec_conv_dgrad_kernel(const uint16_t* __restrict__ d, const uint16_t* __restrict__ wp,
-                       __nv_bfloat16* __restrict__ dx, int H, int W, int Wout) {
-  using G = Dgr<KT, S>;
+spec_conv_dgrad_gather_kernel(const uint16_t* __restrict__ d, const uint16_t* __restrict__ wp,
+                              __nv_bfloat16* __restrict__ dx, int H, int W, int Wout) {
+  using G = DgrGather<KT, S>;
   extern __shared__ __align__(16) uint16_t smem[];
   uint16_t* ds = smem;
   uint16_t* ws = smem + G::DS;
@@ -840,40 +968,59 @@ sum_partials_kernel(const float* __restrict__ partial, float* __restrict__ out,
 // ------------------------------------------------------------------------- //
 // launchers
 
-template <int KT, int S>
-int launch_fwd(const void* x, const void* wp, const void* bias, void* y, int B,
-               int H, int W, int Wout, int sms, float slope, FwdPlan* plan,
-               cudaStream_t stream) {
-  auto kern = spec_conv_fwd_kernel<KT, S>;
-  cudaError_t err = cudaFuncSetAttribute(
-      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, Fwd<KT, S>::SMEM);
+// Launch a persistent kernel over the ring of rows (the forward, the
+// dgrad): as many blocks of FWD_THREADS as fit on `sms` multiprocessors at
+// `smem` bytes of shared memory each, on the plan of B x H x Wout (Wout:
+// the positions its strips cover).  The kernel takes args..., then the
+// plan's strips, steps per item, chunks and items.  With `plan` non-null,
+// the plan only, no launch.
+template <class Kern, class... Args>
+int launch_ring(Kern kern, int smem, int B, int H, int Wout, int sms, FwdPlan* plan,
+                cudaStream_t stream, Args... args) {
+  cudaError_t err =
+      cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return (int)err;
   int per_sm = 0;
-  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kern, FWD_THREADS,
-                                                      Fwd<KT, S>::SMEM);
+  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kern, FWD_THREADS, smem);
   if (err != cudaSuccess) return (int)err;
   if (per_sm < 1) return (int)cudaErrorInvalidConfiguration;
   const FwdPlan p = fwd_plan(B, H, Wout, per_sm * sms);
-  if (plan) {  // the plan only, no launch
+  if (plan) {
     *plan = p;
     return 0;
   }
-  kern<<<p.blocks, FWD_THREADS, Fwd<KT, S>::SMEM, stream>>>(
-      (const uint16_t*)x, (const uint16_t*)wp, (const float*)bias,
-      (__nv_bfloat16*)y, H, W, Wout, p.strips, p.chunk_steps, p.chunks,
-      p.items, slope);
+  kern<<<p.blocks, FWD_THREADS, smem, stream>>>(args..., p.strips, p.chunk_steps, p.chunks,
+                                                 p.items);
   return (int)cudaGetLastError();
 }
 
 template <int KT, int S>
+int launch_fwd(const void* x, const void* wp, const void* bias, void* y, int B,
+               int H, int W, int Wout, int sms, float slope, FwdPlan* plan,
+               cudaStream_t stream) {
+  return launch_ring(spec_conv_fwd_kernel<KT, S>, Fwd<KT, S>::SMEM, B, H, Wout, sms, plan,
+                     stream, (const uint16_t*)x, (const uint16_t*)wp, (const float*)bias,
+                     (__nv_bfloat16*)y, slope, H, W, Wout);
+}
+
+// the dgrad's strips cover d's W_out positions
+template <int KT, int S>
 int launch_dgrad(const void* d, const void* wp, void* dx, int B, int H, int W,
-                 int Wout, cudaStream_t stream) {
-  auto kern = spec_conv_dgrad_kernel<KT, S>;
+                 int Wout, int sms, FwdPlan* plan, cudaStream_t stream) {
+  return launch_ring(spec_conv_dgrad_kernel<KT, S>, Dgr<KT, S>::SMEM, B, H, Wout, sms, plan,
+                     stream, (const uint16_t*)d, (const uint16_t*)wp, (__nv_bfloat16*)dx, H,
+                     W, Wout);
+}
+
+template <int KT, int S>
+int launch_dgrad_gather(const void* d, const void* wp, void* dx, int B, int H, int W,
+                        int Wout, cudaStream_t stream) {
+  auto kern = spec_conv_dgrad_gather_kernel<KT, S>;
   cudaError_t err = cudaFuncSetAttribute(
-      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, Dgr<KT, S>::SMEM);
+      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, DgrGather<KT, S>::SMEM);
   if (err != cudaSuccess) return (int)err;
   dim3 grid((W + TW - 1) / TW, (H + RH - 1) / RH, B);
-  kern<<<grid, THREADS, Dgr<KT, S>::SMEM, stream>>>(
+  kern<<<grid, THREADS, DgrGather<KT, S>::SMEM, stream>>>(
       (const uint16_t*)d, (const uint16_t*)wp, (__nv_bfloat16*)dx, H, W, Wout);
   return (int)cudaGetLastError();
 }
@@ -936,6 +1083,14 @@ extern "C" int spec_conv_forward_bf16(const void* x, const void* wp,
                           slope, nullptr, stream);
 }
 
+static void put_plan(const FwdPlan& p, int* out) {
+  out[0] = p.blocks;
+  out[1] = p.strips;
+  out[2] = p.chunk_steps;
+  out[3] = p.chunks;
+  out[4] = p.items;
+}
+
 // The forward's work split for a shape, without a launch: out[0..4] =
 // blocks, strips, steps per item, chunks, items.
 extern "C" int spec_conv_forward_plan(int B, int H, int Wout, int kt,
@@ -943,26 +1098,41 @@ extern "C" int spec_conv_forward_plan(int B, int H, int Wout, int kt,
   FwdPlan p;
   const int err = forward_dispatch(nullptr, nullptr, nullptr, nullptr, B, H, 0,
                                    Wout, kt, stride, sms, 0.f, &p, nullptr);
-  if (err == 0) {
-    out[0] = p.blocks;
-    out[1] = p.strips;
-    out[2] = p.chunk_steps;
-    out[3] = p.chunks;
-    out[4] = p.items;
-  }
+  if (err == 0) put_plan(p, out);
   return err;
 }
 
-extern "C" int spec_conv_dgrad_bf16(const void* d, const void* wp, void* dx,
-                                    int B, int H, int W, int Wout, int kt,
-                                    int stride, void* stream) {
-#define CALL_DGR(K, S2) launch_dgrad<K, S2>(d, wp, dx, B, H, W, Wout, (cudaStream_t)stream)
-  if (kt == 9 && stride == 2) return CALL_DGR(9, 2);
+static int dgrad_dispatch(const void* d, const void* wp, void* dx, int B, int H,
+                          int W, int Wout, int kt, int stride, int sms,
+                          FwdPlan* plan, void* stream) {
+#define CALL_DGR(K, S2) launch_dgrad<K, S2>(d, wp, dx, B, H, W, Wout, sms, plan, (cudaStream_t)stream)
+#define CALL_GATHER(K, S2) (plan ? (int)cudaErrorInvalidValue : launch_dgrad_gather<K, S2>(d, wp, dx, B, H, W, Wout, (cudaStream_t)stream))
+  if (kt == 9 && stride == 2) return CALL_GATHER(9, 2);
   if (kt == 9 && stride == 1) return CALL_DGR(9, 1);
-  if (kt == 3 && stride == 2) return CALL_DGR(3, 2);
+  if (kt == 3 && stride == 2) return CALL_GATHER(3, 2);
   if (kt == 3 && stride == 1) return CALL_DGR(3, 1);
   return (int)cudaErrorInvalidValue;
+#undef CALL_GATHER
 #undef CALL_DGR
+}
+
+// wp: the flipped, transposed weights packed as the forward's (at stride 1;
+// at stride 2 still the gather kernel's Packed order).
+extern "C" int spec_conv_dgrad_bf16(const void* d, const void* wp, void* dx,
+                                    int B, int H, int W, int Wout, int kt,
+                                    int stride, int sms, void* stream) {
+  return dgrad_dispatch(d, wp, dx, B, H, W, Wout, kt, stride, sms, nullptr, stream);
+}
+
+// The dgrad's work split for a shape (Wout: d's width), without a launch:
+// out[0..4] as spec_conv_forward_plan's.
+extern "C" int spec_conv_dgrad_plan(int B, int H, int Wout, int kt, int stride,
+                                    int sms, int* out) {
+  FwdPlan p;
+  const int err = dgrad_dispatch(nullptr, nullptr, nullptr, B, H, 0, Wout, kt, stride,
+                                 sms, &p, nullptr);
+  if (err == 0) put_plan(p, out);
+  return err;
 }
 
 static int wgrad_dispatch(const void* x, const void* d, void* partial, void* dw,

@@ -108,6 +108,15 @@ def pack_weights_gmma(w: torch.Tensor) -> torch.Tensor:
     return slabs.permute(0, 1, 2, 5, 3, 6, 4).contiguous()  # h, u, v, r, e
 
 
+def pack_weights_dgrad(w: torch.Tensor) -> torch.Tensor:
+    """[n, k, 3, kt] (torch layout) -> the dgrad's wgmma operand: the
+    weights flipped on both taps and transposed (the dgrad is the forward's
+    correlation over d, whose channels are the reduction), packed as the
+    forward's.  At stride 2 the kernel picks each parity class's taps by
+    index from the same slabs."""
+    return pack_weights_gmma(w.transpose(0, 1).flip(2, 3))
+
+
 def _check(name: str, **tensors: torch.Tensor) -> torch.device:
     device = None
     for label, t in tensors.items():
@@ -149,11 +158,13 @@ def _library() -> ctypes.CDLL:
     lib.spec_conv_forward_bf16.argtypes = (
         [ptr] * 4 + [i32] * 7 + [ctypes.c_float, ptr])
     lib.spec_conv_forward_plan.argtypes = [i32] * 6 + [ptr]
-    lib.spec_conv_dgrad_bf16.argtypes = [ptr] * 3 + [i32] * 6 + [ptr]
+    lib.spec_conv_dgrad_bf16.argtypes = [ptr] * 3 + [i32] * 7 + [ptr]
+    lib.spec_conv_dgrad_plan.argtypes = [i32] * 6 + [ptr]
     lib.spec_conv_wgrad_bf16.argtypes = [ptr] * 4 + [i32] * 8 + [ptr]
     lib.spec_conv_wgrad_plan.argtypes = [i32] * 6 + [ptr]
     for fn in (lib.spec_conv_forward_bf16, lib.spec_conv_forward_plan,
-               lib.spec_conv_dgrad_bf16, lib.spec_conv_wgrad_bf16,
+               lib.spec_conv_dgrad_bf16, lib.spec_conv_dgrad_plan,
+               lib.spec_conv_wgrad_bf16,
                lib.spec_conv_wgrad_plan):
         fn.restype = ctypes.c_int
     return lib
@@ -233,6 +244,20 @@ class SpecConvForward(_Kernel):
 
 
 class SpecConvDgrad(_Kernel):
+    """The persistent dgrad: the forward's walk over d with the flipped,
+    transposed weights; at stride 2 each warpgroup computes its rows for
+    one parity class of dx columns, then for the other."""
+
+    def plan(self, batch: int, h: int, width: int, kt: int, stride: int,
+             device: torch.device | str = "cuda") -> dict:
+        """The work split of a launch at this shape (dx [batch, h, width]),
+        as the kernel makes it: strips of 64 d positions."""
+        return dict(zip(("blocks", "strips", "steps_per_item", "chunks",
+                         "items"),
+                        _plan("spec_conv_dgrad_plan", batch, h,
+                              out_width(width, stride), kt, stride,
+                              _sms(torch.device(device)))))
+
     def __call__(self, d: torch.Tensor, w: torch.Tensor, width: int,
                  stride: int) -> torch.Tensor:
         """Input gradient [B, H, width, 32] bf16 from the pre-activation
@@ -247,14 +272,15 @@ class SpecConvDgrad(_Kernel):
             raise ValueError(f"{self.name}: d has {w_out} columns, width "
                              f"{width} at stride {stride} gives "
                              f"{out_width(width, stride)}")
-        packed = pack_weights(w.transpose(0, 1))
+        packed = (pack_weights_dgrad(w) if stride == 1
+                  else pack_weights(w.transpose(0, 1)))
         dx = torch.empty((batch, h, width, CHANNELS), dtype=d.dtype,
                          device=device)
         with torch.cuda.device(device):
             stream = torch.cuda.current_stream(device).cuda_stream
             err = _library().spec_conv_dgrad_bf16(
                 d.data_ptr(), packed.data_ptr(), dx.data_ptr(), batch, h,
-                width, w_out, kt, stride, stream)
+                width, w_out, kt, stride, _sms(device), stream)
         self._done(err)
         return dx
 

@@ -4,14 +4,13 @@ shapes, beside cuDNN's bf16 call for the same function.
     python -m stylish_tts_tpu_torch.scripts.spec_conv_times [--out FILE]
 
 For each of the 12 spec-conv layers of the MRD at b8 x f460 (three
-resolutions, conv_1..conv_4), the forward and wgrad kernels are held
+resolutions, conv_1..conv_4), the forward, dgrad and wgrad kernels are held
 against their plain versions and timed by torch.profiler (the kernels' own
 durations, without the host's launch; the wgrad also by kernel function,
-its main kernel and its partial sum); at three of them (res 0 conv_1,
-res 1 conv_1, res 2 conv_4) the dgrad too.  One line per kernel and shape,
-then the forward's total over the 48 launches of a train step and the
-wgrad's over its 24, and one JSON object of all numbers.  Inputs are made
-on the card from fixed seeds.  Runs on the card only.
+its main kernel and its partial sum).  One line per kernel and shape, then
+each kernel's total over its launches in a train step (48 forward, 36
+dgrad, 24 wgrad) beside cuDNN's, and one JSON object of all numbers.
+Inputs are made on the card from fixed seeds.  Runs on the card only.
 
 To time another checkout's kernels with the same ruler, put that checkout
 first on the path: ``PYTHONPATH=<checkout> python <this file>``.
@@ -39,7 +38,14 @@ FWD_LAUNCHES_PER_LAYER = 4
 # ... and the wgrad twice: real and generated input in the discriminator's
 # pass (the generator's pass needs no weight gradient of the MRD)
 WGRAD_LAUNCHES_PER_LAYER = 2
-DGRAD_LAYERS = ("res0 conv_1", "res1 conv_1", "res2 conv_4")
+# ... and the dgrad 3 times: real and generated input in the
+# discriminator's pass, generated input in the generator's (the real
+# audio needs no input gradient there)
+DGRAD_LAUNCHES_PER_LAYER = 3
+# the launches of each kernel in a train step, per layer
+LAUNCHES_PER_LAYER = {"forward": FWD_LAUNCHES_PER_LAYER,
+                      "dgrad": DGRAD_LAUNCHES_PER_LAYER,
+                      "wgrad": WGRAD_LAUNCHES_PER_LAYER}
 # the wgrad's kernel functions, as the profiler names them
 WGRAD_FUNCTIONS = ("spec_conv_wgrad_kernel", "sum_partials_kernel")
 # bf16 outputs: one bf16 rounding of f32 sums taken in another order; the
@@ -185,13 +191,10 @@ def main(argv=None) -> int:
         text=True, timeout=60).stdout.strip().splitlines()[0]
     print(f"{card}; package {stylish_tts_tpu_torch.__file__}")
     record = {"card": card, "layers": {}}
-    per_step = {"forward": FWD_LAUNCHES_PER_LAYER,
-                "wgrad": WGRAD_LAUNCHES_PER_LAYER}
+    per_step = LAUNCHES_PER_LAYER
     totals = {name: {"kernel": 0.0, "cudnn": 0.0} for name in per_step}
     for seed, (label, shape, kt, stride) in enumerate(mrd_layers()):
-        kernels = ("forward", "dgrad", "wgrad") if label in DGRAD_LAYERS \
-            else ("forward", "wgrad")
-        r = layer_times(shape, kt, stride, 100 + seed, kernels)
+        r = layer_times(shape, kt, stride, 100 + seed, tuple(per_step))
         record["layers"][label] = {"shape": list(shape), "kt": kt,
                                    "stride": stride, **r}
         for name, n in per_step.items():

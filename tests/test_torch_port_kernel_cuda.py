@@ -273,6 +273,38 @@ def test_spec_conv_wgrad_is_deterministic(cuda, kt, stride):
     assert torch.equal(first, second)
 
 
+# the persistent dgrad's tiling (8 dx rows a step, up to 4 steps an item,
+# strips of 64 d positions, two parity classes at stride 2): the forward's
+# cases, and odd widths whose W_out ends on a strip's edge or one past it
+DGRAD_TILING = dict(FWD_TILING)
+DGRAD_TILING["odd W, W_out one strip"] = (2, 19, 127, 9, 2)  # W_out 64
+DGRAD_TILING["odd W, W_out one past a strip"] = (2, 19, 129, 9, 2)  # 65
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", list(DGRAD_TILING))
+def test_spec_conv_dgrad_tiling(cuda, case):
+    batch, h, w, kt, stride = DGRAD_TILING[case]
+    _, wt, _, d = _conv_inputs(h, w, kt, stride, seed=9)
+    d = d[:1].contiguous() if batch == 1 else d
+    before = sc.spec_conv_dgrad.launches
+    dx = sc.spec_conv_dgrad(d, wt, w, stride)
+    torch.cuda.synchronize()
+    assert sc.spec_conv_dgrad.launches == before + 1
+    want = sc.dgrad_plain(d, wt, w, stride)
+    assert dx.shape == want.shape
+    assert _rel_err(dx, want) <= 1e-2
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kt,stride", [(9, 2), (3, 1)])
+def test_spec_conv_dgrad_is_deterministic(cuda, kt, stride):
+    _, wt, _, d = _conv_inputs(37, 301, kt, stride, seed=10)
+    first = sc.spec_conv_dgrad(d, wt, 301, stride)
+    second = sc.spec_conv_dgrad(d, wt, 301, stride)
+    assert torch.equal(first, second)
+
+
 @pytest.mark.cuda
 def test_spec_conv_autograd_runs_the_kernels(cuda):
     x, wt, b, _ = _conv_inputs(19, 141, 9, 2, seed=1)

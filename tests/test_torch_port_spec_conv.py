@@ -154,3 +154,95 @@ def test_pack_weights_unpacks_by_index(kt):
         k = 16 * h + 2 * t + (e & 1) + 8 * (e >> 1)
         back[8 * u + g, k, i, j] = packed[i, j, h, u, lane, e]
     np.testing.assert_array_equal(back, w.numpy())
+
+
+def _dgrad_pe(kt, stride):
+    """d columns the dgrad's strip window reaches on either side: window
+    tap u = 0..2 pe reads d column m + u - pe for dx column stride * m + cls
+    (``csrc/spec_conv.cu``: ``Dgr::PE``)."""
+    pt = kt // 2
+    return (pt + 1) // 2 if stride == 2 else pt
+
+
+def _dgrad_slab(kt, stride, cls, u):
+    """The slab of the dgrad's weight operand (flipped taps j' = kt-1-j)
+    that window tap u of parity class ``cls`` multiplies, as the kernel maps
+    it (``AllTaps``, ``ClassTaps``); outside [0, kt) the tap misses the
+    class."""
+    if stride == 1:
+        return u
+    return 2 * u - cls + kt - 1 - kt // 2 - 2 * _dgrad_pe(kt, stride)
+
+
+@pytest.mark.parametrize("kt,stride", [(9, 2), (3, 2), (9, 1), (3, 1)])
+def test_pack_weights_dgrad_unpacks_by_index(kt, stride):
+    # the forward's slabs of w.transpose(0, 1).flip(2, 3): slab (i', j')
+    # holds dx channel c = 8u + r and d channel n = 16h + 8v + e of
+    # w[n, c, 2 - i', kt - 1 - j']; each class's window tap u reads the
+    # original tap j = cls + pt - 2e (e = u - pe) at stride 2, j = kt-1-u
+    # at stride 1, and every slab serves exactly one (class, tap)
+    w = torch.from_numpy(np.random.default_rng(kt + 7).standard_normal(
+        (32, 32, 3, kt)).astype(np.float32))
+    packed = sc.pack_weights_dgrad(w).numpy()
+    assert packed.shape == (3, kt, 2, 4, 2, 8, 8)
+    pt, pe = kt // 2, _dgrad_pe(kt, stride)
+    used = []
+    for cls in range(stride):
+        for u in range(2 * pe + 1):
+            slab = _dgrad_slab(kt, stride, cls, u)
+            if not 0 <= slab < kt:
+                continue
+            used.append(slab)
+            j = cls + pt - 2 * (u - pe) if stride == 2 else kt - 1 - u
+            for i, h, gu, v, r, e in np.ndindex(3, 2, 4, 2, 8, 8):
+                assert packed[i, slab, h, gu, v, r, e] == \
+                    w[16 * h + 8 * v + e, 8 * gu + r, 2 - i, j]
+    assert sorted(used) == list(range(kt))
+
+
+def _dgrad_by_class(d, w, width, stride):
+    """dx the way the dgrad kernel sums it: strips of 64 d positions m, each
+    parity class a stride-1 correlation of d (zero past its edges) with its
+    own window taps, whose weights come from the packed slabs; column
+    stride * m + cls is kept below width."""
+    kt = w.shape[-1]
+    b, h, w_out, _ = d.shape
+    slabs = sc.pack_weights_dgrad(w).permute(0, 1, 2, 4, 6, 3, 5) \
+        .reshape(3, kt, 32, 32)  # [i', j', d channel, dx channel]
+    strips = -(-w_out // 64)
+    pe = _dgrad_pe(kt, stride)
+    dp = torch.nn.functional.pad(d, (0, 0, pe, strips * 64 + pe - w_out,
+                                     1, 1))
+    dx = torch.full((b, h, width, 32), float("nan"))
+    for cls in range(stride):
+        taps = [(u, s) for u in range(2 * pe + 1)
+                for s in [_dgrad_slab(kt, stride, cls, u)] if 0 <= s < kt]
+        for m0 in range(0, strips * 64, 64):
+            acc = torch.zeros(b, h, 64, 32)
+            for i in range(3):
+                for u, s in taps:
+                    acc += dp[:, i:i + h, m0 + u:m0 + u + 64] @ slabs[i, s]
+            cols = stride * (m0 + torch.arange(64)) + cls
+            keep = cols < width
+            dx[:, :, cols[keep]] = acc[:, :, keep]
+    return dx
+
+
+# (kt, stride, width): even and odd widths, W_out 70 or 71 (a partial
+# second strip of 64 d positions)
+DGRAD_CLASS_CASES = [(9, 2, 140), (9, 2, 139), (3, 2, 140), (3, 2, 141),
+                     (9, 1, 70), (9, 1, 71), (3, 1, 70), (3, 1, 71)]
+
+
+@pytest.mark.parametrize("kt,stride,width", DGRAD_CLASS_CASES)
+def test_dgrad_parity_classes_match_plain(kt, stride, width):
+    rng = np.random.default_rng(kt * width + stride)
+    d = torch.from_numpy(rng.standard_normal(
+        (2, 5, sc.out_width(width, stride), 32)).astype(np.float32))
+    w = torch.from_numpy((rng.standard_normal((32, 32, 3, kt)) * 0.1)
+                         .astype(np.float32))
+    got = _dgrad_by_class(d, w, width, stride)
+    want = sc.dgrad_plain(d, w, width, stride)
+    assert not torch.isnan(got).any()  # every dx column written
+    # f32 on both sides, sums of up to 3 * 5 * 32 products in another order
+    _close(got.numpy(), want.numpy(), 1e-5, "dx by class")
