@@ -17,8 +17,8 @@
 //   dW[i,j,c,n] = sum_{b,h,o} x[b, h+i-1, o*s+j-kt/2, c] d[b,h,o,n]
 // where d is the gradient at the pre-activation (the caller applies the
 // leaky mask).  Every product is a bf16 x bf16 tensor-core MMA with f32
-// accumulation (wgmma m64n32k16 in the forward, mma.sync m16n8k16 in the
-// gradients).
+// accumulation (wgmma m64n32k16 in the forward and the dgrad, mma.sync
+// m16n8k16 in the wgrad).
 //
 // What bounds it on the card.  Each kernel does 2*B*H*W_out*kf*kt*32*32
 // useful FLOP and moves its inputs and output once.  At the MRD's largest
@@ -26,7 +26,8 @@
 // 0.16 ms at 989 TFLOP/s bf16 dense, against 0.16 ms for the 545 MB the
 // forward moves at 3.35 TB/s: about 290 FLOP per byte, right at the card's
 // balance point, so neither bound can be ignored.  conv_4 (kt 3, stride 1)
-// has a third of the FLOP per byte and is bound by bytes.
+// has a third of the FLOP per byte and is bound by bytes.  The dgrad moves
+// the same bytes as the forward (d in, dx out) and does the same FLOP.
 //
 // What the design does about that.  The forward (redesigned for this card):
 //   * persistent blocks: as many blocks as fit on the card at once (one
@@ -66,16 +67,21 @@
 //   * blocks run in no order, so each writes f32 partials once; a second
 //     kernel sums them in a fixed order, so the result is the same from run
 //     to run (no float atomics).
-// The dgrad, a first kernel that is right: an implicit GEMM (no
-// zero-dilated gradient reaches device memory) in which a block stages the
-// d rows its tile of 2 rows x 64 positions covers, plus the halo, and reads
-// every tap from there; each of its 4 warps owns 32 positions (two 16-row
-// MMA tiles that share the weight fragments).  The staged columns are split
-// by parity and each warp takes one parity class, so it visits only the
-// taps that reach it (the TPU path's dilated gradient multiplies zeros half
-// the time there); shared rows are padded to 40 bf16 per pixel (80 B): a
-// warp's 8 rows then fall on distinct banks.
-// wgmma for the gradients, and TMA, are later work.
+// The dgrad (redesigned on the forward's walk, with the forward's device
+// code: walk_rows, mma_rows, store_tile):
+//   * the forward's persistent blocks, plan, ring of 20 staged rows and
+//     wgmma tiles, over d with the flipped, transposed weights (packed by
+//     the caller as the forward's, resident in shared memory); no bias or
+//     activation.  At stride 1 that is the whole story;
+//   * at stride 2 the dx columns split by parity: column 2m + p reads d
+//     columns m - 2 .. m + 2 (kt 9) through taps of one parity only, so
+//     each class is a stride-1 correlation of d with its own taps (5 and 4
+//     of 9 at kt 9), and no dilated zero is staged or multiplied.  The ring
+//     stages 68 d columns per strip of 64 positions (128 dx columns) in the
+//     stride-1 layout; each warpgroup runs class 0 on its four rows, stores
+//     them, then class 1 from the same staged rows and accumulators;
+//   * the epilogue stores 16 B a lane at column 2m + p.
+// wgmma for the wgrad, and TMA, are later work.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -85,10 +91,6 @@ namespace {
 
 constexpr int C = 32;    // channels in and out
 constexpr int KF = 3;    // taps on H
-constexpr int TW = 64;   // positions on W per tile
-constexpr int RH = 2;    // rows on H per tile
-constexpr int PIX = 40;  // bf16 per staged pixel: 32 channels + 8 pad
-constexpr int THREADS = 128;
 
 __device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4],
                                          uint32_t b0, uint32_t b1) {
@@ -99,32 +101,9 @@ __device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4],
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 
-__device__ __forceinline__ uint32_t ld32(const uint16_t* p) {
-  return *reinterpret_cast<const uint32_t*>(p);
-}
-
-__device__ __forceinline__ int floordiv(int a, int b) {
-  return a >= 0 ? a / b : -((-a + b - 1) / b);
-}
-
-// Packed weights: [KF][KT][2 channel halves][4 n-tiles][32 lanes][4 bf16],
-// lane (g = lane/4, t = lane%4) holding B[16h+2t], B[16h+2t+1], B[16h+2t+8],
-// B[16h+2t+9] of column 8*tile+g: its two B registers of mma m16n8k16.
-template <int KT>
-struct Packed {
-  static constexpr int ELEMS = KF * KT * 2 * 4 * 32 * 4;
-};
-
-// Copy the packed weights into shared memory (16 B per thread and step).
-__device__ __forceinline__ void stage_weights(uint16_t* ws, const uint16_t* wp,
-                                              int elems) {
-  const uint4* src = reinterpret_cast<const uint4*>(wp);
-  uint4* dst = reinterpret_cast<uint4*>(ws);
-  for (int i = threadIdx.x; i < elems / 8; i += blockDim.x) dst[i] = __ldg(src + i);
-}
-
 // ------------------------------------------------------------------------- //
 // forward: y = act(conv(x, w) + bias), persistent blocks over a ring of rows
+// (the walk and the MMA loop serve the dgrad too)
 //
 // A work item is (b, a strip of FWD_STRIP output positions, a chunk of up
 // to FWD_CHUNK_STEPS steps of FWD_ROWS output rows).  The grid holds as
@@ -558,117 +537,6 @@ spec_conv_dgrad_kernel(const uint16_t* __restrict__ d, const uint16_t* __restric
 }
 
 // ------------------------------------------------------------------------- //
-// dgrad at stride 2, gathered directly
-
-template <int KT, int S>
-struct DgrGather {
-  static constexpr int PT = KT / 2;
-  static constexpr int DWIN = (TW - 1 + KT - 1) / S + 2;  // staged d columns
-  static constexpr int DS = (RH + 2) * DWIN * PIX;
-  static constexpr int SMEM = 2 * (DS + Packed<KT>::ELEMS);
-};
-
-template <int KT, int S>
-__global__ void __launch_bounds__(THREADS)
-spec_conv_dgrad_gather_kernel(const uint16_t* __restrict__ d, const uint16_t* __restrict__ wp,
-                              __nv_bfloat16* __restrict__ dx, int H, int W, int Wout) {
-  using G = DgrGather<KT, S>;
-  extern __shared__ __align__(16) uint16_t smem[];
-  uint16_t* ds = smem;
-  uint16_t* ws = smem + G::DS;
-
-  const int b = blockIdx.z;
-  const int h0 = blockIdx.y * RH;
-  const int w0 = blockIdx.x * TW;  // even: the parity of w is its class
-  const int o_base = floordiv(w0 + G::PT - (KT - 1), S);
-
-  // stage d rows h0-1 .. h0+RH, columns o_base .. + DWIN, zero outside
-  const int items = (RH + 2) * G::DWIN * 4;
-  for (int it = threadIdx.x; it < items; it += THREADS) {
-    const int chunk = it & 3;
-    const int c = (it >> 2) % G::DWIN;
-    const int r = (it >> 2) / G::DWIN;
-    const int hp = h0 - 1 + r;
-    const int o = o_base + c;
-    uint4 v = make_uint4(0u, 0u, 0u, 0u);
-    if (hp >= 0 && hp < H && o >= 0 && o < Wout)
-      v = __ldg(reinterpret_cast<const uint4*>(
-          d + (((size_t)b * H + hp) * Wout + o) * C + chunk * 8));
-    *reinterpret_cast<uint4*>(ds + (r * G::DWIN + c) * PIX + chunk * 8) = v;
-  }
-  stage_weights(ws, wp, Packed<KT>::ELEMS);
-  __syncthreads();
-
-  const int lane = threadIdx.x & 31;
-  const int g = lane >> 2, t = lane & 3;
-  const int warp = threadIdx.x >> 5;
-  const int hr = warp >> 1;
-  const int cls = warp & 1;
-  // position of row q (0..31) of this warp: stride 2 gives each warp one
-  // parity class, stride 1 a run of 32
-  auto wpos = [&](int q) { return S == 2 ? w0 + cls + 2 * q : w0 + cls * 32 + q; };
-
-  float acc[2][4][4];
-#pragma unroll
-  for (int m = 0; m < 2; ++m)
-#pragma unroll
-    for (int n = 0; n < 4; ++n)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) acc[m][n][e] = 0.f;
-
-#pragma unroll 1
-  for (int i = 0; i < KF; ++i) {
-#pragma unroll
-    for (int j = 0; j < KT; ++j) {
-      if (S == 2 && ((cls + G::PT - j) & 1)) continue;  // tap misses this class
-#pragma unroll
-      for (int ch = 0; ch < 2; ++ch) {
-        const uint2* wb = reinterpret_cast<const uint2*>(ws) +
-                          (((i * KT + j) * 2 + ch) * 4) * 32 + lane;
-        uint32_t bf[4][2];
-#pragma unroll
-        for (int n = 0; n < 4; ++n) {
-          const uint2 v = wb[n * 32];
-          bf[n][0] = v.x;
-          bf[n][1] = v.y;
-        }
-        const uint16_t* row = ds + (hr + 2 - i) * G::DWIN * PIX + ch * 16 + 2 * t;
-#pragma unroll
-        for (int m = 0; m < 2; ++m) {
-          const int q0 = m * 16 + g;
-          // exact divisions: the numerators are multiples of S here
-          const int c0 = (wpos(q0) + G::PT - j) / S - o_base;
-          const int c1 = (wpos(q0 + 8) + G::PT - j) / S - o_base;
-          const uint16_t* p0 = row + c0 * PIX;
-          const uint16_t* p1 = row + c1 * PIX;
-          const uint32_t a[4] = {ld32(p0), ld32(p1), ld32(p0 + 8), ld32(p1 + 8)};
-#pragma unroll
-          for (int n = 0; n < 4; ++n) mma_bf16(acc[m][n], a, bf[n][0], bf[n][1]);
-        }
-      }
-    }
-  }
-
-  const int h = h0 + hr;
-  if (h >= H) return;
-#pragma unroll
-  for (int m = 0; m < 2; ++m) {
-#pragma unroll
-    for (int half = 0; half < 2; ++half) {
-      const int w = wpos(m * 16 + g + 8 * half);
-      if (w >= W) continue;
-      __nv_bfloat16* p = dx + (((size_t)b * H + h) * W + w) * C;
-#pragma unroll
-      for (int n = 0; n < 4; ++n) {
-        const int ci = n * 8 + 2 * t;
-        *reinterpret_cast<__nv_bfloat162*>(p + ci) =
-            __floats2bfloat162_rn(acc[m][n][2 * half], acc[m][n][2 * half + 1]);
-      }
-    }
-  }
-}
-
-// ------------------------------------------------------------------------- //
 // wgrad: dW = sum over positions of patch^T . d, persistent blocks over a
 // ring of rows, per-block partial sums, then a fixed-order reduction
 //
@@ -1013,19 +881,6 @@ int launch_dgrad(const void* d, const void* wp, void* dx, int B, int H, int W,
 }
 
 template <int KT, int S>
-int launch_dgrad_gather(const void* d, const void* wp, void* dx, int B, int H, int W,
-                        int Wout, cudaStream_t stream) {
-  auto kern = spec_conv_dgrad_gather_kernel<KT, S>;
-  cudaError_t err = cudaFuncSetAttribute(
-      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, DgrGather<KT, S>::SMEM);
-  if (err != cudaSuccess) return (int)err;
-  dim3 grid((W + TW - 1) / TW, (H + RH - 1) / RH, B);
-  kern<<<grid, THREADS, DgrGather<KT, S>::SMEM, stream>>>(
-      (const uint16_t*)d, (const uint16_t*)wp, (__nv_bfloat16*)dx, H, W, Wout);
-  return (int)cudaGetLastError();
-}
-
-template <int KT, int S>
 int launch_wgrad(const void* x, const void* d, void* partial, void* dw, int B,
                  int H, int W, int Wout, int sms, int partial_blocks,
                  WgrPlan* plan, cudaStream_t stream) {
@@ -1058,7 +913,8 @@ int launch_wgrad(const void* x, const void* d, void* partial, void* dw, int B,
 
 // Each launcher enqueues on `stream` and returns cudaGetLastError() of its
 // launches (0 = ok).  Tensors are contiguous; x, d, dx, y bf16 [B, H, *, 32];
-// wp the packed weights (see Packed); bias f32 [32]; kt 9 or 3; stride 1 or 2.
+// wp the packed weights (ops/spec_conv.py: pack_weights_gmma, and for the
+// dgrad pack_weights_dgrad); bias f32 [32]; kt 9 or 3; stride 1 or 2.
 
 // sms: the card's multiprocessor count; the launch holds as many blocks as
 // fit on them at once (see fwd_plan).
@@ -1106,18 +962,15 @@ static int dgrad_dispatch(const void* d, const void* wp, void* dx, int B, int H,
                           int W, int Wout, int kt, int stride, int sms,
                           FwdPlan* plan, void* stream) {
 #define CALL_DGR(K, S2) launch_dgrad<K, S2>(d, wp, dx, B, H, W, Wout, sms, plan, (cudaStream_t)stream)
-#define CALL_GATHER(K, S2) (plan ? (int)cudaErrorInvalidValue : launch_dgrad_gather<K, S2>(d, wp, dx, B, H, W, Wout, (cudaStream_t)stream))
-  if (kt == 9 && stride == 2) return CALL_GATHER(9, 2);
+  if (kt == 9 && stride == 2) return CALL_DGR(9, 2);
   if (kt == 9 && stride == 1) return CALL_DGR(9, 1);
-  if (kt == 3 && stride == 2) return CALL_GATHER(3, 2);
+  if (kt == 3 && stride == 2) return CALL_DGR(3, 2);
   if (kt == 3 && stride == 1) return CALL_DGR(3, 1);
   return (int)cudaErrorInvalidValue;
-#undef CALL_GATHER
 #undef CALL_DGR
 }
 
-// wp: the flipped, transposed weights packed as the forward's (at stride 1;
-// at stride 2 still the gather kernel's Packed order).
+// wp: the flipped, transposed weights packed as the forward's.
 extern "C" int spec_conv_dgrad_bf16(const void* d, const void* wp, void* dx,
                                     int B, int H, int W, int Wout, int kt,
                                     int stride, int sms, void* stream) {

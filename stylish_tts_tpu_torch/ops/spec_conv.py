@@ -2,7 +2,8 @@
 (``csrc/spec_conv.cu``), their plain versions and the autograd op.
 
 It replaces the TPU kernels of ``stylish_tts_tpu/ops/spec_conv.py``: the
-forward (``_fwd_call``, which also serves dx there) and the weight gradient
+forward (``_fwd_call``, which also computes dx there; the port's dgrad is
+a kernel of its own on the forward's device code) and the weight gradient
 (``_dw_call``).  The layout is plain channels-last, x ``[B, H, W, 32]`` in
 bf16, with torch-layout weights ``[32, 32, 3, kt]`` (kt 9 or 3), zero
 padding ``(1, kt // 2)`` and stride ``(1, s)``, s 1 or 2, so
@@ -79,22 +80,6 @@ def wgrad_plain(x: torch.Tensor, d: torch.Tensor, kt: int,
 
 # --------------------------------------------------------------------------- #
 # the kernels
-
-
-def pack_weights(w: torch.Tensor) -> torch.Tensor:
-    """[n, k, 3, kt] (torch layout, n the GEMM's output channel and k its
-    reduction channel) -> the dgrad kernel's MMA-fragment order
-    [3, kt, 2, 4, 32 lanes, 4]: lane (g, t) = (lane // 4, lane % 4) of
-    channel half h and n-tile u holds k = 16h + (2t, 2t+1, 2t+8, 2t+9) of
-    column n = 8u + g."""
-    lane = torch.arange(32, device=w.device)
-    g, t = lane // 4, lane % 4
-    rows = torch.stack([2 * t, 2 * t + 1, 2 * t + 8, 2 * t + 9], -1)
-    k = torch.arange(2, device=w.device)[:, None, None, None] * 16 + rows
-    n = torch.arange(4, device=w.device)[None, :, None, None] * 8 \
-        + g[None, None, :, None]
-    w_kkin = w.permute(2, 3, 1, 0)  # [3, kt, k, n]
-    return w_kkin[:, :, k, n].contiguous()
 
 
 def pack_weights_gmma(w: torch.Tensor) -> torch.Tensor:
@@ -272,8 +257,7 @@ class SpecConvDgrad(_Kernel):
             raise ValueError(f"{self.name}: d has {w_out} columns, width "
                              f"{width} at stride {stride} gives "
                              f"{out_width(width, stride)}")
-        packed = (pack_weights_dgrad(w) if stride == 1
-                  else pack_weights(w.transpose(0, 1)))
+        packed = pack_weights_dgrad(w)
         dx = torch.empty((batch, h, width, CHANNELS), dtype=d.dtype,
                          device=device)
         with torch.cuda.device(device):

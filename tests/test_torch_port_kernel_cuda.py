@@ -297,6 +297,21 @@ def test_spec_conv_dgrad_tiling(cuda, case):
 
 
 @pytest.mark.cuda
+def test_spec_conv_dgrad_many_items_per_block(cuda):
+    # the MRD's largest layer: every persistent block walks many items
+    shape, kt, stride = (8, 257, 2761, 32), 9, 2
+    plan = sc.spec_conv_dgrad.plan(*shape[:3], kt, stride)
+    assert plan["items"] >= 8 * plan["blocks"], plan
+    gen = torch.Generator(device="cuda").manual_seed(11)
+    wt = (torch.randn((32, 32, 3, kt), generator=gen, device="cuda")
+          * (3 * kt * 32) ** -0.5).bfloat16()
+    d = torch.randn((8, 257, sc.out_width(2761, stride), 32), generator=gen,
+                    device="cuda").bfloat16()
+    dx = sc.spec_conv_dgrad(d, wt, 2761, stride)
+    assert _rel_err(dx, sc.dgrad_plain(d, wt, 2761, stride)) <= 1e-2
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("kt,stride", [(9, 2), (3, 1)])
 def test_spec_conv_dgrad_is_deterministic(cuda, kt, stride):
     _, wt, _, d = _conv_inputs(37, 301, kt, stride, seed=10)

@@ -139,23 +139,6 @@ def test_pack_weights_gmma_unpacks_by_index(kt):
     np.testing.assert_array_equal(back, w.numpy())
 
 
-@pytest.mark.parametrize("kt", [9, 3])
-def test_pack_weights_unpacks_by_index(kt):
-    # the dgrad kernel's MMA-fragment order [3, kt, 2 channel halves, 4 n-tiles,
-    # 32 lanes, 4]: lane (g, t) holds k = 16h + 2t + (0, 1, 8, 9) of
-    # output channel n = 8u + g
-    w = torch.from_numpy(np.random.default_rng(kt).standard_normal(
-        (32, 32, 3, kt)).astype(np.float32))
-    packed = sc.pack_weights(w).numpy()
-    assert packed.shape == (3, kt, 2, 4, 32, 4)
-    back = np.full((32, 32, 3, kt), np.nan, np.float32)
-    for i, j, h, u, lane, e in np.ndindex(packed.shape):
-        g, t = divmod(lane, 4)
-        k = 16 * h + 2 * t + (e & 1) + 8 * (e >> 1)
-        back[8 * u + g, k, i, j] = packed[i, j, h, u, lane, e]
-    np.testing.assert_array_equal(back, w.numpy())
-
-
 def _dgrad_pe(kt, stride):
     """d columns the dgrad's strip window reaches on either side: window
     tap u = 0..2 pe reads d column m + u - pe for dx column stride * m + cls
