@@ -42,9 +42,9 @@ Phases, in order; any failure raises and the exit code is non-zero:
    counts are set to 0 before the timed steps and read after; the metrics
    are finite, every train model and the MRD moved, the discriminator EMA
    changed and every kernel launched, the spec-conv forward, dgrad and
-   wgrad as often as the MRD's 12 layers give; then one f32 step at full width on
-   1 x 64 frames runs on the CPU and on the card from the same weights and
-   their metrics are compared;
+   wgrad as often as the MRD's 12 layers give; then one f32 step at full
+   width on 1 x 64 frames runs on the CPU and on the card from the same
+   weights and their metrics are compared;
 6. one JSON line of every kernel's numbers, with its launches on the path
    that runs it (per train step, synthesis request or probe run), then the
    result line.

@@ -262,7 +262,7 @@ __device__ __forceinline__ void store_tile(const float (&d)[16], __nv_bfloat16* 
   }
 }
 
-// The work split of one forward launch, made on the host.
+// The work split of one forward or dgrad launch, made on the host.
 struct FwdPlan {
   int blocks, strips, chunk_steps, chunks, items;
 };
