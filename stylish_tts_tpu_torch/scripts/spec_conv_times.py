@@ -66,13 +66,15 @@ def mrd_layers() -> List[Tuple[str, Tuple[int, int, int, int], int, int]]:
 
 def device_ms_by_kernel(fn: Callable, iters: int = 20,
                         attempts: int = 5) -> dict:
-    """Device time of one call of ``fn`` by kernel name: the durations of
-    the kernels it launches (torch.profiler), averaged over ``iters``
-    calls.  Now and then a profiler session records no device time, or
-    loses some of a kernel's records (its launches are then no multiple of
-    ``iters`` and its time reads low): such a session is taken again, up
-    to ``attempts`` times, and if none is whole the fullest one is kept,
-    with a note on stderr."""
+    """Device time of one call of ``fn`` by kernel name (torch.profiler,
+    ``iters`` calls): each kernel's mean duration times its launches per
+    call, its records over ``iters`` rounded to a whole number (a kernel
+    that runs in fewer than half the calls keeps the fraction).  Now and
+    then a profiler session records no device time, or loses some of a
+    kernel's records (its launches are then no multiple of ``iters``): such
+    a session is taken again, up to ``attempts`` times; if none is whole,
+    the fullest one is kept, with a note on stderr, and its means stand for
+    the lost records."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
@@ -85,8 +87,10 @@ def device_ms_by_kernel(fn: Callable, iters: int = 20,
                 fn()
             torch.cuda.synchronize()
         events = [evt for evt in prof.key_averages()
-                  if evt.device_type == torch.autograd.DeviceType.CUDA]
-        times = {evt.key: evt.self_device_time_total / 1e3 / iters
+                  if evt.device_type == torch.autograd.DeviceType.CUDA
+                  and evt.count > 0]
+        times = {evt.key: evt.self_device_time_total / 1e3 / evt.count
+                 * (round(evt.count / iters) or evt.count / iters)
                  for evt in events}
         if sum(times.values()) > 0 and all(evt.count % iters == 0
                                            for evt in events):
