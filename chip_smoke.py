@@ -23,7 +23,10 @@ Phases, in order; any failure raises and the exit code is non-zero:
    at the probe script's sizes and inputs, each held against its plain
    version (the five copies exactly, the three products within
    1e-5 of the largest value) and timed beside it, its library call and its
-   bound; then the probe entry point
+   bound; then the five copies at T = 131072, where bytes set the time,
+   held bit-equal to the plain version, with their, the plain version's and
+   the library call's device time and the bound's share; then the probe
+   entry point
    (``stylish_tts_tpu_torch.scripts.mosaic_probe.run``) on the card, with
    the launch counts set to 0 just before and read just after: every probe
    "ok", every probe kernel launched;
@@ -67,6 +70,8 @@ from pathlib import Path
 import numpy as np
 import torch
 
+from stylish_tts_tpu_torch.scripts.probe_times import (
+    LARGE_T, check_case, device_times, probe_cases, probe_times, times_line)
 from stylish_tts_tpu_torch.scripts.spec_conv_times import (
     LAUNCHES_PER_LAYER, conv_calls, device_ms, layer_times, max_error,
     mrd_layers)
@@ -274,117 +279,20 @@ def time_mean_ms(fn, iters: int = 100) -> float:
     return start.elapsed_time(end) / iters
 
 
-def mini_conv_weight(w: torch.Tensor) -> torch.Tensor:
-    """The mini kernel's w [1728, 128] as a conv2d kernel [128, 128, 3, 9]
-    over (frequency block, t), zero outside the groups it reads."""
-    from stylish_tts_tpu_torch.ops import patch_probe as pp
-
-    full = torch.zeros(128, 128, 3, pp.MINI_KT, device=w.device)
-    for gi, g in enumerate(pp.MINI_GROUPS):
-        blk, lane = divmod(g, 4)
-        for dt in range(pp.MINI_KT):
-            rows = w[pp.CIN * (pp.MINI_KT * gi + dt):][:pp.CIN]
-            full[:, pp.CIN * lane:pp.CIN * (lane + 1), blk, dt] = rows.T
-    return full
-
-
-def probe_numbers(device, card: str) -> dict:
+def probe_numbers(device) -> dict:
     """Each probe kernel at the probe script's sizes and inputs: held
-    against its plain version, timed beside it and one library call, with
-    its bound."""
-    import torch.nn.functional as F
-
-    from stylish_tts_tpu_torch.ops import patch_probe as pp
+    against its plain version, timed beside it and one library call, by
+    CUDA events and in device time, with its bound."""
     from stylish_tts_tpu_torch.scripts import mosaic_probe as mp
 
-    x = torch.from_numpy(np.random.default_rng(0).standard_normal(
-        (mp.T + mp.TAPS, mp.CIN)).astype(np.float32)).to(device)
-    xp = torch.cat([x, x * 2.0], dim=1)
-    w = mp.product_weights(device)
-    xq, wq = (torch.from_numpy(a).to(device) for a in mp.mini_inputs())
-    t = mp.T
-    x_ncl = x[:t + mp.TAPS - 1].T[None].contiguous()  # the rows P reads
-    w_conv = w.view(mp.TAPS, mp.CIN, 128).permute(2, 1, 0).contiguous()
-    xq_nchw = xq.permute(0, 3, 1, 2)  # a channels-last view
-    wq_conv = mini_conv_weight(wq)
-
-    def patches_lib():  # the rows overlap: a view until .contiguous()
-        return x.as_strided((t, pp.K), (mp.CIN, 1)).contiguous()
-
-    def lane_off_lib():
-        return xp.as_strided((t, 3, 2, mp.CIN), (64, 128, 96, 1)
-                             ).reshape(t, pp.K)
-
-    def matmul_lib():
-        return F.conv1d(x_ncl, w_conv)
-
-    def mini_lib():
-        return F.conv2d(xq_nchw, wq_conv)
-
-    p_bytes = 4.0 * (x.numel() + t * pp.K)
-    mm_flops = 2.0 * t * pp.K * 128
-    mm_bytes = 4.0 * (x.numel() + w.numel() + t * 128)
-    b, fq, rows = xq.shape[0], xq.shape[1] - 2, xq.shape[2] - 8
-    mini_flops = 2.0 * b * fq * rows * pp.MINI_K * 128
-    mini_bytes = 4.0 * (xq.numel() + wq.numel() + b * fq * rows * 128)
-    # kernel: (inputs, plain, library, library output -> plain's layout,
-    # FLOP, bytes)
-    cases = {
-        pp.concat_lane_off: ((xp,), pp.lane_off_plain, lane_off_lib,
-                             torch.asarray, 0.0,
-                             4.0 * (xp.numel() + t * pp.K)),
-        pp.matmul_after_concat: ((x, w), pp.matmul_plain, matmul_lib,
-                                 lambda y: y[0].T, mm_flops, mm_bytes),
-        pp.matmul_after_scratch: ((x, w), pp.matmul_plain, matmul_lib,
-                                  lambda y: y[0].T, mm_flops, mm_bytes),
-        pp.mini_kernel: ((xq, wq), pp.mini_plain, mini_lib,
-                         lambda y: y.permute(0, 2, 3, 1), mini_flops,
-                         mini_bytes),
-    }
-    for k in (pp.concat_full_lane, pp.scratch_write, pp.stack_reshape,
-              pp.dma_assemble):
-        cases[k] = ((x,), pp.patches_plain, patches_lib, torch.asarray, 0.0,
-                    p_bytes)
-
     out = {}
-    for k in pp.KERNELS:
-        inputs, plain, library, as_plain, flops, nbytes = cases[k]
-        before = k.launches
-        got = k(*inputs)
-        if k.launches != before + 1:
-            raise AssertionError(f"{k.name}: the wrapper did not launch")
-        want = plain(*inputs)
-        lib = as_plain(library())
-        torch.cuda.synchronize()
-        if got.shape != want.shape or lib.shape != want.shape:
-            raise AssertionError(f"{k.name}: {tuple(got.shape)}, library "
-                                 f"{tuple(lib.shape)} vs {tuple(want.shape)}")
-        err = (got - want).abs().max().item()
-        lib_err = (lib - want).abs().max().item()
-        scale = want.abs().max().item()
-        # the copies move data only; the products are f32 sums of 192 or
-        # 1728 products in another order
-        tol = 0.0 if flops == 0 else 1e-5 * scale
-        if not err <= tol:
-            raise AssertionError(f"{k.name}: max err {err:.3e} > {tol:.3e}")
-        if not lib_err <= 1e-3 * scale:
-            raise AssertionError(f"{k.name}: the library call is off by "
-                                 f"{lib_err:.3e}")
-        t_ops = flops / PEAK_F32_FLOPS * 1e3
-        t_bytes = nbytes / PEAK_BYTES * 1e3
+    for k, case in probe_cases(device, mp.T).items():
         out[k.name] = {
-            "shapes": [list(a.shape) for a in inputs],
-            "max_abs_err": err, "max_abs_plain": scale,
-            "library_err": lib_err,
-            "ms": time_mean_ms(lambda: k(*inputs)),
-            "plain_ms": time_mean_ms(lambda: plain(*inputs)),
-            "library_ms": time_mean_ms(library),
-            "device_ms": device_ms(lambda: k(*inputs)),
-            "plain_device_ms": device_ms(lambda: plain(*inputs)),
-            "library_device_ms": device_ms(library),
-            "bound_ms": max(t_ops, t_bytes),
-            "bound_by": "operations" if t_ops > t_bytes else "bytes",
-            "flops": flops, "bytes": nbytes,
+            **check_case(k, case),
+            "ms": time_mean_ms(lambda: k(*case.inputs)),
+            "plain_ms": time_mean_ms(lambda: case.plain(*case.inputs)),
+            "library_ms": time_mean_ms(case.library),
+            **device_times(k, case),
         }
     return out
 
@@ -838,7 +746,7 @@ def main() -> int:
     torch.cuda.empty_cache()
 
     # 3. the patch-staging probes, then their entry point
-    record["probes"] = probe_numbers(device, card)
+    record["probes"] = probe_numbers(device)
     print(f"probe kernels: times are means over 100 back-to-back launches "
           f"between one pair of CUDA events, L2 not flushed; [device] is "
           f"the kernels' own time by torch.profiler, without the host's "
@@ -853,6 +761,14 @@ def main() -> int:
               f"[{n['library_device_ms'] * 1e3:.2f}]{note}, bound "
               f"{n['bound_ms'] * 1e3:.3f} us ({n['bound_by']}), max err "
               f"{n['max_abs_err']:.2e} of {n['max_abs_plain']:.2e} [{card}]")
+    # ... the five copies where bytes set the time ...
+    record["probes_large"] = probe_times(device, LARGE_T)
+    print(f"the copy probes at T = {LARGE_T}: device time by torch.profiler"
+          f", held bit-equal to the plain version [{card}]")
+    for name, n in record["probes_large"].items():
+        print(f"{times_line(name, n)} [{card}]")
+    torch.cuda.empty_cache()
+    # ... and the probe entry point
     record["probe_run"] = probe_run(device, pp.KERNELS, card)
 
     # 4. synthesis at full width

@@ -21,13 +21,15 @@
 //      so every vector stays aligned.
 //   #6 probe_scratch_write (:82) -> scratch_write: P is assembled in a
 //      shared-memory tile, each slice written at its 32-column offset, then
-//      written out coalesced.  One lane owns one row and stores down the
-//      columns of its slice; the tile's rows are padded to 193 floats so
-//      that the 32 rows of one column fall on 32 distinct banks.
+//      written out coalesced.  A block owns 8 rows of P; slice j of them is
+//      one contiguous range of x, which consecutive threads load as float4
+//      and store as float4 at column 32j of the tile's rows.
 //   #7 probe_stack_reshape (:97) -> stack_reshape: a shared tile declared
 //      [rows][6][32], written tap by tap and read out as flat [rows][192]
 //      rows.  The reshape moves nothing: it is the same bytes read through
-//      another index.
+//      another index.  A block owns 8 rows of P and loads their window of
+//      x (13 rows, one contiguous range) once, as float4, storing each
+//      float4 into every tap of the tile it feeds.
 //   #8 probe_dma_assemble (:111) -> dma_assemble: the copy engine.  For a
 //      block's 32 rows, slice j is one contiguous 4 KB range of x; each is
 //      one bulk async copy (cp.async.bulk ... mbarrier::complete_tx::bytes)
@@ -38,8 +40,9 @@
 //      owns one row of P and builds it in registers, 4 columns at a time,
 //      from 16-byte loads of x; w is staged in shared memory; Y in f32 FMAs.
 //  #10 probe_matmul_after_scratch (:159) -> matmul_after_scratch: P staged
-//      in the padded shared tile of #6, then the same product.  Here the
-//      padding matters: a warp reads one column of 32 rows at each step.
+//      in a shared tile whose rows are padded to 193 floats (lane r stores
+//      row r down the columns), then the same product.  The padding
+//      matters: a warp reads one column of 32 rows at each step.
 //  #11 probe_mini_kernel (:183) -> mini_kernel: a miniature of the spec-conv
 //      forward, a small implicit GEMM:
 //        out[b, f, t, :] = sum_{g=3..8, dt<9} xq[b, f + g/4, t + dt,
@@ -62,9 +65,21 @@
 //   #4, #6-8: 230,144 B moved -> 0.069 us;  #5: 263,680 B -> 0.079 us;
 //   #9-10:  12.58 MFLOP -> 0.188 us, above their 262,912 B (0.078 us);
 //   #11:    1.359 GFLOP -> 20.3 us, above its 5.12 MB (1.53 us).
-// #4-10 take far less time than a launch does (a few microseconds), so
-// their measured times are launch times.  Each kernel here is a first
-// version that is right; only #11 does enough work for its design to show.
+// #4-10 take far less time than a launch does (a few microseconds), so at
+// these sizes their times are a launch and a chain of dependent memory
+// round trips.  #6 and #7 keep that chain short: 32 blocks of 128 threads
+// (8 rows of P each) in place of 8 blocks of 32 rows, every thread issues
+// all its float4 loads before its first dependent store, and every access
+// is 16 bytes a thread, neighbouring threads on neighbouring addresses.
+// At T = 131072 the copies #4 and #6-8 move 117.4 MB (x 16.8 MB, P
+// 100.7 MB, more than the 50 MB L2): 35.1 us of bytes, the bound that #6
+// and #7 are built for there (#5 reads xp: 134.2 MB, 40.1 us).  Device time
+// of #6 / #7 (stylish_tts_tpu_torch/scripts/probe_times.py, NVIDIA H100
+// 80GB HBM3, 700.00 W): 1.14 / 1.18 us at T = 256, where the 32-row
+// design took 2.61 / 2.83 and the strided library copy 1.53; 41.7 / 41.9 us
+// at T = 131072, 84% of the bound.  #4, #5 and #8-11 are first versions
+// that are right; only #11 does enough work at the probe's sizes for its
+// design to show.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -78,7 +93,7 @@ constexpr int N = 128;           // output columns of the products
 constexpr int RT = 32;           // rows of P per block
 constexpr int THREADS = 256;
 constexpr int WARPS = THREADS / 32;
-constexpr int PITCH = K + 1;     // padded row of the shared P tile
+constexpr int PITCH = K + 1;     // padded row of #10's shared P tile
 constexpr int WC = N / WARPS;    // output columns per warp in #9-10
 constexpr int SLICE_BYTES = RT * CIN * (int)sizeof(float);
 static_assert(RT == 32, "one lane per row of the tile");
@@ -118,7 +133,7 @@ concat_lane_off_kernel(const float4* __restrict__ xp, float4* __restrict__ p) {
 }
 
 // ------------------------------------------------------------------------- //
-// #6 and #10: P staged in a padded shared tile
+// #10: P staged in a padded shared tile
 
 // Rows r0..r0+31 of P into ps [RT][PITCH].  Warp j writes slice j; lane r
 // loads row r0 + r + j of x in 16-byte pieces and stores it down the 32
@@ -142,33 +157,86 @@ __device__ __forceinline__ void stage_patches(const float* __restrict__ x,
   }
 }
 
-__global__ void __launch_bounds__(THREADS)
-scratch_write_kernel(const float* __restrict__ x, float* __restrict__ p) {
-  __shared__ float ps[RT * PITCH];
-  const int r0 = blockIdx.x * RT;
-  stage_patches(x, ps, r0);
-  __syncthreads();
-  for (int i = threadIdx.x; i < RT * K; i += THREADS) {
-    const int r = i / K, col = i % K;
-    p[(size_t)(r0 + r) * K + col] = ps[r * PITCH + col];
-  }
+// ------------------------------------------------------------------------- //
+// #6 and #7: small blocks, 16-byte traffic.  A block owns BR rows of P; its
+// tile [BR][192] floats is BR * PQ float4 in shared memory, written by
+// float4 stores in which each group of 8 threads fills 128 contiguous bytes
+// (one slice row), so a row pitch of 192 floats meets no bank conflict, and
+// read out flat: float4 k of the tile is float4 k of the block's P.
+
+constexpr int BR = 8;                 // rows of P per block
+constexpr int BTHREADS = 128;
+constexpr int SQ = CIN / 4;           // float4 per row of x
+constexpr int PQ = K / 4;             // float4 per row of P
+constexpr int WIN = BR + TAPS - 1;    // rows of x under a block's rows of P
+constexpr int OUT_PER_THREAD = BR * PQ / BTHREADS;
+static_assert(RT % BR == 0, "T is a multiple of RT, so of BR");
+static_assert(BR * PQ % BTHREADS == 0, "whole float4 stores a thread");
+static_assert(TAPS * BR * SQ % BTHREADS == 0, "whole slice loads a thread");
+
+// The tile out to P, coalesced: every thread reads all its float4 first.
+__device__ __forceinline__ void write_tile(const float4* tile,
+                                          float4* __restrict__ p, int r0) {
+  float4 v[OUT_PER_THREAD];
+#pragma unroll
+  for (int u = 0; u < OUT_PER_THREAD; ++u)
+    v[u] = tile[threadIdx.x + u * BTHREADS];
+  float4* out = p + (size_t)r0 * PQ;
+#pragma unroll
+  for (int u = 0; u < OUT_PER_THREAD; ++u)
+    out[threadIdx.x + u * BTHREADS] = v[u];
 }
 
-// ------------------------------------------------------------------------- //
-// #7: a [rows][6][32] tile read as [rows][192]
-
-__global__ void __launch_bounds__(THREADS)
-stack_reshape_kernel(const float* __restrict__ x, float* __restrict__ p) {
-  __shared__ __align__(16) float tile[RT][TAPS][CIN];
-  const int r0 = blockIdx.x * RT;
-  for (int i = threadIdx.x; i < TAPS * RT * CIN; i += THREADS) {
-    const int j = i / (RT * CIN), r = (i / CIN) % RT, c = i % CIN;
-    tile[r][j][c] = __ldg(x + (size_t)(r0 + r + j) * CIN + c);
+// #6: each slice written at its column offset.  Slice j of the block's rows
+// is one contiguous range of x, rows r0 + j .. r0 + j + BR - 1 (BR * 8
+// float4); consecutive threads load consecutive float4 of it and store each
+// at column 32j of its row of the tile.
+__global__ void __launch_bounds__(BTHREADS)
+scratch_write_kernel(const float4* __restrict__ x, float4* __restrict__ p) {
+  constexpr int SLICE = BR * SQ;                  // float4 of a slice
+  constexpr int LOADS = TAPS * SLICE / BTHREADS;  // float4 loads a thread
+  __shared__ float4 tile[BR * PQ];
+  const int r0 = blockIdx.x * BR;
+  float4 v[LOADS];
+#pragma unroll
+  for (int u = 0; u < LOADS; ++u) {
+    const int i = threadIdx.x + u * BTHREADS, j = i / SLICE;
+    v[u] = __ldg(x + (size_t)(r0 + j) * SQ + i % SLICE);
+  }
+#pragma unroll
+  for (int u = 0; u < LOADS; ++u) {
+    const int i = threadIdx.x + u * BTHREADS, j = i / SLICE, k = i % SLICE;
+    tile[(k / SQ) * PQ + j * SQ + k % SQ] = v[u];
   }
   __syncthreads();
-  const float4* flat = reinterpret_cast<const float4*>(&tile[0][0][0]);
-  float4* out = reinterpret_cast<float4*>(p + (size_t)r0 * K);
-  for (int i = threadIdx.x; i < RT * K / 4; i += THREADS) out[i] = flat[i];
+  write_tile(tile, p, r0);
+}
+
+// #7: the taps stacked, then reshaped.  The tile is declared [BR][6][8]
+// float4 ([rows][6][32] floats).  The block loads its window of x, rows
+// r0 .. r0 + BR + 4 (one contiguous range), once, and writes each float4
+// into every tile[r][j] it feeds (r + j = its row in the window, up to six
+// places); then reads the tile as flat [BR][192] rows.
+__global__ void __launch_bounds__(BTHREADS)
+stack_reshape_kernel(const float4* __restrict__ x, float4* __restrict__ p) {
+  constexpr int LOADS = (WIN * SQ + BTHREADS - 1) / BTHREADS;
+  __shared__ float4 tile[BR][TAPS][SQ];
+  const int r0 = blockIdx.x * BR;
+  float4 v[LOADS] = {};
+#pragma unroll
+  for (int u = 0; u < LOADS; ++u) {
+    const int i = threadIdx.x + u * BTHREADS;
+    if (i < WIN * SQ) v[u] = __ldg(x + (size_t)r0 * SQ + i);
+  }
+#pragma unroll
+  for (int u = 0; u < LOADS; ++u) {
+    const int i = threadIdx.x + u * BTHREADS, w = i / SQ, q = i % SQ;
+#pragma unroll
+    for (int j = 0; j < TAPS; ++j)
+      if (i < WIN * SQ && w - j >= 0 && w - j < BR) tile[w - j][j][q] = v[u];
+  }
+  __syncthreads();
+  write_tile(&tile[0][0][0], p, r0);
 }
 
 // ------------------------------------------------------------------------- //
@@ -418,15 +486,15 @@ extern "C" int probe_concat_lane_off(const void* xp, void* p, int t,
 
 extern "C" int probe_scratch_write(const void* x, void* p, int t,
                                    void* stream) {
-  scratch_write_kernel<<<t / RT, THREADS, 0, (cudaStream_t)stream>>>(
-      (const float*)x, (float*)p);
+  scratch_write_kernel<<<t / BR, BTHREADS, 0, (cudaStream_t)stream>>>(
+      (const float4*)x, (float4*)p);
   return (int)cudaGetLastError();
 }
 
 extern "C" int probe_stack_reshape(const void* x, void* p, int t,
                                    void* stream) {
-  stack_reshape_kernel<<<t / RT, THREADS, 0, (cudaStream_t)stream>>>(
-      (const float*)x, (float*)p);
+  stack_reshape_kernel<<<t / BR, BTHREADS, 0, (cudaStream_t)stream>>>(
+      (const float4*)x, (float4*)p);
   return (int)cudaGetLastError();
 }
 

@@ -377,9 +377,17 @@ def _probe_plain(kernel, *inputs):
     return kernel.plain(*inputs)
 
 
+# rows of output: the probe's 256; 96, three of the old 32-row blocks; 32,
+# one of them; and, for the copies #4-8, 131072, where P (100.7 MB) is
+# larger than the L2
+PROBE_ROWS = [(k, rows) for rows in (256, 96, 32) for k in pp.KERNELS] + [
+    (k, 131072) for k in pp.KERNELS if k.n_ptrs == 2]
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("rows", [256, 96])
-@pytest.mark.parametrize("kernel", pp.KERNELS, ids=lambda k: k.name)
+@pytest.mark.parametrize(
+    "kernel,rows", PROBE_ROWS,
+    ids=[f"{k.name}-{rows}" for k, rows in PROBE_ROWS])
 def test_probe_kernels_match_plain(cuda, kernel, rows):
     inputs = _probe_inputs(kernel, rows)
     before = kernel.launches
