@@ -105,18 +105,6 @@ __device__ __forceinline__ uint32_t smem_addr(const void* p) {
 }
 
 // ------------------------------------------------------------------------- //
-// #4: a gather in registers
-
-__global__ void __launch_bounds__(THREADS)
-concat_full_lane_kernel(const float* __restrict__ x, float* __restrict__ p) {
-  const int r0 = blockIdx.x * RT;
-  for (int i = threadIdx.x; i < RT * K; i += THREADS) {
-    const int r = i / K, col = i % K, j = col / CIN, c = col % CIN;
-    p[(size_t)(r0 + r) * K + col] = __ldg(x + (size_t)(r0 + r + j) * CIN + c);
-  }
-}
-
-// ------------------------------------------------------------------------- //
 // #5: 16-byte vectors at a 32-float column offset
 
 __global__ void __launch_bounds__(THREADS)
@@ -158,11 +146,12 @@ __device__ __forceinline__ void stage_patches(const float* __restrict__ x,
 }
 
 // ------------------------------------------------------------------------- //
-// #6 and #7: small blocks, 16-byte traffic.  A block owns BR rows of P; its
-// tile [BR][192] floats is BR * PQ float4 in shared memory, written by
-// float4 stores in which each group of 8 threads fills 128 contiguous bytes
-// (one slice row), so a row pitch of 192 floats meets no bank conflict, and
-// read out flat: float4 k of the tile is float4 k of the block's P.
+// #4, #6 and #7: small blocks, 16-byte traffic.  A block owns BR rows of P,
+// BR * PQ float4.  #6 and #7 build them as a tile [BR][192] floats in shared
+// memory, written by float4 stores in which each group of 8 threads fills
+// 128 contiguous bytes (one slice row), so a row pitch of 192 floats meets
+// no bank conflict, and read out flat: float4 k of the tile is float4 k of
+// the block's P.  #4 keeps them in registers.
 
 constexpr int BR = 8;                 // rows of P per block
 constexpr int BTHREADS = 128;
@@ -173,6 +162,33 @@ constexpr int OUT_PER_THREAD = BR * PQ / BTHREADS;
 static_assert(RT % BR == 0, "T is a multiple of RT, so of BR");
 static_assert(BR * PQ % BTHREADS == 0, "whole float4 stores a thread");
 static_assert(TAPS * BR * SQ % BTHREADS == 0, "whole slice loads a thread");
+
+// #4: a gather in registers.  Float4 k of the block is taken slice-major,
+// j = k >> 6, r = (k >> 3) & 7, c4 = k & 7: slice j of the block's rows is
+// one contiguous 1 KB range of x (rows r0 + j .. r0 + j + 7), and each 8
+// threads store one 128-byte run of a row of P at column 32j (a row is
+// 768 B, so every run is 128-byte aligned).  Each thread issues its 3 loads
+// before its 3 stores.
+constexpr int SLICE_LOG2 = 6;         // BR * SQ = 64 float4 of a slice
+constexpr int SQ_LOG2 = 3;            // SQ = 8
+static_assert(BR * SQ == 1 << SLICE_LOG2 && SQ == 1 << SQ_LOG2, "shifts");
+
+__global__ void __launch_bounds__(BTHREADS)
+concat_full_lane_kernel(const float4* __restrict__ x, float4* __restrict__ p) {
+  const int r0 = blockIdx.x * BR;
+  float4 v[OUT_PER_THREAD];
+#pragma unroll
+  for (int u = 0; u < OUT_PER_THREAD; ++u) {
+    const int k = threadIdx.x + u * BTHREADS, j = k >> SLICE_LOG2;
+    v[u] = __ldg(x + (size_t)(r0 + j) * SQ + (k & (BR * SQ - 1)));
+  }
+#pragma unroll
+  for (int u = 0; u < OUT_PER_THREAD; ++u) {
+    const int k = threadIdx.x + u * BTHREADS, j = k >> SLICE_LOG2;
+    const int r = (k >> SQ_LOG2) & (BR - 1), c4 = k & (SQ - 1);
+    p[(size_t)(r0 + r) * PQ + j * SQ + c4] = v[u];
+  }
+}
 
 // The tile out to P, coalesced: every thread reads all its float4 first.
 __device__ __forceinline__ void write_tile(const float4* tile,
@@ -472,8 +488,8 @@ int with_smem(const void* kernel, int bytes) {
 
 extern "C" int probe_concat_full_lane(const void* x, void* p, int t,
                                       void* stream) {
-  concat_full_lane_kernel<<<t / RT, THREADS, 0, (cudaStream_t)stream>>>(
-      (const float*)x, (float*)p);
+  concat_full_lane_kernel<<<t / BR, BTHREADS, 0, (cudaStream_t)stream>>>(
+      (const float4*)x, (float4*)p);
   return (int)cudaGetLastError();
 }
 
