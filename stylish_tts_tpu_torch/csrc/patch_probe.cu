@@ -10,9 +10,11 @@
 // what each TPU probe tested:
 //
 //   #4 probe_concat_full_lane (scripts/mosaic_probe.py:50) -> concat_full_lane:
-//      a gather in registers.  Each thread loads x[t+j, c] straight from
-//      device memory and stores P; a warp reads one 128-byte row of x and
-//      writes 128 contiguous bytes of P.  No shared memory.
+//      a gather in registers.  A block owns 8 rows of P; each thread loads
+//      3 float4 of x straight from device memory, slice-major (slice j of
+//      the block's rows is one contiguous 1 KB range of x), and stores them
+//      to P, each 8 threads one aligned 128-byte run of a row.  No shared
+//      memory.
 //   #5 probe_concat_lane_off (:63) -> concat_lane_off: the same patches from
 //      the paired layout xp = [x, 2x] [T + 6, 64] (built by the caller, as
 //      the TPU probe builds it outside its kernel):
@@ -36,9 +38,12 @@
 //      into its own shared buffer and completes on its own mbarrier, the
 //      counterpart of the TPU's per-copy DMA semaphore.  The block waits on
 //      the barriers in order and writes each slice of P as it lands.
-//   #9 probe_matmul_after_concat (:138) -> matmul_after_concat: each lane
-//      owns one row of P and builds it in registers, 4 columns at a time,
-//      from 16-byte loads of x; w is staged in shared memory; Y in f32 FMAs.
+//   #9 probe_matmul_after_concat (:138) -> matmul_after_concat: P's rows
+//      are built in registers, 4 columns at a time, from 16-byte loads of x;
+//      w is staged in shared memory; Y in f32 FMAs.  A block owns 16 rows x
+//      32 columns of Y and stages only its columns of w (24 KB); its four
+//      warps split K, each lane keeps a 4 x 4 tile of sums, and the four
+//      partial tiles are summed in shared memory in a fixed order.
 //  #10 probe_matmul_after_scratch (:159) -> matmul_after_scratch: P staged
 //      in a shared tile whose rows are padded to 193 floats (lane r stores
 //      row r down the columns), then the same product.  The padding
@@ -65,21 +70,27 @@
 //   #4, #6-8: 230,144 B moved -> 0.069 us;  #5: 263,680 B -> 0.079 us;
 //   #9-10:  12.58 MFLOP -> 0.188 us, above their 262,912 B (0.078 us);
 //   #11:    1.359 GFLOP -> 20.3 us, above its 5.12 MB (1.53 us).
-// #4-10 take far less time than a launch does (a few microseconds), so at
-// these sizes their times are a launch and a chain of dependent memory
-// round trips.  #6 and #7 keep that chain short: 32 blocks of 128 threads
-// (8 rows of P each) in place of 8 blocks of 32 rows, every thread issues
-// all its float4 loads before its first dependent store, and every access
-// is 16 bytes a thread, neighbouring threads on neighbouring addresses.
+// #4-10 take far less time than a launch does (a one-element fill_ takes
+// 1.0 us of device time), so at these sizes their times are a launch and a
+// chain of dependent memory round trips.  #4, #6 and #7 keep that chain
+// short: 32 blocks of 128 threads (8 rows of P each) in place of 8 blocks
+// of 32 rows, every thread issues all its float4 loads before its first
+// dependent store, and every access is 16 bytes a thread, neighbouring
+// threads on neighbouring addresses.  #9 spreads its product over 64
+// blocks (8 before), each a short chain of 48 k-steps a warp.
 // At T = 131072 the copies #4 and #6-8 move 117.4 MB (x 16.8 MB, P
-// 100.7 MB, more than the 50 MB L2): 35.1 us of bytes, the bound that #6
-// and #7 are built for there (#5 reads xp: 134.2 MB, 40.1 us).  Device time
-// of #6 / #7 (stylish_tts_tpu_torch/scripts/probe_times.py, NVIDIA H100
-// 80GB HBM3, 700.00 W): 1.14 / 1.18 us at T = 256, where the 32-row
-// design took 2.61 / 2.83 and the strided library copy 1.53; 41.7 / 41.9 us
-// at T = 131072, 84% of the bound.  #4, #5 and #8-11 are first versions
-// that are right; only #11 does enough work at the probe's sizes for its
-// design to show.
+// 100.7 MB, more than the 50 MB L2): 35.1 us of bytes, the bound they are
+// built for there (#5 reads xp: 134.2 MB, 40.1 us); the products do
+// 6.44 GFLOP, 96.2 us at the f32 peak, above their 84.0 MB (25.1 us), and
+// #9's blocks then walk the row tiles, staging w once each.  Device time
+// (stylish_tts_tpu_torch/scripts/probe_times.py, NVIDIA H100 80GB HBM3,
+// 700.00 W), at T = 256 and at T = 131072: #4 1.11 and 42.5 us (the
+// 32-row design 2.4 and 45.7; the strided library copy 1.54 and 61.0);
+// #6 / #7 1.16 / 1.18 and 42.7 / 41.9 us (the 32-row designs 2.61 / 2.83
+// and 46.9 / 43.4); #9 2.75 and 223.8 us, 43% of the f32 bound (the
+// one-block-a-32-rows design 16.6; F.conv1d in f32 11.1 and 251.7).
+// #5, #8, #10 and #11 are first versions that are right; only #11 does
+// enough work at the probe's sizes for its design to show.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -94,7 +105,7 @@ constexpr int RT = 32;           // rows of P per block
 constexpr int THREADS = 256;
 constexpr int WARPS = THREADS / 32;
 constexpr int PITCH = K + 1;     // padded row of #10's shared P tile
-constexpr int WC = N / WARPS;    // output columns per warp in #9-10
+constexpr int WC = N / WARPS;    // output columns per warp in #10
 constexpr int SLICE_BYTES = RT * CIN * (int)sizeof(float);
 static_assert(RT == 32, "one lane per row of the tile");
 static_assert(SLICE_BYTES % 16 == 0, "bulk copies move multiples of 16 B");
@@ -102,6 +113,20 @@ static_assert(WC % 4 == 0, "float4 rows of w");
 
 __device__ __forceinline__ uint32_t smem_addr(const void* p) {
   return (uint32_t)__cvta_generic_to_shared(p);
+}
+
+__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n"
+               :: "r"(smem_addr(dst)), "l"(src) : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+template <int PENDING>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" :: "n"(PENDING) : "memory");
 }
 
 // ------------------------------------------------------------------------- //
@@ -306,7 +331,7 @@ dma_assemble_kernel(const float* __restrict__ x, float* __restrict__ p) {
 }
 
 // ------------------------------------------------------------------------- //
-// #9 and #10: Y = P @ w.  Lane = row of the block's 32, warp = 16 columns;
+// #10: Y = P @ w.  Lane = row of the block's 32, warp = 16 columns;
 // w [K][N] in shared memory, read by the whole warp at one address.
 
 constexpr int W_BYTES = K * N * (int)sizeof(float);
@@ -340,31 +365,6 @@ __device__ __forceinline__ void store_row(const float (&acc)[WC], float* y,
 }
 
 __global__ void __launch_bounds__(THREADS)
-matmul_after_concat_kernel(const float* __restrict__ x,
-                           const float* __restrict__ w, float* __restrict__ y) {
-  extern __shared__ __align__(16) float smem[];
-  float* ws = smem;
-  stage_w(w, ws);
-  __syncthreads();
-  const int lane = threadIdx.x % 32, col0 = (threadIdx.x / 32) * WC;
-  const int row = blockIdx.x * RT + lane;
-  float acc[WC] = {};
-  for (int j = 0; j < TAPS; ++j) {
-    const float4* xr = reinterpret_cast<const float4*>(x + (size_t)(row + j) * CIN);
-#pragma unroll 2
-    for (int q = 0; q < CIN / 4; ++q) {
-      const float4 a = __ldg(xr + q);  // P[row, 32j + 4q .. 4q+3]
-      const float* wr = ws + (j * CIN + 4 * q) * N + col0;
-      fma_row(acc, a.x, wr);
-      fma_row(acc, a.y, wr + N);
-      fma_row(acc, a.z, wr + 2 * N);
-      fma_row(acc, a.w, wr + 3 * N);
-    }
-  }
-  store_row(acc, y, row, col0);
-}
-
-__global__ void __launch_bounds__(THREADS)
 matmul_after_scratch_kernel(const float* __restrict__ x,
                             const float* __restrict__ w, float* __restrict__ y) {
   extern __shared__ __align__(16) float smem[];
@@ -382,6 +382,91 @@ matmul_after_scratch_kernel(const float* __restrict__ x,
 }
 
 // ------------------------------------------------------------------------- //
+// #9: Y = P @ w over the card.  A block owns MB rows x NB columns of Y; its
+// warps split K = 192 into KSPLIT slices of KW, and each lane keeps a
+// TM x TN register tile of f32 sums: rows TM rg + i of the block, columns
+// TN cg + n (rg = lane / 8, cg = lane % 8).  A lane builds its rows of P in
+// registers, a float4 of x (4 columns of P) per row at a time; the 8 lanes
+// of one rg load the same address, so a warp's load touches 4 rows of x.
+// Each warp stages its KW rows of the block's NB columns of w by 16-byte
+// cp.async and waits for its own copies only.  The slices' partial tiles
+// meet in shared memory and are summed in warp order.  The blocks of one
+// column walk the row tiles with a stride, so each stages its w once.
+
+constexpr int MB = 16;                    // rows of Y a block
+constexpr int NB = 32;                    // columns of Y a block
+constexpr int NB4 = NB / 4;               // float4 of a block's row of Y or w
+constexpr int N4 = N / 4;                 // float4 of a row of Y or w
+constexpr int KSPLIT = BTHREADS / 32;     // warps, one slice of K each
+constexpr int KW = K / KSPLIT;            // 48, the depth of a slice
+constexpr int TM = 4, TN = 4;             // a lane's tile of Y
+static_assert(MB == 4 * TM && NB == 8 * TN, "4 x 8 lanes of TM x TN tiles");
+static_assert(MB * NB4 == BTHREADS, "one float4 of Y a thread in the sum");
+static_assert(NB4 == SQ && KW % 4 == 0 && RT % MB == 0, "the index shifts");
+
+__device__ __forceinline__ float part_of(const float4& v, int i) {
+  return i == 0 ? v.x : i == 1 ? v.y : i == 2 ? v.z : v.w;
+}
+
+__global__ void __launch_bounds__(BTHREADS)
+matmul_after_concat_kernel(const float4* __restrict__ x,
+                           const float4* __restrict__ w,
+                           float4* __restrict__ y, int tiles) {
+  __shared__ float4 ws[K * NB4];                // w[:, n0 : n0 + NB], 24 KB
+  __shared__ float4 part[KSPLIT][MB * NB4];     // the slices' sums, 8 KB
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int rg = lane >> 3, cg = lane & 7;
+  const int n4 = blockIdx.x * NB4, g0 = warp * (KW / 4);
+  for (int i = lane; i < KW * NB4; i += 32) {
+    const int k = warp * KW + (i >> SQ_LOG2), c4 = i & (NB4 - 1);
+    cp_async16(&ws[k * NB4 + c4], w + (size_t)k * N4 + n4 + c4);
+  }
+  cp_async_commit();
+  cp_async_wait<0>();
+  __syncwarp();  // the warp reads only the rows it copied
+
+  for (int tile = blockIdx.y; tile < tiles; tile += gridDim.y) {
+    const int t0 = tile * MB;
+    const float4* xr = x + (size_t)(t0 + TM * rg) * SQ;
+    float acc[TM][TN] = {};
+#pragma unroll
+    for (int u = 0; u < KW / 4; ++u) {
+      const int g = g0 + u;  // columns 4g .. 4g + 3 of P
+      const int j = g >> SQ_LOG2, c4 = g & (SQ - 1);
+      float4 a[TM];
+#pragma unroll
+      for (int i = 0; i < TM; ++i) a[i] = __ldg(xr + (i + j) * SQ + c4);
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk) {
+        const float4 b = ws[(4 * g + kk) * NB4 + cg];
+#pragma unroll
+        for (int i = 0; i < TM; ++i) {
+          const float av = part_of(a[i], kk);
+          acc[i][0] = fmaf(av, b.x, acc[i][0]);
+          acc[i][1] = fmaf(av, b.y, acc[i][1]);
+          acc[i][2] = fmaf(av, b.z, acc[i][2]);
+          acc[i][3] = fmaf(av, b.w, acc[i][3]);
+        }
+      }
+    }
+#pragma unroll
+    for (int i = 0; i < TM; ++i)
+      part[warp][(TM * rg + i) * NB4 + cg] =
+          make_float4(acc[i][0], acc[i][1], acc[i][2], acc[i][3]);
+    __syncthreads();
+    float4 s = part[0][threadIdx.x];  // row threadIdx.x / 8 of the tile
+#pragma unroll
+    for (int q = 1; q < KSPLIT; ++q) {
+      const float4 v = part[q][threadIdx.x];
+      s.x += v.x; s.y += v.y; s.z += v.z; s.w += v.w;
+    }
+    y[(size_t)(t0 + (threadIdx.x >> SQ_LOG2)) * N4 + n4 +
+      (threadIdx.x & (NB4 - 1))] = s;
+    __syncthreads();  // part is written again for the next tile
+  }
+}
+
+// ------------------------------------------------------------------------- //
 // #11: the miniature spec-conv forward
 
 constexpr int MT = 32;                 // rows of t per block
@@ -395,20 +480,6 @@ constexpr int MCOLS = N / 32;          // output columns per thread
 constexpr int XS_FLOATS = GROUPS * MWIN * CIN;
 constexpr int WB_FLOATS = CIN * N;
 constexpr int MINI_SMEM = (XS_FLOATS + 2 * WB_FLOATS) * (int)sizeof(float);
-
-__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n"
-               :: "r"(smem_addr(dst)), "l"(src) : "memory");
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-
-template <int PENDING>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" :: "n"(PENDING) : "memory");
-}
 
 // rows 32c .. 32c+31 of w into wb [CIN][N]
 __device__ __forceinline__ void stage_w_chunk(const float* __restrict__ w,
@@ -523,11 +594,23 @@ extern "C" int probe_dma_assemble(const void* x, void* p, int t,
 
 extern "C" int probe_matmul_after_concat(const void* x, const void* w,
                                          void* y, int t, void* stream) {
-  const int smem = W_BYTES;
-  const int err = with_smem((const void*)matmul_after_concat_kernel, smem);
-  if (err != 0) return err;
-  matmul_after_concat_kernel<<<t / RT, THREADS, smem, (cudaStream_t)stream>>>(
-      (const float*)x, (const float*)w, (float*)y);
+  // the blocks of each column: as many as the card holds at once, at most
+  // one a row tile
+  static const int resident = [] {
+    int dev = 0, sms = 0, per_sm = 0;
+    if (cudaGetDevice(&dev) != cudaSuccess ||
+        cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev) !=
+            cudaSuccess ||
+        cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+            &per_sm, matmul_after_concat_kernel, BTHREADS, 0) != cudaSuccess)
+      return 0;
+    return sms * per_sm / (N / NB);
+  }();
+  if (resident < 1) return (int)cudaErrorInvalidConfiguration;
+  const int tiles = t / MB;
+  const dim3 grid(N / NB, tiles < resident ? tiles : resident);
+  matmul_after_concat_kernel<<<grid, BTHREADS, 0, (cudaStream_t)stream>>>(
+      (const float4*)x, (const float4*)w, (float4*)y, tiles);
   return (int)cudaGetLastError();
 }
 

@@ -4,13 +4,16 @@ version, one library call for the same function and the bound.
     python -m stylish_tts_tpu_torch.scripts.probe_times [--out FILE]
 
 The eight probe kernels (``csrc/patch_probe.cu``) run at the probe
-script's sizes and inputs (T = 256); the five copies #4-8 also at
-T = 131072, where P (100.7 MB) is larger than the 50 MB L2 and bytes set
-the time.  Each kernel is first held against its plain version (the copies
-bit for bit, the products within 1e-5 of the largest value) and the library
-call against it, then timed by torch.profiler (the kernels' own durations,
-without the host's launch).  One line per kernel and shape, then one JSON
-object of all numbers.  Runs on the card only.
+script's sizes and inputs (T = 256); the five copies #4-8 and the two
+products #9-10 also at T = 131072, where P (100.7 MB) is larger than the
+50 MB L2, so bytes set the copies' time and operations the products'
+(6.44 GFLOP, 96.2 us at the f32 peak, against 84.0 MB, 25.1 us).  Each
+kernel is first held against its plain version (the copies bit for bit,
+the products within 1e-5 of the largest value) and the library call
+against it, then timed by torch.profiler (the kernels' own durations,
+without the host's launch).  One line per kernel and shape, then the
+device time of a one-element ``fill_``, the floor of any launch, then one
+JSON object of all numbers.  Runs on the card only.
 
 To time another checkout's kernels with the same ruler, put that checkout
 first on the path: ``PYTHONPATH=<checkout> python <this file>``.
@@ -33,7 +36,8 @@ from stylish_tts_tpu_torch.scripts.spec_conv_times import device_ms
 # H100 SXM peaks (NVIDIA data sheet): f32 outside the tensor cores, HBM3
 PEAK_F32_FLOPS = 67e12
 PEAK_BYTES = 3.35e12
-# rows of P at which the copies move more bytes than the L2 holds
+# rows of P at which the copies move more bytes than the L2 holds, and the
+# products do operations enough that they, not the launch, set the time
 LARGE_T = 131072
 
 
@@ -73,8 +77,8 @@ def mini_conv_weight(w: torch.Tensor) -> torch.Tensor:
 
 def probe_cases(device, t: int) -> dict:
     """{kernel: Case} at ``t`` rows of P: at the probe script's T all eight
-    kernels on its inputs, at any other T the five copies, x drawn as the
-    probe script draws it."""
+    kernels on its inputs, at any other T the five copies and the two
+    products, x and w drawn as the probe script draws them."""
     from stylish_tts_tpu_torch.ops import patch_probe as pp
     from stylish_tts_tpu_torch.scripts import mosaic_probe as mp
 
@@ -97,32 +101,33 @@ def probe_cases(device, t: int) -> dict:
               pp.dma_assemble):
         cases[k] = Case((x,), pp.patches_plain, patches_lib, torch.asarray,
                         0.0, p_bytes)
-    if t != mp.T:
-        return {k: cases[k] for k in pp.KERNELS if k in cases}
 
     w = mp.product_weights(device)
-    xq, wq = (torch.from_numpy(a).to(device) for a in mp.mini_inputs())
     x_ncl = x[:t + mp.TAPS - 1].T[None].contiguous()  # the rows P reads
     w_conv = w.view(mp.TAPS, mp.CIN, 128).permute(2, 1, 0).contiguous()
-    xq_nchw = xq.permute(0, 3, 1, 2)  # a channels-last view
-    wq_conv = mini_conv_weight(wq)
 
     def matmul_lib():
         return F.conv1d(x_ncl, w_conv)
-
-    def mini_lib():
-        return F.conv2d(xq_nchw, wq_conv)
 
     mm = Case((x, w), pp.matmul_plain, matmul_lib, lambda y: y[0].T,
               2.0 * t * pp.K * 128,
               4.0 * (x.numel() + w.numel() + t * 128))
     cases[pp.matmul_after_concat] = cases[pp.matmul_after_scratch] = mm
-    b, fq, rows = xq.shape[0], xq.shape[1] - 2, xq.shape[2] - 8
-    cases[pp.mini_kernel] = Case(
-        (xq, wq), pp.mini_plain, mini_lib, lambda y: y.permute(0, 2, 3, 1),
-        2.0 * b * fq * rows * pp.MINI_K * 128,
-        4.0 * (xq.numel() + wq.numel() + b * fq * rows * 128))
-    return {k: cases[k] for k in pp.KERNELS}
+    if t == mp.T:
+        xq, wq = (torch.from_numpy(a).to(device) for a in mp.mini_inputs())
+        xq_nchw = xq.permute(0, 3, 1, 2)  # a channels-last view
+        wq_conv = mini_conv_weight(wq)
+
+        def mini_lib():
+            return F.conv2d(xq_nchw, wq_conv)
+
+        b, fq, rows = xq.shape[0], xq.shape[1] - 2, xq.shape[2] - 8
+        cases[pp.mini_kernel] = Case(
+            (xq, wq), pp.mini_plain, mini_lib,
+            lambda y: y.permute(0, 2, 3, 1),
+            2.0 * b * fq * rows * pp.MINI_K * 128,
+            4.0 * (xq.numel() + wq.numel() + b * fq * rows * 128))
+    return {k: cases[k] for k in pp.KERNELS if k in cases}
 
 
 def check_case(kernel, case: Case) -> dict:
@@ -182,6 +187,13 @@ def probe_times(device, t: int) -> dict:
     return out
 
 
+def launch_floor_ms(device) -> float:
+    """Device time of one tiny library kernel, a one-element ``fill_``:
+    the floor under any launch, whatever its work."""
+    tiny = torch.empty(1, device=device)
+    return device_ms(lambda: tiny.fill_(1.0))
+
+
 def times_line(name: str, n: dict) -> str:
     """One kernel's device times as printed, in microseconds."""
     return (f"{name} {n['shapes']}: device {n['device_ms'] * 1e3:.2f} us, "
@@ -215,6 +227,9 @@ def main(argv=None) -> int:
         for name, n in record[f"T={t}"].items():
             print(f"T={t} {times_line(name, n)} [{card}]")
         torch.cuda.empty_cache()
+    record["launch_floor_ms"] = launch_floor_ms(device)
+    print(f"launch floor: a one-element fill_ takes "
+          f"{record['launch_floor_ms'] * 1e3:.2f} us of device time [{card}]")
     line = json.dumps(record)
     if args.out:
         with open(args.out, "w") as f:

@@ -378,10 +378,11 @@ def _probe_plain(kernel, *inputs):
 
 
 # rows of output: the probe's 256; 96, three of the old 32-row blocks; 32,
-# one of them; and, for the copies #4-8, 131072, where P (100.7 MB) is
-# larger than the L2
+# one of them; and, for the copies #4-8 and the products #9-10, 131072,
+# where P (100.7 MB) is larger than the L2 and #9's blocks walk many row
+# tiles each
 PROBE_ROWS = [(k, rows) for rows in (256, 96, 32) for k in pp.KERNELS] + [
-    (k, 131072) for k in pp.KERNELS if k.n_ptrs == 2]
+    (k, 131072) for k in pp.KERNELS if k is not pp.mini_kernel]
 
 
 @pytest.mark.cuda
