@@ -23,10 +23,11 @@ Phases, in order; any failure raises and the exit code is non-zero:
    at the probe script's sizes and inputs, each held against its plain
    version (the five copies exactly, the three products within
    1e-5 of the largest value) and timed beside it, its library call and its
-   bound; then the five copies at T = 131072, where bytes set the time,
-   held bit-equal to the plain version, with their, the plain version's and
-   the library call's device time and the bound's share; then the probe
-   entry point
+   bound; then the five copies and the two products at T = 131072, where
+   bytes set the copies' time and operations the products' (6.44 GFLOP,
+   96.2 us at the f32 peak), held against the plain version as at T = 256,
+   with their, the plain version's and the library call's device time and
+   the bound's share; then the probe entry point
    (``stylish_tts_tpu_torch.scripts.mosaic_probe.run``) on the card, with
    the launch counts set to 0 just before and read just after: every probe
    "ok", every probe kernel launched;
@@ -761,10 +762,12 @@ def main() -> int:
               f"[{n['library_device_ms'] * 1e3:.2f}]{note}, bound "
               f"{n['bound_ms'] * 1e3:.3f} us ({n['bound_by']}), max err "
               f"{n['max_abs_err']:.2e} of {n['max_abs_plain']:.2e} [{card}]")
-    # ... the five copies where bytes set the time ...
+    # ... the copies and the products where bytes and operations set the
+    # time ...
     record["probes_large"] = probe_times(device, LARGE_T)
-    print(f"the copy probes at T = {LARGE_T}: device time by torch.profiler"
-          f", held bit-equal to the plain version [{card}]")
+    print(f"the copy and product probes at T = {LARGE_T}: device time by "
+          f"torch.profiler, held against the plain version (copies bit-equal"
+          f") [{card}]")
     for name, n in record["probes_large"].items():
         print(f"{times_line(name, n)} [{card}]")
     torch.cuda.empty_cache()
