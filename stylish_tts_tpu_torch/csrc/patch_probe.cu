@@ -32,12 +32,16 @@
 //      another index.  A block owns 8 rows of P and loads their window of
 //      x (13 rows, one contiguous range) once, as float4, storing each
 //      float4 into every tap of the tile it feeds.
-//   #8 probe_dma_assemble (:111) -> dma_assemble: the copy engine.  For a
-//      block's 32 rows, slice j is one contiguous 4 KB range of x; each is
-//      one bulk async copy (cp.async.bulk ... mbarrier::complete_tx::bytes)
-//      into its own shared buffer and completes on its own mbarrier, the
-//      counterpart of the TPU's per-copy DMA semaphore.  The block waits on
-//      the barriers in order and writes each slice of P as it lands.
+//   #8 probe_dma_assemble (:111) -> dma_assemble: the copy engine.  A
+//      block owns 8 rows of P; slice j of them is one contiguous 1 KB range
+//      of x, one bulk async copy (cp.async.bulk ... mbarrier::complete_tx::
+//      bytes) issued by thread j right after it inits mbarrier j, into its
+//      own shared buffer, completing on its own mbarrier, the counterpart
+//      of the TPU's per-copy DMA semaphore.  Each thread then stores 3
+//      float4 of P slice-major, each after its slice's barrier, 8 threads
+//      one aligned 128-byte run of a row.  The TPU probe's own structure
+//      (rows landing at column 32j of a [8][192] tile, one bulk store out)
+//      is the build -DDMA_TILE_STORE=1.
 //   #9 probe_matmul_after_concat (:138) -> matmul_after_concat: P's rows
 //      are built in registers, 4 columns at a time, from 16-byte loads of x;
 //      w is staged in shared memory; Y in f32 FMAs.  A block owns 16 rows x
@@ -106,9 +110,7 @@ constexpr int THREADS = 256;
 constexpr int WARPS = THREADS / 32;
 constexpr int PITCH = K + 1;     // padded row of #10's shared P tile
 constexpr int WC = N / WARPS;    // output columns per warp in #10
-constexpr int SLICE_BYTES = RT * CIN * (int)sizeof(float);
 static_assert(RT == 32, "one lane per row of the tile");
-static_assert(SLICE_BYTES % 16 == 0, "bulk copies move multiples of 16 B");
 static_assert(WC % 4 == 0, "float4 rows of w");
 
 __device__ __forceinline__ uint32_t smem_addr(const void* p) {
@@ -281,7 +283,37 @@ stack_reshape_kernel(const float4* __restrict__ x, float4* __restrict__ p) {
 }
 
 // ------------------------------------------------------------------------- //
-// #8: bulk async copies completing on mbarriers
+// #8: bulk async copies completing on mbarriers, one barrier a slice.  A
+// block owns BR rows of P.  Slice j of them is one contiguous BR * 128
+// bytes of x: one bulk copy into a buffer of its own, which the block
+// writes to P by float4 stores as it lands.  Built with -DDMA_TILE_STORE=1
+// (the TPU probe's own structure, timed slower on this card), each slice
+// lands at its column offset of a [BR][192] tile, one 128-byte bulk copy a
+// row, and the tile goes out as one bulk store: BR whole rows of P are one
+// contiguous range.
+
+#ifndef DMA_TILE_STORE
+#define DMA_TILE_STORE 0
+#endif
+
+__device__ __forceinline__ void bar_init(uint64_t* bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n"
+               "fence.mbarrier_init.release.cluster;\n"
+               :: "r"(smem_addr(bar)), "r"(count) : "memory");
+}
+
+// arrive on `bar` expecting `bytes` more, then copy them from x into shared
+// memory; the copy completes them on `bar`
+__device__ __forceinline__ void bulk_load(void* dst, const float* src,
+                                          int bytes, uint64_t* bar) {
+  asm volatile(
+      "mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n"
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes"
+      " [%2], [%3], %1, [%0];\n"
+      :: "r"(smem_addr(bar)), "r"(bytes), "r"(smem_addr(dst)),
+         "l"(reinterpret_cast<uint64_t>(src))
+      : "memory");
+}
 
 __device__ __forceinline__ void wait_phase0(const uint64_t* bar) {
   uint32_t done = 0;
@@ -298,37 +330,68 @@ __device__ __forceinline__ void wait_phase0(const uint64_t* bar) {
   } while (!done);
 }
 
-__global__ void __launch_bounds__(THREADS)
+constexpr int ROW_BYTES = CIN * (int)sizeof(float);  // 128, a row of x
+static_assert(ROW_BYTES % 16 == 0, "bulk copies move multiples of 16 B");
+static_assert(TAPS * BR <= BTHREADS, "one thread a row copy");
+
+#if !DMA_TILE_STORE
+// Threads 0..5 each init bar[j] and copy slice j (rows r0 + j .. r0 + j + 7
+// of x, 1 KB) into buf[j]; every thread then takes 3 float4 of P
+// slice-major (#4's order), waits on its slice's barrier and stores it.
+__global__ void __launch_bounds__(BTHREADS)
 dma_assemble_kernel(const float* __restrict__ x, float* __restrict__ p) {
-  __shared__ __align__(128) float buf[TAPS][RT * CIN];
+  constexpr int SLICE = BR * SQ;  // float4 of a slice
+  __shared__ __align__(128) float4 buf[TAPS][SLICE];
   __shared__ __align__(8) uint64_t bar[TAPS];
-  const int r0 = blockIdx.x * RT;
-  if (threadIdx.x == 0) {
-    for (int j = 0; j < TAPS; ++j)
-      asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;\n"
-                   :: "r"(smem_addr(&bar[j])) : "memory");
-    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  const int r0 = blockIdx.x * BR, tid = threadIdx.x;
+  if (tid < TAPS) {
+    bar_init(&bar[tid], 1);
+    bulk_load(buf[tid], x + (size_t)(r0 + tid) * CIN, BR * ROW_BYTES,
+              &bar[tid]);
   }
   __syncthreads();
-  if (threadIdx.x == 0) {
-    for (int j = 0; j < TAPS; ++j) {
-      const uint64_t src = reinterpret_cast<uint64_t>(x + (size_t)(r0 + j) * CIN);
-      asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n"
-                   :: "r"(smem_addr(&bar[j])), "r"(SLICE_BYTES) : "memory");
-      asm volatile(
-          "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes"
-          " [%0], [%1], %2, [%3];\n"
-          :: "r"(smem_addr(buf[j])), "l"(src), "r"(SLICE_BYTES),
-             "r"(smem_addr(&bar[j]))
-          : "memory");
-    }
-  }
-  for (int j = 0; j < TAPS; ++j) {
+  float4* out = reinterpret_cast<float4*>(p);
+#pragma unroll
+  for (int u = 0; u < OUT_PER_THREAD; ++u) {
+    const int k = tid + u * BTHREADS, j = k >> SLICE_LOG2;
+    const int r = (k >> SQ_LOG2) & (BR - 1), c4 = k & (SQ - 1);
     wait_phase0(&bar[j]);
-    for (int i = threadIdx.x; i < RT * CIN; i += THREADS)
-      p[(size_t)(r0 + i / CIN) * K + j * CIN + i % CIN] = buf[j][i];
+    out[(size_t)(r0 + r) * PQ + j * SQ + c4] = buf[j][k & (SLICE - 1)];
   }
 }
+#else
+// Threads 0..47 each copy one row of x, x[r0 + r + j] -> tile[r][32j]
+// (j = tid / 8, r = tid % 8), arriving on bar[j] with its 128 bytes; the
+// eight rows of slice j complete bar[j].  Thread 0 waits on the six
+// barriers, then stores the tile, the block's rows of P, as one bulk copy
+// and waits until it has been read before the block's shared memory goes.
+__global__ void __launch_bounds__(BTHREADS)
+dma_assemble_kernel(const float* __restrict__ x, float* __restrict__ p) {
+  __shared__ __align__(128) float tile[BR][K];
+  __shared__ __align__(8) uint64_t bar[TAPS];
+  const int r0 = blockIdx.x * BR, tid = threadIdx.x;
+  if (tid < TAPS) bar_init(&bar[tid], BR);
+  __syncthreads();
+  if (tid < TAPS * BR) {
+    const int j = tid / BR, r = tid % BR;
+    bulk_load(&tile[r][j * CIN], x + (size_t)(r0 + r + j) * CIN, ROW_BYTES,
+              &bar[j]);
+  }
+  if (tid == 0) {
+    for (int j = 0; j < TAPS; ++j) wait_phase0(&bar[j]);
+    // the tile was written by the copy engine, not by a thread: the fence
+    // orders what this thread has observed before the store's reads
+    asm volatile(
+        "fence.proxy.async.shared::cta;\n"
+        "cp.async.bulk.global.shared::cta.bulk_group [%0], [%1], %2;\n"
+        "cp.async.bulk.commit_group;\n"
+        "cp.async.bulk.wait_group.read 0;\n"
+        :: "l"(reinterpret_cast<uint64_t>(p + (size_t)r0 * K)),
+           "r"(smem_addr(&tile[0][0])), "r"(BR * K * (int)sizeof(float))
+        : "memory");
+  }
+}
+#endif
 
 // ------------------------------------------------------------------------- //
 // #10: Y = P @ w.  Lane = row of the block's 32, warp = 16 columns;
@@ -587,7 +650,7 @@ extern "C" int probe_stack_reshape(const void* x, void* p, int t,
 
 extern "C" int probe_dma_assemble(const void* x, void* p, int t,
                                   void* stream) {
-  dma_assemble_kernel<<<t / RT, THREADS, 0, (cudaStream_t)stream>>>(
+  dma_assemble_kernel<<<t / BR, BTHREADS, 0, (cudaStream_t)stream>>>(
       (const float*)x, (float*)p);
   return (int)cudaGetLastError();
 }
