@@ -108,10 +108,6 @@ constexpr int N = 128;           // output columns of the products
 constexpr int RT = 32;           // rows of P per block
 constexpr int THREADS = 256;
 constexpr int WARPS = THREADS / 32;
-constexpr int PITCH = K + 1;     // padded row of #10's shared P tile
-constexpr int WC = N / WARPS;    // output columns per warp in #10
-static_assert(RT == 32, "one lane per row of the tile");
-static_assert(WC % 4 == 0, "float4 rows of w");
 
 __device__ __forceinline__ uint32_t smem_addr(const void* p) {
   return (uint32_t)__cvta_generic_to_shared(p);
@@ -144,31 +140,6 @@ concat_lane_off_kernel(const float4* __restrict__ xp, float4* __restrict__ p) {
     const int r = i / PQ, q = i % PQ, j = q / SQ, c4 = q % SQ;
     p[(size_t)(r0 + r) * PQ + q] =
         __ldg(xp + (size_t)(r0 + r + j) * XQ + (j % 2) * SQ + c4);
-  }
-}
-
-// ------------------------------------------------------------------------- //
-// #10: P staged in a padded shared tile
-
-// Rows r0..r0+31 of P into ps [RT][PITCH].  Warp j writes slice j; lane r
-// loads row r0 + r + j of x in 16-byte pieces and stores it down the 32
-// columns of slice j.  At a pitch of 193 floats, one column's 32 rows lie on
-// 32 distinct banks.
-__device__ __forceinline__ void stage_patches(const float* __restrict__ x,
-                                              float* ps, int r0) {
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  for (int j = warp; j < TAPS; j += WARPS) {
-    const float4* src =
-        reinterpret_cast<const float4*>(x + (size_t)(r0 + lane + j) * CIN);
-    float* dst = ps + lane * PITCH + j * CIN;
-#pragma unroll
-    for (int q = 0; q < CIN / 4; ++q) {
-      const float4 v = __ldg(src + q);
-      dst[4 * q] = v.x;
-      dst[4 * q + 1] = v.y;
-      dst[4 * q + 2] = v.z;
-      dst[4 * q + 3] = v.w;
-    }
   }
 }
 
@@ -394,57 +365,6 @@ dma_assemble_kernel(const float* __restrict__ x, float* __restrict__ p) {
 #endif
 
 // ------------------------------------------------------------------------- //
-// #10: Y = P @ w.  Lane = row of the block's 32, warp = 16 columns;
-// w [K][N] in shared memory, read by the whole warp at one address.
-
-constexpr int W_BYTES = K * N * (int)sizeof(float);
-
-__device__ __forceinline__ void stage_w(const float* __restrict__ w, float* ws) {
-  const float4* src = reinterpret_cast<const float4*>(w);
-  float4* dst = reinterpret_cast<float4*>(ws);
-  for (int i = threadIdx.x; i < K * N / 4; i += THREADS) dst[i] = __ldg(src + i);
-}
-
-__device__ __forceinline__ void fma_row(float (&acc)[WC], float a,
-                                        const float* wrow) {
-  const float4* b4 = reinterpret_cast<const float4*>(wrow);
-#pragma unroll
-  for (int u = 0; u < WC / 4; ++u) {
-    const float4 b = b4[u];
-    acc[4 * u] = fmaf(a, b.x, acc[4 * u]);
-    acc[4 * u + 1] = fmaf(a, b.y, acc[4 * u + 1]);
-    acc[4 * u + 2] = fmaf(a, b.z, acc[4 * u + 2]);
-    acc[4 * u + 3] = fmaf(a, b.w, acc[4 * u + 3]);
-  }
-}
-
-__device__ __forceinline__ void store_row(const float (&acc)[WC], float* y,
-                                          int row, int col0) {
-  float4* dst = reinterpret_cast<float4*>(y + (size_t)row * N + col0);
-#pragma unroll
-  for (int u = 0; u < WC / 4; ++u)
-    dst[u] = make_float4(acc[4 * u], acc[4 * u + 1], acc[4 * u + 2],
-                         acc[4 * u + 3]);
-}
-
-__global__ void __launch_bounds__(THREADS)
-matmul_after_scratch_kernel(const float* __restrict__ x,
-                            const float* __restrict__ w, float* __restrict__ y) {
-  extern __shared__ __align__(16) float smem[];
-  float* ws = smem;
-  float* ps = smem + K * N;
-  const int r0 = blockIdx.x * RT;
-  stage_w(w, ws);
-  stage_patches(x, ps, r0);
-  __syncthreads();
-  const int lane = threadIdx.x % 32, col0 = (threadIdx.x / 32) * WC;
-  float acc[WC] = {};
-#pragma unroll 4
-  for (int k = 0; k < K; ++k) fma_row(acc, ps[lane * PITCH + k], ws + k * N + col0);
-  store_row(acc, y, r0 + lane, col0);
-}
-
-// ------------------------------------------------------------------------- //
 // #9: Y = P @ w over the card.  A block owns MB rows x NB columns of Y; its
 // warps split K = 192 into KSPLIT slices of KW, and each lane keeps a
 // TM x TN register tile of f32 sums: rows TM rg + i of the block, columns
@@ -526,6 +446,141 @@ matmul_after_concat_kernel(const float4* __restrict__ x,
     y[(size_t)(t0 + (threadIdx.x >> SQ_LOG2)) * N4 + n4 +
       (threadIdx.x & (NB4 - 1))] = s;
     __syncthreads();  // part is written again for the next tile
+  }
+}
+
+// ------------------------------------------------------------------------- //
+// #10: Y = P @ w, multiplied from P written into a shared scratch.  #9's
+// tiling: a block owns SMB rows x SNB columns of Y and stages only its
+// columns of w, once; the four warps split K and each lane keeps a
+// register tile, rows rg + 4i of the block (rg = lane / 8), float4 columns
+// cg + 8h (cg = lane % 8); the partial tiles are summed in warp order; the
+// blocks of one column walk the row tiles.  The block's rows of P are first
+// written into the scratch at column 32j for slice j, by #6's scratch
+// write (slice j of the rows is one contiguous range of x, moved float4 by
+// float4) in its asynchronous form, 16-byte cp.async, into one of two
+// buffers, so the next tile's writes overlap this tile's FMAs.  A k-step of
+// four columns reads a float4 of P for each of a lane's rows and a float4
+// of w for each column group and k: 8 LDS.128 per 64 FMA at 16 x 32.
+//
+// The scratch has a pitch of 192 floats, float4 column q of row r stored at
+// q ^ (r & 3).  A warp's float4 read of P at one k reads rows 4i .. 4i + 3,
+// which a pitch of 192 (6 x 32 banks) would put on the same four banks;
+// swizzled they are four distinct float4 of the 32 banks, one wavefront,
+// and a lane's swizzle is its rg.  The writes, 8 threads one row's 128
+// contiguous bytes of a slice, stay 8 distinct float4 of one 128-byte run.
+//
+// Two tiles: #9's 16 x 32, which keeps 64 blocks busy at T = 256, and
+// where the larger tile's blocks fill the card, 32 x 32, which does twice
+// the FMAs for each float4 of w it reads and for each barrier and partial
+// sum (stylish_tts_tpu_torch/scripts/probe_variants.py at T = 131072:
+// 169-175 us against 188-189 for 16 x 32 alone).  The sweep's other large
+// tiles are built with -DSCRATCH_LARGE_MB=... -DSCRATCH_LARGE_NB=...
+
+#ifndef SCRATCH_LARGE_MB
+#define SCRATCH_LARGE_MB 32
+#endif
+#ifndef SCRATCH_LARGE_NB
+#define SCRATCH_LARGE_NB 32
+#endif
+
+template <int SMB, int SNB>
+struct ScratchTile {
+  static constexpr int NB4 = SNB / 4;        // float4 of a block's row of Y
+  static constexpr int TM = SMB / 4;         // rows of a lane
+  static constexpr int TN4 = NB4 / 8;        // float4 columns of a lane
+  static constexpr int W4 = K * NB4;         // float4 of the block's w
+  static constexpr int P4 = SMB * PQ;        // float4 of one scratch buffer
+  static constexpr int PART4 = SMB * NB4;    // float4 of a warp's partials
+  static constexpr int SMEM = (W4 + 2 * P4 + KSPLIT * PART4) * 16;
+  static_assert(SMB % 4 == 0 && RT % SMB == 0, "4 row groups; whole tiles");
+  static_assert(NB4 % 8 == 0 && N % SNB == 0, "8 column groups; whole N");
+  static_assert(TAPS * SMB * SQ % BTHREADS == 0, "whole copies a thread");
+};
+
+// Rows t0 .. t0 + SMB - 1 of P into the scratch ps by 16-byte cp.async:
+// copy i is float4 k = i % (SMB * 8) of slice j = i / (SMB * 8), row k / 8
+// of the tile, float4 column 8j + k % 8 of it.
+template <int SMB>
+__device__ __forceinline__ void write_scratch(const float4* __restrict__ x,
+                                              float4* ps, int t0) {
+  constexpr int SLICE = SMB * SQ, LOADS = TAPS * SLICE / BTHREADS;
+#pragma unroll
+  for (int u = 0; u < LOADS; ++u) {
+    const int i = threadIdx.x + u * BTHREADS, j = i / SLICE, k = i % SLICE;
+    const int r = k / SQ, q = j * SQ + k % SQ;
+    cp_async16(&ps[r * PQ + (q ^ (r & 3))], x + (size_t)(t0 + j) * SQ + k);
+  }
+}
+
+template <int SMB, int SNB>
+__global__ void __launch_bounds__(BTHREADS)
+matmul_after_scratch_kernel(const float4* __restrict__ x,
+                            const float4* __restrict__ w,
+                            float4* __restrict__ y, int tiles) {
+  using S = ScratchTile<SMB, SNB>;
+  extern __shared__ float4 smem4[];
+  float4* ws = smem4;                 // w[:, n0 : n0 + SNB]
+  float4* ps = ws + S::W4;            // [2][SMB][PQ], the scratch
+  float4* part = ps + 2 * S::P4;      // [KSPLIT][SMB * NB4]
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int rg = lane >> 3, cg = lane & 7;
+  const int n4 = blockIdx.x * S::NB4;
+  for (int i = threadIdx.x; i < S::W4; i += BTHREADS)
+    cp_async16(&ws[i], w + (size_t)(i / S::NB4) * N4 + n4 + i % S::NB4);
+  int tile = blockIdx.y;  // < tiles: the grid has at most one block a tile
+  write_scratch<SMB>(x, ps, tile * SMB);
+  cp_async_commit();
+
+  for (int b = 0; tile < tiles; tile += gridDim.y, b ^= 1) {
+    const int next = tile + gridDim.y;
+    if (next < tiles) write_scratch<SMB>(x, ps + (b ^ 1) * S::P4, next * SMB);
+    cp_async_commit();
+    cp_async_wait<1>();  // w and this tile's scratch have landed
+    __syncthreads();     // ... for every thread's copies
+    const float4* pr = ps + b * S::P4 + rg * PQ;
+    float acc[S::TM][S::TN4][4] = {};
+#pragma unroll
+    for (int u = 0; u < KW / 4; ++u) {
+      const int g = warp * (KW / 4) + u;  // columns 4g .. 4g + 3 of P
+      float4 a[S::TM];
+#pragma unroll
+      for (int i = 0; i < S::TM; ++i) a[i] = pr[4 * i * PQ + (g ^ rg)];
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk) {
+#pragma unroll
+        for (int h = 0; h < S::TN4; ++h) {
+          const float4 bv = ws[(4 * g + kk) * S::NB4 + cg + 8 * h];
+#pragma unroll
+          for (int i = 0; i < S::TM; ++i) {
+            const float av = part_of(a[i], kk);
+            acc[i][h][0] = fmaf(av, bv.x, acc[i][h][0]);
+            acc[i][h][1] = fmaf(av, bv.y, acc[i][h][1]);
+            acc[i][h][2] = fmaf(av, bv.z, acc[i][h][2]);
+            acc[i][h][3] = fmaf(av, bv.w, acc[i][h][3]);
+          }
+        }
+      }
+    }
+#pragma unroll
+    for (int i = 0; i < S::TM; ++i)
+#pragma unroll
+      for (int h = 0; h < S::TN4; ++h)
+        part[warp * S::PART4 + (rg + 4 * i) * S::NB4 + cg + 8 * h] =
+            make_float4(acc[i][h][0], acc[i][h][1], acc[i][h][2],
+                        acc[i][h][3]);
+    // every warp's partials are written and every read of scratch b is
+    // done, so the next step may refill b
+    __syncthreads();
+    for (int v = threadIdx.x; v < S::PART4; v += BTHREADS) {
+      float4 s = part[v];
+#pragma unroll
+      for (int q = 1; q < KSPLIT; ++q) {
+        const float4 o = part[q * S::PART4 + v];
+        s.x += o.x; s.y += o.y; s.z += o.z; s.w += o.w;
+      }
+      y[(size_t)(tile * SMB + v / S::NB4) * N4 + n4 + v % S::NB4] = s;
+    }
   }
 }
 
@@ -614,6 +669,39 @@ int with_smem(const void* kernel, int bytes) {
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
 }
 
+// #10 in one tile shape: the blocks of each column of Y, as many as the card
+// holds at once (an occupancy query, cached), at most one a row tile.
+template <int SMB, int SNB>
+int scratch_resident() {
+  static const int resident = [] {
+    const void* kernel = (const void*)matmul_after_scratch_kernel<SMB, SNB>;
+    const int smem = ScratchTile<SMB, SNB>::SMEM;
+    int dev = 0, sms = 0, per_sm = 0;
+    if (with_smem(kernel, smem) != cudaSuccess ||
+        cudaGetDevice(&dev) != cudaSuccess ||
+        cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev) !=
+            cudaSuccess ||
+        cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+            &per_sm, kernel, BTHREADS, smem) != cudaSuccess)
+      return 0;
+    return sms * per_sm / (N / SNB);
+  }();
+  return resident;
+}
+
+template <int SMB, int SNB>
+int scratch_launch(const void* x, const void* w, void* y, int t,
+                   void* stream) {
+  const int resident = scratch_resident<SMB, SNB>();
+  if (resident < 1) return (int)cudaErrorInvalidConfiguration;
+  const int tiles = t / SMB;
+  const dim3 grid(N / SNB, tiles < resident ? tiles : resident);
+  matmul_after_scratch_kernel<SMB, SNB>
+      <<<grid, BTHREADS, ScratchTile<SMB, SNB>::SMEM, (cudaStream_t)stream>>>(
+          (const float4*)x, (const float4*)w, (float4*)y, tiles);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 // C entry points.  Each launches on `stream` and returns cudaGetLastError()
@@ -679,12 +767,11 @@ extern "C" int probe_matmul_after_concat(const void* x, const void* w,
 
 extern "C" int probe_matmul_after_scratch(const void* x, const void* w,
                                           void* y, int t, void* stream) {
-  const int smem = W_BYTES + RT * PITCH * (int)sizeof(float);
-  const int err = with_smem((const void*)matmul_after_scratch_kernel, smem);
-  if (err != 0) return err;
-  matmul_after_scratch_kernel<<<t / RT, THREADS, smem, (cudaStream_t)stream>>>(
-      (const float*)x, (const float*)w, (float*)y);
-  return (int)cudaGetLastError();
+  // the large tile where its blocks fill the card, else #9's 16 x 32
+  constexpr int LMB = SCRATCH_LARGE_MB, LNB = SCRATCH_LARGE_NB;
+  if (t / LMB >= scratch_resident<LMB, LNB>())
+    return scratch_launch<LMB, LNB>(x, w, y, t, stream);
+  return scratch_launch<MB, NB>(x, w, y, t, stream);
 }
 
 extern "C" int probe_mini_kernel(const void* xq, const void* w, void* out,

@@ -9,13 +9,14 @@ A variant is ``csrc/patch_probe.cu`` built with its own ``-D`` flags
 calls; the variant with no flags is the build the wrappers load.  #8:
 each slice in a shared buffer of its own, written out by float4 stores
 (the default), or the slices landing at their column offsets of a shared
-tile stored by one bulk copy (``DMA_TILE_STORE=1``).  #10: the block's tile of Y,
-rows x columns (``SCRATCH_MB``, ``SCRATCH_NB``).  Every variant is checked
-first (#8 bit-equal to the plain version; #10 within 1e-5 of its largest
-value, and bit-equal across two launches), then timed by torch.profiler in
-two rounds, the second in reverse order, so that a drift of the card shows
-as a spread.  One line per variant, kernel and T, then one JSON object.
-Runs on the card only.
+tile stored by one bulk copy (``DMA_TILE_STORE=1``).  #10: the block's
+tile of Y, rows x columns, used where the blocks of that tile fill the
+card (``SCRATCH_LARGE_MB``, ``SCRATCH_LARGE_NB``; below that 16 x 32).
+Every variant is checked first (#8 bit-equal to the plain version; #10
+within 1e-5 of its largest value, and bit-equal across two launches), then
+timed by torch.profiler in two rounds, the second in reverse order, so
+that a drift of the card shows as a spread.  One line per variant, kernel
+and T, then one JSON object.  Runs on the card only.
 """
 
 from __future__ import annotations
@@ -40,6 +41,12 @@ VARIANTS = {
     pp.dma_assemble: {
         "slice buffers": (),
         "tile, bulk store": ("DMA_TILE_STORE=1",),
+    },
+    pp.matmul_after_scratch: {  # 16 x 32, then the large tile
+        "16 x 32, 32 x 32": (),
+        "16 x 32 alone": ("SCRATCH_LARGE_MB=16",),
+        "16 x 32, 16 x 64": ("SCRATCH_LARGE_MB=16", "SCRATCH_LARGE_NB=64"),
+        "16 x 32, 32 x 64": ("SCRATCH_LARGE_NB=64",),
     },
 }
 

@@ -20,6 +20,7 @@ from stylish_tts_tpu_torch.ops import patch_probe as pp
 from stylish_tts_tpu_torch.ops import spec_conv as sc
 from stylish_tts_tpu_torch.ops import stft as plain
 from stylish_tts_tpu_torch.ops.stft_kernel import stft_forward
+from stylish_tts_tpu_torch.scripts import probe_variants as pv
 from torch_port_stft_oracle import rfft_frames
 
 # (n_fft, hop, win): the generator's prior STFT, then the loss resolutions
@@ -380,10 +381,10 @@ def _probe_plain(kernel, *inputs):
 # rows of output: the probe's 256; 96, three of the old 32-row blocks; 32,
 # one of them; and, for the copies #4-8 and the products #9-10, 131072,
 # where P (100.7 MB) is larger than the L2 and #9's blocks walk many row
-# tiles each; 160, five 32-row blocks, for #8
+# tiles each; 160, five 32-row blocks, for #8 and #10
 PROBE_ROWS = [(k, rows) for rows in (256, 96, 32) for k in pp.KERNELS] + [
     (k, 131072) for k in pp.KERNELS if k is not pp.mini_kernel] + [
-    (pp.dma_assemble, 160)]
+    (pp.dma_assemble, 160), (pp.matmul_after_scratch, 160)]
 
 
 @pytest.mark.cuda
@@ -403,6 +404,56 @@ def test_probe_kernels_match_plain(cuda, kernel, rows):
     else:  # f32 sums of 192 or 1728 products in another order
         err = (got - want).abs().max().item()
         assert err <= 1e-5 * want.abs().max().item(), err
+
+
+# #10's blocks of a column walk its row tiles, as many blocks as the card
+# holds; the grid never has more blocks than tiles, so none goes without.
+# Its 32-row tile takes over where its blocks fill the card (88 KB of
+# shared memory a block: 2 an SM, 66 a column on 132 SMs): at 67 and 265 of
+# them every block walks one or more tiles, and the last step of the walk
+# is taken by some blocks only.
+@pytest.mark.cuda
+@pytest.mark.parametrize("rows", [32 * 67, 32 * 265])
+def test_probe_matmul_after_scratch_walks_the_row_tiles(cuda, rows):
+    x, w = _probe_inputs(pp.matmul_after_scratch, rows)
+    got = pp.matmul_after_scratch(x, w)
+    want = pp.matmul_plain(x, w)
+    err = (got - want).abs().max().item()
+    assert err <= 1e-5 * want.abs().max().item(), err
+
+
+# the builds of scripts/probe_variants.py: #10's 16-row tile alone (its
+# blocks walk 530 tiles a column at 8480 rows) and the other large tiles,
+# #8's tile stored in one bulk copy
+VARIANTS = [(k, name, d) for k, v in pv.VARIANTS.items()
+            for name, d in v.items() if d]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rows", [160, 16 * 530])
+@pytest.mark.parametrize("kernel,name,defines", VARIANTS,
+                         ids=[f"{k.name}-{n}" for k, n, _ in VARIANTS])
+def test_probe_variant_builds_match_plain(cuda, kernel, name, defines, rows):
+    inputs = _probe_inputs(kernel, rows)
+    run = pv.launcher(kernel, defines)
+    got, again = run(*inputs), run(*inputs)
+    want = _probe_plain(kernel, *inputs)
+    assert torch.equal(got, again)
+    if kernel.n_ptrs == 2:
+        assert torch.equal(got, want)
+    else:
+        err = (got - want).abs().max().item()
+        assert err <= 1e-5 * want.abs().max().item(), err
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rows", [256, 131072])
+def test_probe_matmul_after_scratch_is_deterministic(cuda, rows):
+    inputs = _probe_inputs(pp.matmul_after_scratch, rows)
+    first = pp.matmul_after_scratch(*inputs)
+    again = pp.matmul_after_scratch(*inputs)
+    torch.cuda.synchronize()
+    assert torch.equal(first, again)
 
 
 @pytest.mark.cuda
