@@ -48,10 +48,15 @@
 //      32 columns of Y and stages only its columns of w (24 KB); its four
 //      warps split K, each lane keeps a 4 x 4 tile of sums, and the four
 //      partial tiles are summed in shared memory in a fixed order.
-//  #10 probe_matmul_after_scratch (:159) -> matmul_after_scratch: P staged
-//      in a shared tile whose rows are padded to 193 floats (lane r stores
-//      row r down the columns), then the same product.  The padding
-//      matters: a warp reads one column of 32 rows at each step.
+//  #10 probe_matmul_after_scratch (:159) -> matmul_after_scratch: #9's
+//      tiling of Y, but the block's rows of P are first written into a
+//      shared scratch at column 32j for slice j (#6's scratch write, by
+//      16-byte cp.async into one of two buffers, so the next tile's writes
+//      overlap this tile's FMAs) and multiplied from there, a float4 of P
+//      (4 k-values of a row) at a time; the scratch's float4 columns are
+//      swizzled by row so that those reads meet no bank conflict.  A
+//      32 x 32 tile of Y takes over from 16 x 32 where its blocks fill the
+//      card.
 //  #11 probe_mini_kernel (:183) -> mini_kernel: a miniature of the spec-conv
 //      forward, a small implicit GEMM:
 //        out[b, f, t, :] = sum_{g=3..8, dt<9} xq[b, f + g/4, t + dt,
@@ -80,21 +85,26 @@
 // short: 32 blocks of 128 threads (8 rows of P each) in place of 8 blocks
 // of 32 rows, every thread issues all its float4 loads before its first
 // dependent store, and every access is 16 bytes a thread, neighbouring
-// threads on neighbouring addresses.  #9 spreads its product over 64
-// blocks (8 before), each a short chain of 48 k-steps a warp.
+// threads on neighbouring addresses; #8 takes the same block shape, but
+// its loads are the copy engine's.  #9 and #10 spread their product over
+// 64 blocks (8 before), each a short chain of 48 k-steps a warp.
 // At T = 131072 the copies #4 and #6-8 move 117.4 MB (x 16.8 MB, P
 // 100.7 MB, more than the 50 MB L2): 35.1 us of bytes, the bound they are
 // built for there (#5 reads xp: 134.2 MB, 40.1 us); the products do
 // 6.44 GFLOP, 96.2 us at the f32 peak, above their 84.0 MB (25.1 us), and
-// #9's blocks then walk the row tiles, staging w once each.  Device time
+// their blocks then walk the row tiles, staging w once each.  Device time
 // (stylish_tts_tpu_torch/scripts/probe_times.py, NVIDIA H100 80GB HBM3,
 // 700.00 W), at T = 256 and at T = 131072: #4 1.11 and 42.5 us (the
 // 32-row design 2.4 and 45.7; the strided library copy 1.54 and 61.0);
 // #6 / #7 1.16 / 1.18 and 42.7 / 41.9 us (the 32-row designs 2.61 / 2.83
-// and 46.9 / 43.4); #9 2.75 and 223.8 us, 43% of the f32 bound (the
-// one-block-a-32-rows design 16.6; F.conv1d in f32 11.1 and 251.7).
-// #5, #8, #10 and #11 are first versions that are right; only #11 does
-// enough work at the probe's sizes for its design to show.
+// and 46.9 / 43.4); #8 1.50 and 43.1 us, 81% of the bytes bound (the
+// 32-row design 2.23 and 43.7; the tile and bulk store, -DDMA_TILE_STORE=1,
+// 2.32 and 42.3); #9 2.75 and 223.8 us, 43% of the f32 bound (the
+// one-block-a-32-rows design 16.6; F.conv1d in f32 11.1 and 251.7); #10
+// 2.46 and 169.7 us, 57% of the f32 bound (the 32-row, 193-pitch design
+// 11.5 and 357.5; 16 x 32 alone 188-189 us at T = 131072).  #5 and #11 are
+// first versions that are right; only #11 does enough work at the probe's
+// sizes for its design to show.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -105,7 +115,7 @@ constexpr int CIN = 32;          // channels of a slice
 constexpr int TAPS = 6;          // slices side by side
 constexpr int K = TAPS * CIN;    // 192, the patch width
 constexpr int N = 128;           // output columns of the products
-constexpr int RT = 32;           // rows of P per block
+constexpr int RT = 32;           // #5's rows of P a block; T a multiple of it
 constexpr int THREADS = 256;
 constexpr int WARPS = THREADS / 32;
 
