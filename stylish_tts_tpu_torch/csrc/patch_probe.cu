@@ -41,7 +41,8 @@
 //      float4 of P slice-major, each after its slice's barrier, 8 threads
 //      one aligned 128-byte run of a row.  The TPU probe's own structure
 //      (rows landing at column 32j of a [8][192] tile, one bulk store out)
-//      is the build -DDMA_TILE_STORE=1.
+//      was timed 0.8 us slower at T = 256 and no faster at T = 131072
+//      (PERF.md).
 //   #9 probe_matmul_after_concat (:138) -> matmul_after_concat: P's rows
 //      are built in registers, 4 columns at a time, from 16-byte loads of x;
 //      w is staged in shared memory; Y in f32 FMAs.  A block owns 16 rows x
@@ -94,17 +95,15 @@
 // 6.44 GFLOP, 96.2 us at the f32 peak, above their 84.0 MB (25.1 us), and
 // their blocks then walk the row tiles, staging w once each.  Device time
 // (stylish_tts_tpu_torch/scripts/probe_times.py, NVIDIA H100 80GB HBM3,
-// 700.00 W), at T = 256 and at T = 131072: #4 1.11 and 42.5 us (the
-// 32-row design 2.4 and 45.7; the strided library copy 1.54 and 61.0);
-// #6 / #7 1.16 / 1.18 and 42.7 / 41.9 us (the 32-row designs 2.61 / 2.83
-// and 46.9 / 43.4); #8 1.50 and 43.1 us, 81% of the bytes bound (the
-// 32-row design 2.23 and 43.7; the tile and bulk store, -DDMA_TILE_STORE=1,
-// 2.32 and 42.3); #9 2.75 and 223.8 us, 43% of the f32 bound (the
-// one-block-a-32-rows design 16.6; F.conv1d in f32 11.1 and 251.7); #10
-// 2.46 and 169.7 us, 57% of the f32 bound (the 32-row, 193-pitch design
-// 11.5 and 357.5; 16 x 32 alone 188-189 us at T = 131072).  #5 and #11 are
-// first versions that are right; only #11 does enough work at the probe's
-// sizes for its design to show.
+// 700.00 W; two runs in one call), at T = 256 and at T = 131072: #4 1.08
+// and 42.6-42.7 us; #6 / #7 1.13-1.14 / 1.18 and 41.6-41.9 / 41.9-42.0 us;
+// #8 1.48-1.49 and 41.7-43.0 us, 82-84% of the bytes bound (the strided
+// library copy 1.51-1.53 and 61.8-62.1; the 32-row design before it 2.23
+// and 44.0-44.2); #9 2.73 and 222.5-222.7 us, 43% of the f32 bound
+// (F.conv1d in f32 11.06 and 249.6-252.3); #10 2.42 and 168.8-169.1 us,
+// 57% of the f32 bound (the 32-row, 193-pitch design before it 11.51 and
+// 354.5-355.1).  #5 and #11 are first versions that are right; only #11
+// does enough work at the probe's sizes for its design to show.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -267,15 +266,7 @@ stack_reshape_kernel(const float4* __restrict__ x, float4* __restrict__ p) {
 // #8: bulk async copies completing on mbarriers, one barrier a slice.  A
 // block owns BR rows of P.  Slice j of them is one contiguous BR * 128
 // bytes of x: one bulk copy into a buffer of its own, which the block
-// writes to P by float4 stores as it lands.  Built with -DDMA_TILE_STORE=1
-// (the TPU probe's own structure, timed slower on this card), each slice
-// lands at its column offset of a [BR][192] tile, one 128-byte bulk copy a
-// row, and the tile goes out as one bulk store: BR whole rows of P are one
-// contiguous range.
-
-#ifndef DMA_TILE_STORE
-#define DMA_TILE_STORE 0
-#endif
+// writes to P by float4 stores as it lands.
 
 __device__ __forceinline__ void bar_init(uint64_t* bar, int count) {
   asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n"
@@ -313,9 +304,8 @@ __device__ __forceinline__ void wait_phase0(const uint64_t* bar) {
 
 constexpr int ROW_BYTES = CIN * (int)sizeof(float);  // 128, a row of x
 static_assert(ROW_BYTES % 16 == 0, "bulk copies move multiples of 16 B");
-static_assert(TAPS * BR <= BTHREADS, "one thread a row copy");
+static_assert(TAPS <= BTHREADS, "one thread a slice copy");
 
-#if !DMA_TILE_STORE
 // Threads 0..5 each init bar[j] and copy slice j (rows r0 + j .. r0 + j + 7
 // of x, 1 KB) into buf[j]; every thread then takes 3 float4 of P
 // slice-major (#4's order), waits on its slice's barrier and stores it.
@@ -340,39 +330,6 @@ dma_assemble_kernel(const float* __restrict__ x, float* __restrict__ p) {
     out[(size_t)(r0 + r) * PQ + j * SQ + c4] = buf[j][k & (SLICE - 1)];
   }
 }
-#else
-// Threads 0..47 each copy one row of x, x[r0 + r + j] -> tile[r][32j]
-// (j = tid / 8, r = tid % 8), arriving on bar[j] with its 128 bytes; the
-// eight rows of slice j complete bar[j].  Thread 0 waits on the six
-// barriers, then stores the tile, the block's rows of P, as one bulk copy
-// and waits until it has been read before the block's shared memory goes.
-__global__ void __launch_bounds__(BTHREADS)
-dma_assemble_kernel(const float* __restrict__ x, float* __restrict__ p) {
-  __shared__ __align__(128) float tile[BR][K];
-  __shared__ __align__(8) uint64_t bar[TAPS];
-  const int r0 = blockIdx.x * BR, tid = threadIdx.x;
-  if (tid < TAPS) bar_init(&bar[tid], BR);
-  __syncthreads();
-  if (tid < TAPS * BR) {
-    const int j = tid / BR, r = tid % BR;
-    bulk_load(&tile[r][j * CIN], x + (size_t)(r0 + r + j) * CIN, ROW_BYTES,
-              &bar[j]);
-  }
-  if (tid == 0) {
-    for (int j = 0; j < TAPS; ++j) wait_phase0(&bar[j]);
-    // the tile was written by the copy engine, not by a thread: the fence
-    // orders what this thread has observed before the store's reads
-    asm volatile(
-        "fence.proxy.async.shared::cta;\n"
-        "cp.async.bulk.global.shared::cta.bulk_group [%0], [%1], %2;\n"
-        "cp.async.bulk.commit_group;\n"
-        "cp.async.bulk.wait_group.read 0;\n"
-        :: "l"(reinterpret_cast<uint64_t>(p + (size_t)r0 * K)),
-           "r"(smem_addr(&tile[0][0])), "r"(BR * K * (int)sizeof(float))
-        : "memory");
-  }
-}
-#endif
 
 // ------------------------------------------------------------------------- //
 // #9: Y = P @ w over the card.  A block owns MB rows x NB columns of Y; its
@@ -388,6 +345,7 @@ dma_assemble_kernel(const float* __restrict__ x, float* __restrict__ p) {
 
 constexpr int MB = 16;                    // rows of Y a block
 constexpr int NB = 32;                    // columns of Y a block
+constexpr int LMB = 32, LNB = 32;         // #10's tile where it fills the card
 constexpr int NB4 = NB / 4;               // float4 of a block's row of Y or w
 constexpr int N4 = N / 4;                 // float4 of a row of Y or w
 constexpr int KSPLIT = BTHREADS / 32;     // warps, one slice of K each
@@ -481,18 +439,9 @@ matmul_after_concat_kernel(const float4* __restrict__ x,
 // contiguous bytes of a slice, stay 8 distinct float4 of one 128-byte run.
 //
 // Two tiles: #9's 16 x 32, which keeps 64 blocks busy at T = 256, and
-// where the larger tile's blocks fill the card, 32 x 32, which does twice
-// the FMAs for each float4 of w it reads and for each barrier and partial
-// sum (stylish_tts_tpu_torch/scripts/probe_variants.py at T = 131072:
-// 169-175 us against 188-189 for 16 x 32 alone).  The sweep's other large
-// tiles are built with -DSCRATCH_LARGE_MB=... -DSCRATCH_LARGE_NB=...
-
-#ifndef SCRATCH_LARGE_MB
-#define SCRATCH_LARGE_MB 32
-#endif
-#ifndef SCRATCH_LARGE_NB
-#define SCRATCH_LARGE_NB 32
-#endif
+// LMB x LNB = 32 x 32 where its blocks fill the card, which does twice the
+// FMAs for each float4 of w it reads and for each barrier and partial sum
+// (PERF.md holds the sweep of large tiles at T = 131072).
 
 template <int SMB, int SNB>
 struct ScratchTile {
@@ -679,38 +628,48 @@ int with_smem(const void* kernel, int bytes) {
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
 }
 
-// #10 in one tile shape: the blocks of each column of Y, as many as the card
-// holds at once (an occupancy query, cached), at most one a row tile.
-template <int SMB, int SNB>
-int scratch_resident() {
-  static const int resident = [] {
-    const void* kernel = (const void*)matmul_after_scratch_kernel<SMB, SNB>;
-    const int smem = ScratchTile<SMB, SNB>::SMEM;
-    int dev = 0, sms = 0, per_sm = 0;
-    if (with_smem(kernel, smem) != cudaSuccess ||
-        cudaGetDevice(&dev) != cudaSuccess ||
-        cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev) !=
-            cudaSuccess ||
-        cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-            &per_sm, kernel, BTHREADS, smem) != cudaSuccess)
-      return 0;
-    return sms * per_sm / (N / SNB);
-  }();
-  return resident;
+// #9 and #10 over the card: N / nb columns of blocks, each of as many
+// blocks as the card holds at once (an occupancy query), at most one a row
+// tile; the blocks of a column walk the rest.
+using WalkKernel = void (*)(const float4*, const float4*, float4*, int);
+
+int resident_per_column(WalkKernel kernel, int smem, int nb) {
+  int dev = 0, sms = 0, per_sm = 0;
+  if (with_smem((const void*)kernel, smem) != cudaSuccess ||
+      cudaGetDevice(&dev) != cudaSuccess ||
+      cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev) !=
+          cudaSuccess ||
+      cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+          &per_sm, kernel, BTHREADS, smem) != cudaSuccess)
+    return 0;
+  return sms * per_sm / (N / nb);
 }
 
-template <int SMB, int SNB>
-int scratch_launch(const void* x, const void* w, void* y, int t,
-                   void* stream) {
-  const int resident = scratch_resident<SMB, SNB>();
+int walk_launch(WalkKernel kernel, int resident, int smem, int nb,
+                const void* x, const void* w, void* y, int tiles,
+                void* stream) {
   if (resident < 1) return (int)cudaErrorInvalidConfiguration;
-  const int tiles = t / SMB;
-  const dim3 grid(N / SNB, tiles < resident ? tiles : resident);
-  matmul_after_scratch_kernel<SMB, SNB>
-      <<<grid, BTHREADS, ScratchTile<SMB, SNB>::SMEM, (cudaStream_t)stream>>>(
-          (const float4*)x, (const float4*)w, (float4*)y, tiles);
+  const dim3 grid(N / nb, tiles < resident ? tiles : resident);
+  kernel<<<grid, BTHREADS, smem, (cudaStream_t)stream>>>(
+      (const float4*)x, (const float4*)w, (float4*)y, tiles);
   return (int)cudaGetLastError();
 }
+
+// #10 in one tile shape; its residency is queried once
+template <int SMB, int SNB>
+struct Scratch {
+  static constexpr int smem = ScratchTile<SMB, SNB>::SMEM;
+  static int resident() {
+    static const int r = resident_per_column(
+        matmul_after_scratch_kernel<SMB, SNB>, smem, SNB);
+    return r;
+  }
+  static int launch(const void* x, const void* w, void* y, int t,
+                    void* stream) {
+    return walk_launch(matmul_after_scratch_kernel<SMB, SNB>, resident(),
+                       smem, SNB, x, w, y, t / SMB, stream);
+  }
+};
 
 }  // namespace
 
@@ -755,33 +714,18 @@ extern "C" int probe_dma_assemble(const void* x, void* p, int t,
 
 extern "C" int probe_matmul_after_concat(const void* x, const void* w,
                                          void* y, int t, void* stream) {
-  // the blocks of each column: as many as the card holds at once, at most
-  // one a row tile
-  static const int resident = [] {
-    int dev = 0, sms = 0, per_sm = 0;
-    if (cudaGetDevice(&dev) != cudaSuccess ||
-        cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev) !=
-            cudaSuccess ||
-        cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-            &per_sm, matmul_after_concat_kernel, BTHREADS, 0) != cudaSuccess)
-      return 0;
-    return sms * per_sm / (N / NB);
-  }();
-  if (resident < 1) return (int)cudaErrorInvalidConfiguration;
-  const int tiles = t / MB;
-  const dim3 grid(N / NB, tiles < resident ? tiles : resident);
-  matmul_after_concat_kernel<<<grid, BTHREADS, 0, (cudaStream_t)stream>>>(
-      (const float4*)x, (const float4*)w, (float4*)y, tiles);
-  return (int)cudaGetLastError();
+  static const int resident =
+      resident_per_column(matmul_after_concat_kernel, 0, NB);
+  return walk_launch(matmul_after_concat_kernel, resident, 0, NB, x, w, y,
+                     t / MB, stream);
 }
 
 extern "C" int probe_matmul_after_scratch(const void* x, const void* w,
                                           void* y, int t, void* stream) {
   // the large tile where its blocks fill the card, else #9's 16 x 32
-  constexpr int LMB = SCRATCH_LARGE_MB, LNB = SCRATCH_LARGE_NB;
-  if (t / LMB >= scratch_resident<LMB, LNB>())
-    return scratch_launch<LMB, LNB>(x, w, y, t, stream);
-  return scratch_launch<MB, NB>(x, w, y, t, stream);
+  if (t / LMB >= Scratch<LMB, LNB>::resident())
+    return Scratch<LMB, LNB>::launch(x, w, y, t, stream);
+  return Scratch<MB, NB>::launch(x, w, y, t, stream);
 }
 
 extern "C" int probe_mini_kernel(const void* xq, const void* w, void* out,

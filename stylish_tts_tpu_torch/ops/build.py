@@ -6,9 +6,7 @@ so an edited source rebuilds) and is loaded with ``ctypes``.  Nothing is
 built at import: the first launch of a kernel builds its library, and
 ``build`` builds several sources at once, one ``nvcc`` each, started
 together.  The compiler's register and spill report lands in
-``build/<stem>.log``.  ``defines`` (``NAME=VALUE``, passed as ``-D``) build
-a variant of a source into a library of its own, for sweeps; the kernels'
-wrappers load the plain build.
+``build/<stem>.log``.
 """
 
 from __future__ import annotations
@@ -19,7 +17,7 @@ import os
 import shutil
 import subprocess
 from pathlib import Path
-from typing import Dict, Iterable, Sequence, Tuple
+from typing import Dict, Iterable
 
 PACKAGE_DIR = Path(__file__).resolve().parent.parent
 CSRC_DIR = PACKAGE_DIR / "csrc"
@@ -29,7 +27,7 @@ NVCC_FLAGS = [
     "-Xptxas", "-v", "-shared", "-Xcompiler", "-fPIC",
 ]
 
-_loaded: Dict[Tuple[str, Tuple[str, ...]], ctypes.CDLL] = {}
+_loaded: Dict[str, ctypes.CDLL] = {}
 
 
 def _nvcc() -> str:
@@ -43,45 +41,36 @@ def _nvcc() -> str:
                        "the port's kernels")
 
 
-def _flags(defines: Sequence[str]) -> list:
-    return [*NVCC_FLAGS, *(f"-D{d}" for d in defines)]
-
-
-def _name(stem: str, defines: Sequence[str]) -> str:
-    return "-".join([stem, *(d.replace("=", "") for d in defines)])
-
-
-def _target(stem: str, defines: Sequence[str] = ()) -> Path:
+def _target(stem: str) -> Path:
     digest = hashlib.sha256((CSRC_DIR / f"{stem}.cu").read_bytes())
-    digest.update(" ".join(_flags(defines)).encode())
-    return BUILD_DIR / f"lib{_name(stem, defines)}-{digest.hexdigest()[:12]}.so"
+    digest.update(" ".join(NVCC_FLAGS).encode())
+    return BUILD_DIR / f"lib{stem}-{digest.hexdigest()[:12]}.so"
 
 
-def build_log(stem: str, defines: Sequence[str] = ()) -> str:
-    path = BUILD_DIR / f"{_name(stem, defines)}.log"
+def build_log(stem: str) -> str:
+    path = BUILD_DIR / f"{stem}.log"
     return path.read_text() if path.exists() else ""
 
 
-def build(stems: Iterable[str], defines: Sequence[str] = ()) -> None:
-    """Build every stale library of ``stems`` (with ``defines``): one
-    ``nvcc`` per source, all started together.  Raises with the compiler's
-    output if a build fails."""
+def build(stems: Iterable[str]) -> None:
+    """Build every stale library of ``stems``: one ``nvcc`` per source, all
+    started together.  Raises with the compiler's output if a build fails."""
     pending = []
     for stem in dict.fromkeys(stems):
-        target = _target(stem, defines)
+        target = _target(stem)
         if target.exists():
             continue
         BUILD_DIR.mkdir(parents=True, exist_ok=True)
         tmp = target.with_suffix(f".{os.getpid()}.tmp")
         proc = subprocess.Popen(
-            [_nvcc(), *_flags(defines), "-o", str(tmp),
+            [_nvcc(), *NVCC_FLAGS, "-o", str(tmp),
              str(CSRC_DIR / f"{stem}.cu")],
             stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
         pending.append((stem, target, tmp, proc))
     failed = []
     for stem, target, tmp, proc in pending:
         output, _ = proc.communicate()
-        (BUILD_DIR / f"{_name(stem, defines)}.log").write_text(output)
+        (BUILD_DIR / f"{stem}.log").write_text(output)
         if proc.returncode != 0:
             failed.append(f"nvcc failed for {stem}:\n{output[-4000:]}")
         else:
@@ -90,11 +79,9 @@ def build(stems: Iterable[str], defines: Sequence[str] = ()) -> None:
         raise RuntimeError("\n".join(failed))
 
 
-def load_library(stem: str, defines: Sequence[str] = ()) -> ctypes.CDLL:
-    """The loaded library of ``csrc/<stem>.cu`` (built with ``defines``),
-    built first if stale."""
-    key = (stem, tuple(defines))
-    if key not in _loaded:
-        build([stem], defines)
-        _loaded[key] = ctypes.CDLL(str(_target(stem, defines)))
-    return _loaded[key]
+def load_library(stem: str) -> ctypes.CDLL:
+    """The loaded library of ``csrc/<stem>.cu``, built first if stale."""
+    if stem not in _loaded:
+        build([stem])
+        _loaded[stem] = ctypes.CDLL(str(_target(stem)))
+    return _loaded[stem]

@@ -20,7 +20,6 @@ from stylish_tts_tpu_torch.ops import patch_probe as pp
 from stylish_tts_tpu_torch.ops import spec_conv as sc
 from stylish_tts_tpu_torch.ops import stft as plain
 from stylish_tts_tpu_torch.ops.stft_kernel import stft_forward
-from stylish_tts_tpu_torch.scripts import probe_variants as pv
 from torch_port_stft_oracle import rfft_frames
 
 # (n_fft, hop, win): the generator's prior STFT, then the loss resolutions
@@ -420,30 +419,6 @@ def test_probe_matmul_after_scratch_walks_the_row_tiles(cuda, rows):
     want = pp.matmul_plain(x, w)
     err = (got - want).abs().max().item()
     assert err <= 1e-5 * want.abs().max().item(), err
-
-
-# the builds of scripts/probe_variants.py: #10's 16-row tile alone (its
-# blocks walk 530 tiles a column at 8480 rows) and the other large tiles,
-# #8's tile stored in one bulk copy
-VARIANTS = [(k, name, d) for k, v in pv.VARIANTS.items()
-            for name, d in v.items() if d]
-
-
-@pytest.mark.cuda
-@pytest.mark.parametrize("rows", [160, 16 * 530])
-@pytest.mark.parametrize("kernel,name,defines", VARIANTS,
-                         ids=[f"{k.name}-{n}" for k, n, _ in VARIANTS])
-def test_probe_variant_builds_match_plain(cuda, kernel, name, defines, rows):
-    inputs = _probe_inputs(kernel, rows)
-    run = pv.launcher(kernel, defines)
-    got, again = run(*inputs), run(*inputs)
-    want = _probe_plain(kernel, *inputs)
-    assert torch.equal(got, again)
-    if kernel.n_ptrs == 2:
-        assert torch.equal(got, want)
-    else:
-        err = (got - want).abs().max().item()
-        assert err <= 1e-5 * want.abs().max().item(), err
 
 
 @pytest.mark.cuda

@@ -69,37 +69,55 @@ COPIES = {
 }
 
 
+def _matches_jax(jax_probe, name: str, xh: np.ndarray) -> None:
+    """The TPU probe ``name`` against the port's wrapper on x = ``xh``."""
+    fn = getattr(jax_probe, f"probe_{name}")
+    if name in COPIES or name == "concat_lane_off":
+        want = np.asarray(fn(jnp.asarray(xh)))
+        if name == "concat_lane_off":
+            got = pp.concat_lane_off(_t(np.concatenate([xh, xh * 2.0], 1)))
+        else:
+            got = COPIES[name](_t(xh))
+        assert got.shape == want.shape == (len(xh) - 6, 192)
+        np.testing.assert_array_equal(got.numpy(), want)  # moves data only
+        return
+    y, w = fn(jnp.asarray(xh))
+    want = np.asarray(y)
+    got = getattr(pp, name)(_t(xh), _t(np.asarray(w))).numpy()
+    assert got.shape == want.shape == (len(xh) - 6, 128)
+    # f32 sums of 192 products in another order
+    err = np.abs(got - want).max()
+    assert err <= 1e-5 * np.abs(want).max(), err
+
+
 @pytest.mark.parametrize("name", port_probe.PROBES)
 def test_probe_matches_jax(jax_probe, interpret, name):
     xh = probe_input()
-    fn = getattr(jax_probe, f"probe_{name}")
-    if name in COPIES:
-        want = np.asarray(fn(jnp.asarray(xh)))
-        got = COPIES[name](_t(xh)).numpy()
-        np.testing.assert_array_equal(got, want)  # moves data only
+    if name != "mini_kernel":
+        _matches_jax(jax_probe, name, xh)
         return
-    if name == "concat_lane_off":
-        want = np.asarray(fn(jnp.asarray(xh)))
-        xp = np.concatenate([xh, xh * 2.0], axis=1)
-        got = pp.concat_lane_off(_t(xp)).numpy()
-        np.testing.assert_array_equal(got, want)
-        return
-    if name == "mini_kernel":
-        assert fn(jnp.asarray(xh)) == "ok"
-        (want,) = interpret
-        rng = np.random.default_rng(1)
-        xq = rng.standard_normal((2, 5, 520, 128)).astype(np.float32)
-        w = rng.standard_normal((1728, 128)).astype(np.float32) * 0.1
-        got = pp.mini_kernel(_t(xq), _t(w)).numpy()
-    else:
-        y, w = fn(jnp.asarray(xh))
-        want = np.asarray(y)
-        kernel = getattr(pp, name)
-        got = kernel(_t(xh), _t(np.asarray(w))).numpy()
+    assert jax_probe.probe_mini_kernel(jnp.asarray(xh)) == "ok"
+    (want,) = interpret
+    rng = np.random.default_rng(1)
+    xq = rng.standard_normal((2, 5, 520, 128)).astype(np.float32)
+    w = rng.standard_normal((1728, 128)).astype(np.float32) * 0.1
+    got = pp.mini_kernel(_t(xq), _t(w)).numpy()
     assert got.shape == want.shape
-    # f32 sums of 192 or 1728 products in another order
+    # f32 sums of 1728 products in another order
     err = np.abs(got - want).max()
     assert err <= 1e-5 * np.abs(want).max(), err
+
+
+# The TPU probes read their row count from the script's module-level T, so
+# they also run at the card tests' other row counts.
+@pytest.mark.parametrize("rows", [32, 96, 160])
+@pytest.mark.parametrize("name", [n for n in port_probe.PROBES
+                                  if n != "mini_kernel"])
+def test_probe_matches_jax_at_other_row_counts(jax_probe, interpret,
+                                               monkeypatch, name, rows):
+    monkeypatch.setattr(jax_probe, "T", rows)
+    _matches_jax(jax_probe, name, np.random.default_rng(rows).standard_normal(
+        (rows + 6, 32)).astype(np.float32))
 
 
 def test_entry_point_on_cpu(jax_probe, capsys):
