@@ -114,7 +114,7 @@ constexpr int CIN = 32;          // channels of a slice
 constexpr int TAPS = 6;          // slices side by side
 constexpr int K = TAPS * CIN;    // 192, the patch width
 constexpr int N = 128;           // output columns of the products
-constexpr int RT = 32;           // #5's rows of P a block; T a multiple of it
+constexpr int T_MULT = 32;       // T and rows are multiples of it (the wrapper)
 constexpr int THREADS = 256;
 constexpr int WARPS = THREADS / 32;
 
@@ -137,23 +137,7 @@ __device__ __forceinline__ void cp_async_wait() {
 }
 
 // ------------------------------------------------------------------------- //
-// #5: 16-byte vectors at a 32-float column offset
-
-__global__ void __launch_bounds__(THREADS)
-concat_lane_off_kernel(const float4* __restrict__ xp, float4* __restrict__ p) {
-  constexpr int PQ = K / 4;        // float4 per row of P
-  constexpr int XQ = 2 * CIN / 4;  // float4 per row of xp
-  constexpr int SQ = CIN / 4;      // float4 per slice row
-  const int r0 = blockIdx.x * RT;
-  for (int i = threadIdx.x; i < RT * PQ; i += THREADS) {
-    const int r = i / PQ, q = i % PQ, j = q / SQ, c4 = q % SQ;
-    p[(size_t)(r0 + r) * PQ + q] =
-        __ldg(xp + (size_t)(r0 + r + j) * XQ + (j % 2) * SQ + c4);
-  }
-}
-
-// ------------------------------------------------------------------------- //
-// #4, #6 and #7: small blocks, 16-byte traffic.  A block owns BR rows of P,
+// #4-7: small blocks, 16-byte traffic.  A block owns BR rows of P,
 // BR * PQ float4.  #6 and #7 build them as a tile [BR][192] floats in shared
 // memory, written by float4 stores in which each group of 8 threads fills
 // 128 contiguous bytes (one slice row), so a row pitch of 192 floats meets
@@ -166,7 +150,7 @@ constexpr int SQ = CIN / 4;           // float4 per row of x
 constexpr int PQ = K / 4;             // float4 per row of P
 constexpr int WIN = BR + TAPS - 1;    // rows of x under a block's rows of P
 constexpr int OUT_PER_THREAD = BR * PQ / BTHREADS;
-static_assert(RT % BR == 0, "T is a multiple of RT, so of BR");
+static_assert(T_MULT % BR == 0, "T is a multiple of BR");
 static_assert(BR * PQ % BTHREADS == 0, "whole float4 stores a thread");
 static_assert(TAPS * BR * SQ % BTHREADS == 0, "whole slice loads a thread");
 
@@ -180,6 +164,12 @@ constexpr int SLICE_LOG2 = 6;         // BR * SQ = 64 float4 of a slice
 constexpr int SQ_LOG2 = 3;            // SQ = 8
 static_assert(BR * SQ == 1 << SLICE_LOG2 && SQ == 1 << SQ_LOG2, "shifts");
 
+// where float4 k of the block, taken slice-major, lies in P
+__device__ __forceinline__ size_t patch_index(int r0, int k) {
+  const int j = k >> SLICE_LOG2, r = (k >> SQ_LOG2) & (BR - 1);
+  return (size_t)(r0 + r) * PQ + j * SQ + (k & (SQ - 1));
+}
+
 __global__ void __launch_bounds__(BTHREADS)
 concat_full_lane_kernel(const float4* __restrict__ x, float4* __restrict__ p) {
   const int r0 = blockIdx.x * BR;
@@ -190,11 +180,29 @@ concat_full_lane_kernel(const float4* __restrict__ x, float4* __restrict__ p) {
     v[u] = __ldg(x + (size_t)(r0 + j) * SQ + (k & (BR * SQ - 1)));
   }
 #pragma unroll
+  for (int u = 0; u < OUT_PER_THREAD; ++u)
+    p[patch_index(r0, threadIdx.x + u * BTHREADS)] = v[u];
+}
+
+// #5: #4's gather from the paired layout xp = [x, 2x], 2 SQ float4 a row.
+// Slice j of the block's rows is rows r0 + j .. r0 + j + 7 of xp at float4
+// column SQ (j & 1), the 128 B column offset: 8 runs of 128 B at a row
+// pitch of 256 B, each read by 8 threads.  The stores are #4's.
+__global__ void __launch_bounds__(BTHREADS)
+concat_lane_off_kernel(const float4* __restrict__ xp, float4* __restrict__ p) {
+  constexpr int XQ = 2 * SQ;  // float4 of a row of xp
+  const int r0 = blockIdx.x * BR;
+  float4 v[OUT_PER_THREAD];
+#pragma unroll
   for (int u = 0; u < OUT_PER_THREAD; ++u) {
     const int k = threadIdx.x + u * BTHREADS, j = k >> SLICE_LOG2;
-    const int r = (k >> SQ_LOG2) & (BR - 1), c4 = k & (SQ - 1);
-    p[(size_t)(r0 + r) * PQ + j * SQ + c4] = v[u];
+    const int r = (k >> SQ_LOG2) & (BR - 1);
+    v[u] = __ldg(xp + (size_t)(r0 + r + j) * XQ + (j & 1) * SQ +
+                 (k & (SQ - 1)));
   }
+#pragma unroll
+  for (int u = 0; u < OUT_PER_THREAD; ++u)
+    p[patch_index(r0, threadIdx.x + u * BTHREADS)] = v[u];
 }
 
 // The tile out to P, coalesced: every thread reads all its float4 first.
@@ -325,9 +333,8 @@ dma_assemble_kernel(const float* __restrict__ x, float* __restrict__ p) {
 #pragma unroll
   for (int u = 0; u < OUT_PER_THREAD; ++u) {
     const int k = tid + u * BTHREADS, j = k >> SLICE_LOG2;
-    const int r = (k >> SQ_LOG2) & (BR - 1), c4 = k & (SQ - 1);
     wait_phase0(&bar[j]);
-    out[(size_t)(r0 + r) * PQ + j * SQ + c4] = buf[j][k & (SLICE - 1)];
+    out[patch_index(r0, k)] = buf[j][k & (SLICE - 1)];
   }
 }
 
@@ -353,7 +360,8 @@ constexpr int KW = K / KSPLIT;            // 48, the depth of a slice
 constexpr int TM = 4, TN = 4;             // a lane's tile of Y
 static_assert(MB == 4 * TM && NB == 8 * TN, "4 x 8 lanes of TM x TN tiles");
 static_assert(MB * NB4 == BTHREADS, "one float4 of Y a thread in the sum");
-static_assert(NB4 == SQ && KW % 4 == 0 && RT % MB == 0, "the index shifts");
+static_assert(NB4 == SQ && KW % 4 == 0 && T_MULT % MB == 0,
+              "the index shifts");
 
 __device__ __forceinline__ float part_of(const float4& v, int i) {
   return i == 0 ? v.x : i == 1 ? v.y : i == 2 ? v.z : v.w;
@@ -452,7 +460,8 @@ struct ScratchTile {
   static constexpr int P4 = SMB * PQ;        // float4 of one scratch buffer
   static constexpr int PART4 = SMB * NB4;    // float4 of a warp's partials
   static constexpr int SMEM = (W4 + 2 * P4 + KSPLIT * PART4) * 16;
-  static_assert(SMB % 4 == 0 && RT % SMB == 0, "4 row groups; whole tiles");
+  static_assert(SMB % 4 == 0 && T_MULT % SMB == 0,
+                "4 row groups; whole tiles");
   static_assert(NB4 % 8 == 0 && N % SNB == 0, "8 column groups; whole N");
   static_assert(TAPS * SMB * SQ % BTHREADS == 0, "whole copies a thread");
 };
@@ -686,7 +695,7 @@ extern "C" int probe_concat_full_lane(const void* x, void* p, int t,
 
 extern "C" int probe_concat_lane_off(const void* xp, void* p, int t,
                                      void* stream) {
-  concat_lane_off_kernel<<<t / RT, THREADS, 0, (cudaStream_t)stream>>>(
+  concat_lane_off_kernel<<<t / BR, BTHREADS, 0, (cudaStream_t)stream>>>(
       (const float4*)xp, (float4*)p);
   return (int)cudaGetLastError();
 }
