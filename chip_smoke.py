@@ -25,7 +25,8 @@ Phases, in order; any failure raises and the exit code is non-zero:
    1e-5 of the largest value) and timed beside it, its library call and its
    bound; then the five copies and the two products at T = 131072, where
    bytes set the copies' time and operations the products' (6.44 GFLOP,
-   96.2 us at the f32 peak), held against the plain version as at T = 256,
+   96.2 us at the f32 peak), and the mini kernel at R = 8192 rows (21.7
+   GFLOP, 324.5 us), held against the plain version as at T = 256,
    with their, the plain version's and the library call's device time and
    the bound's share; then the probe entry point
    (``stylish_tts_tpu_torch.scripts.mosaic_probe.run``) on the card, with
@@ -72,7 +73,8 @@ import numpy as np
 import torch
 
 from stylish_tts_tpu_torch.scripts.probe_times import (
-    LARGE_T, check_case, device_times, probe_cases, probe_times, times_line)
+    LARGE_T, MINI_ROWS, check_case, device_times, probe_cases, probe_times,
+    times_line)
 from stylish_tts_tpu_torch.scripts.spec_conv_times import (
     LAUNCHES_PER_LAYER, conv_calls, device_ms, layer_times, max_error,
     mrd_layers)
@@ -763,11 +765,12 @@ def main() -> int:
               f"{n['bound_ms'] * 1e3:.3f} us ({n['bound_by']}), max err "
               f"{n['max_abs_err']:.2e} of {n['max_abs_plain']:.2e} [{card}]")
     # ... the copies and the products where bytes and operations set the
-    # time ...
+    # time, and the mini kernel where its blocks walk many row tiles ...
     record["probes_large"] = probe_times(device, LARGE_T)
-    print(f"the copy and product probes at T = {LARGE_T}: device time by "
-          f"torch.profiler, held against the plain version (copies bit-equal"
-          f") [{card}]")
+    print(f"the copy and product probes at T = {LARGE_T} and the mini kernel "
+          f"at R = {MINI_ROWS[LARGE_T]}: device time by torch.profiler beside "
+          f"the bound, held against the plain version (copies bit-equal) "
+          f"[{card}]")
     for name, n in record["probes_large"].items():
         print(f"{times_line(name, n)} [{card}]")
     torch.cuda.empty_cache()

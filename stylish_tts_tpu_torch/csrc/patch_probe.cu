@@ -115,8 +115,6 @@ constexpr int TAPS = 6;          // slices side by side
 constexpr int K = TAPS * CIN;    // 192, the patch width
 constexpr int N = 128;           // output columns of the products
 constexpr int T_MULT = 32;       // T and rows are multiples of it (the wrapper)
-constexpr int THREADS = 256;
-constexpr int WARPS = THREADS / 32;
 
 __device__ __forceinline__ uint32_t smem_addr(const void* p) {
   return (uint32_t)__cvta_generic_to_shared(p);
@@ -553,82 +551,145 @@ matmul_after_scratch_kernel(const float4* __restrict__ x,
 }
 
 // ------------------------------------------------------------------------- //
-// #11: the miniature spec-conv forward
+// #11: the miniature spec-conv forward as a tiled, persistent f32 implicit
+// GEMM.  Its rows are (b, f, t), M = B F R, its columns the N = 128 outputs,
+// its K = 1728 runs over (group gi, tap dt, channel c): k = 32 (9 gi + dt)
+// + c, reading xq[b, f + g / 4, t + dt, 32 (g % 4) + c], g = gi + 3.
+//
+// A block owns MNB = 16 columns and keeps their slice of w resident in
+// shared memory (108 KB, staged once); the blocks of a column walk the row
+// tiles of MMT = 32 rows (one (b, f), 32 consecutive t).  Its 12 warps
+// split K: warp (gi, h) takes channels 16h .. 16h + 15 of group gi at all
+// 9 taps (144 k).  Each warp stages its own part of the tile's window (the
+// 40 rows t0 .. t0 + 39 of those channels, the TPU probe's six used groups
+// copied by offset from the tile index) and its own 144 rows of the w
+// slice by 16-byte cp.async, waits for its own copies only, and has the
+// next tile's window in flight during this tile's FMAs.  A lane keeps a
+// 4 x 4 tile of sums, rows rg + 8i (rg = lane / 4), columns 4cg .. 4cg + 3
+// (cg = lane % 4).  A k-step of four reads one float4 of the window (4
+// channels of a row) for each of its rows, the lane-offset slice of tap
+// dt, and one float4 of w (its 4 columns) for each k: 8 LDS.128 for 64
+// FMAs.  The window's rows are 128 B with float4 column q of row r at
+// q ^ (r & 7), so a warp's read of 8 consecutive rows meets no bank
+// conflict.  The 12 partial tiles meet in shared memory (two buffers, one
+// barrier a tile) and are summed in warp order: the output does not depend
+// on the grid.
 
-constexpr int MT = 32;                 // rows of t per block
-constexpr int GROUPS = 6;              // 32-channel groups g = 3..8
-constexpr int KT = 9;                  // taps on t
-constexpr int CHUNKS = GROUPS * KT;    // 54 chunks of 32 rows of w
-constexpr int XC = 4 * CIN;            // 128 channels of a row of xq
-constexpr int MWIN = MT + KT - 1;      // staged rows per group
-constexpr int MROWS = MT / WARPS;      // output rows per thread
-constexpr int MCOLS = N / 32;          // output columns per thread
-constexpr int XS_FLOATS = GROUPS * MWIN * CIN;
-constexpr int WB_FLOATS = CIN * N;
-constexpr int MINI_SMEM = (XS_FLOATS + 2 * WB_FLOATS) * (int)sizeof(float);
+constexpr int GROUPS = 6;                 // 32-channel groups g = 3..8
+constexpr int KT = 9;                     // taps on t
+constexpr int MK = GROUPS * KT * CIN;     // 1728
+constexpr int XQ4 = 4 * SQ;               // float4 of a row of xq
+constexpr int MMT = 32;                   // rows of a tile
+constexpr int MNB = 16;                   // columns of a block
+constexpr int MNB4 = MNB / 4;             // float4 of a block's row of w
+constexpr int HALF = CIN / 2;             // channels of a warp's part
+constexpr int MWARPS = 2 * GROUPS;        // one a half group
+constexpr int MTHREADS = 32 * MWARPS;
+constexpr int MWIN = MMT + KT - 1;        // rows of a tile's window
+constexpr int WIN4 = MWIN * SQ;           // float4 of a group's window
+constexpr int MW4 = MK * MNB4;            // float4 of the w slice
+constexpr int MPART4 = MMT * MNB4;        // float4 of a tile of sums
+constexpr int MINI_SMEM =
+    (MW4 + 2 * GROUPS * WIN4 + 2 * MWARPS * MPART4) * 16;
+static_assert(MMT == 8 * 4 && MNB4 == 4, "8 x 4 lanes of 4 x 4 tiles");
+static_assert(MPART4 <= MTHREADS, "one float4 of the sum a thread");
+static_assert(T_MULT % MMT == 0 && N % MNB == 0, "whole tiles");
 
-// rows 32c .. 32c+31 of w into wb [CIN][N]
-__device__ __forceinline__ void stage_w_chunk(const float* __restrict__ w,
-                                              float* wb, int c) {
-  const float* src = w + (size_t)c * CIN * N;
-  for (int i = threadIdx.x; i < WB_FLOATS / 4; i += THREADS)
-    cp_async16(wb + 4 * i, src + 4 * i);
+// This warp's part of the window of row tile `tile` into xw, its group's
+// [MWIN][SQ] buffer: rows t0 .. t0 + MWIN - 1 of channels 32 (g % 4) +
+// 16 h .. + 15 of frequency block f + g / 4.
+__device__ __forceinline__ void stage_window(const float4* __restrict__ xq,
+                                             float4* xw, int tile, int fq,
+                                             int rows, int g, int h,
+                                             int lane) {
+  const int row_tiles = rows / MMT, bf = tile / row_tiles;
+  const int t0 = (tile - bf * row_tiles) * MMT, b = bf / fq, f = bf - b * fq;
+  const float4* src =
+      xq + ((size_t)(b * (fq + 2) + f + g / 4) * (rows + KT - 1) + t0) * XQ4 +
+      (g % 4) * SQ + h * (HALF / 4);
+  for (int i = lane; i < MWIN * (HALF / 4); i += 32) {
+    const int r = i >> 2, q = h * (HALF / 4) + (i & 3);
+    cp_async16(&xw[r * SQ + (q ^ (r & 7))], src + (size_t)r * XQ4 + (i & 3));
+  }
 }
 
-__global__ void __launch_bounds__(THREADS)
-mini_kernel(const float* __restrict__ xq, const float* __restrict__ w,
-            float* __restrict__ out, int fq, int rows) {
-  extern __shared__ __align__(16) float smem[];
-  float* xs = smem;                 // [GROUPS][MWIN][CIN]
-  float* wb = smem + XS_FLOATS;     // [2][CIN][N]
-  const int t0 = blockIdx.x * MT, f = blockIdx.y, b = blockIdx.z;
-  const int in_rows = rows + KT - 1;
-
-  // the six groups' windows: group gi is g = gi + 3, read from frequency
-  // block f + g / 4 at channels 32 (g % 4) .. +32
-  for (int i = threadIdx.x; i < GROUPS * MWIN * (CIN / 4); i += THREADS) {
-    const int gi = i / (MWIN * (CIN / 4));
-    const int r = (i / (CIN / 4)) % MWIN, q = i % (CIN / 4);
-    const int g = gi + 3;
-    const float* src = xq + (((size_t)b * (fq + 2) + f + g / 4) * in_rows
-                             + t0 + r) * XC + (g % 4) * CIN + 4 * q;
-    cp_async16(xs + (gi * MWIN + r) * CIN + 4 * q, src);
+__global__ void __launch_bounds__(MTHREADS, 1)
+mini_kernel(const float4* __restrict__ xq, const float4* __restrict__ w,
+            float4* __restrict__ out, int fq, int rows, int tiles) {
+  extern __shared__ float4 smem4[];
+  float4* ws = smem4;                     // [MK][MNB4], the w slice
+  float4* xs = ws + MW4;                  // [2][GROUPS][MWIN][SQ]
+  float4* part = xs + 2 * GROUPS * WIN4;  // [2][MWARPS][MPART4]
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int gi = warp >> 1, h = warp & 1, g = gi + 3;
+  const int rg = lane >> 2, cg = lane & 3;
+  const int n4 = blockIdx.x * MNB4;
+  // the warp's rows of the w slice, k = 32 (9 gi + dt) + 16 h + c
+  for (int i = lane; i < KT * HALF * MNB4; i += 32) {
+    const int dt = i / (HALF * MNB4), c = (i >> 2) & (HALF - 1);
+    const int k = CIN * (KT * gi + dt) + HALF * h + c;
+    cp_async16(&ws[k * MNB4 + (i & 3)], w + (size_t)k * N4 + n4 + (i & 3));
   }
-  stage_w_chunk(w, wb, 0);
+  float4* xw = xs + gi * WIN4;  // the warp's group in buffer 0
+  int tile = blockIdx.y;        // < tiles: at most one block a tile
+  stage_window(xq, xw, tile, fq, rows, g, h, lane);
   cp_async_commit();
 
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  float acc[MROWS][MCOLS] = {};
-  for (int c = 0; c < CHUNKS; ++c) {
-    if (c + 1 < CHUNKS) {
-      stage_w_chunk(w, wb + ((c + 1) & 1) * WB_FLOATS, c + 1);
-      cp_async_commit();
-      cp_async_wait<1>();
-    } else {
-      cp_async_wait<0>();
+  const float4* wk = ws + (CIN * KT * gi + HALF * h) * MNB4 + cg;
+  for (int b = 0; tile < tiles; tile += gridDim.y, b ^= 1) {
+    // the buffer refilled here was last read before the last step's barrier
+    const int next = tile + gridDim.y;
+    if (next < tiles)
+      stage_window(xq, xw + (b ^ 1) * GROUPS * WIN4, next, fq, rows, g, h,
+                   lane);
+    cp_async_commit();
+    cp_async_wait<1>();  // the w slice and this tile's window, own copies
+    __syncwarp();        // ... and the warp's other lanes'
+    const float4* xb = xw + b * GROUPS * WIN4;
+    float acc[4][4] = {};
+    for (int dt = 0; dt < KT; ++dt) {
+      const int r = rg + dt, sw = r & 7;  // rows r + 8i share the swizzle
+      const float4* xr = xb + r * SQ;
+      const float4* wt = wk + CIN * dt * MNB4;
+#pragma unroll
+      for (int q = 0; q < HALF / 4; ++q) {
+        float4 a[4];
+#pragma unroll
+        for (int i = 0; i < 4; ++i)
+          a[i] = xr[8 * i * SQ + ((h * (HALF / 4) + q) ^ sw)];
+#pragma unroll
+        for (int kk = 0; kk < 4; ++kk) {
+          const float4 bv = wt[(4 * q + kk) * MNB4];
+#pragma unroll
+          for (int i = 0; i < 4; ++i) {
+            const float av = part_of(a[i], kk);
+            acc[i][0] = fmaf(av, bv.x, acc[i][0]);
+            acc[i][1] = fmaf(av, bv.y, acc[i][1]);
+            acc[i][2] = fmaf(av, bv.z, acc[i][2]);
+            acc[i][3] = fmaf(av, bv.w, acc[i][3]);
+          }
+        }
+      }
     }
+    float4* pb = part + b * MWARPS * MPART4;
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+      pb[warp * MPART4 + (rg + 8 * i) * MNB4 + cg] =
+          make_float4(acc[i][0], acc[i][1], acc[i][2], acc[i][3]);
+    // every warp's partials are in; buffer b of them is written again two
+    // steps on, after the next step's barrier, which every summing thread
+    // reaches only once it is done here
     __syncthreads();
-    const float* wc = wb + (c & 1) * WB_FLOATS;
-    const float* xg = xs + ((c / KT) * MWIN + warp * MROWS + c % KT) * CIN;
-#pragma unroll 4
-    for (int k = 0; k < CIN; ++k) {
-      float a[MROWS], bv[MCOLS];
+    if (threadIdx.x < MPART4) {
+      float4 s = pb[threadIdx.x];
 #pragma unroll
-      for (int i = 0; i < MROWS; ++i) a[i] = xg[i * CIN + k];
-#pragma unroll
-      for (int u = 0; u < MCOLS; ++u) bv[u] = wc[k * N + lane + 32 * u];
-#pragma unroll
-      for (int i = 0; i < MROWS; ++i)
-#pragma unroll
-        for (int u = 0; u < MCOLS; ++u) acc[i][u] = fmaf(a[i], bv[u], acc[i][u]);
+      for (int q = 1; q < MWARPS; ++q) {
+        const float4 o = pb[q * MPART4 + threadIdx.x];
+        s.x += o.x; s.y += o.y; s.z += o.z; s.w += o.w;
+      }
+      out[(size_t)(tile * MMT + (threadIdx.x >> 2)) * N4 + n4 +
+          (threadIdx.x & 3)] = s;
     }
-    __syncthreads();  // the buffer read here is refilled in step c + 1
-  }
-#pragma unroll
-  for (int i = 0; i < MROWS; ++i) {
-    float* dst = out + (((size_t)b * fq + f) * rows + t0 + warp * MROWS + i) * N;
-#pragma unroll
-    for (int u = 0; u < MCOLS; ++u) dst[lane + 32 * u] = acc[i][u];
   }
 }
 
@@ -637,30 +698,29 @@ int with_smem(const void* kernel, int bytes) {
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
 }
 
-// #9 and #10 over the card: N / nb columns of blocks, each of as many
-// blocks as the card holds at once (an occupancy query), at most one a row
-// tile; the blocks of a column walk the rest.
-using WalkKernel = void (*)(const float4*, const float4*, float4*, int);
-
-int resident_per_column(WalkKernel kernel, int smem, int nb) {
+// #9-11 over the card: N / nb columns of blocks, each of as many blocks as
+// the card holds at once (an occupancy query), at most one a row tile; the
+// blocks of a column walk the rest.  A kernel's last argument is the
+// number of row tiles.
+template <typename Kernel>
+int resident_per_column(Kernel kernel, int threads, int smem, int nb) {
   int dev = 0, sms = 0, per_sm = 0;
   if (with_smem((const void*)kernel, smem) != cudaSuccess ||
       cudaGetDevice(&dev) != cudaSuccess ||
       cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev) !=
           cudaSuccess ||
       cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-          &per_sm, kernel, BTHREADS, smem) != cudaSuccess)
+          &per_sm, kernel, threads, smem) != cudaSuccess)
     return 0;
   return sms * per_sm / (N / nb);
 }
 
-int walk_launch(WalkKernel kernel, int resident, int smem, int nb,
-                const void* x, const void* w, void* y, int tiles,
-                void* stream) {
+template <typename Kernel, typename... Args>
+int walk_launch(Kernel kernel, int resident, int threads, int smem, int nb,
+                int tiles, void* stream, Args... args) {
   if (resident < 1) return (int)cudaErrorInvalidConfiguration;
   const dim3 grid(N / nb, tiles < resident ? tiles : resident);
-  kernel<<<grid, BTHREADS, smem, (cudaStream_t)stream>>>(
-      (const float4*)x, (const float4*)w, (float4*)y, tiles);
+  kernel<<<grid, threads, smem, (cudaStream_t)stream>>>(args..., tiles);
   return (int)cudaGetLastError();
 }
 
@@ -670,13 +730,14 @@ struct Scratch {
   static constexpr int smem = ScratchTile<SMB, SNB>::SMEM;
   static int resident() {
     static const int r = resident_per_column(
-        matmul_after_scratch_kernel<SMB, SNB>, smem, SNB);
+        matmul_after_scratch_kernel<SMB, SNB>, BTHREADS, smem, SNB);
     return r;
   }
   static int launch(const void* x, const void* w, void* y, int t,
                     void* stream) {
     return walk_launch(matmul_after_scratch_kernel<SMB, SNB>, resident(),
-                       smem, SNB, x, w, y, t / SMB, stream);
+                       BTHREADS, smem, SNB, t / SMB, stream,
+                       (const float4*)x, (const float4*)w, (float4*)y);
   }
 };
 
@@ -724,9 +785,10 @@ extern "C" int probe_dma_assemble(const void* x, void* p, int t,
 extern "C" int probe_matmul_after_concat(const void* x, const void* w,
                                          void* y, int t, void* stream) {
   static const int resident =
-      resident_per_column(matmul_after_concat_kernel, 0, NB);
-  return walk_launch(matmul_after_concat_kernel, resident, 0, NB, x, w, y,
-                     t / MB, stream);
+      resident_per_column(matmul_after_concat_kernel, BTHREADS, 0, NB);
+  return walk_launch(matmul_after_concat_kernel, resident, BTHREADS, 0, NB,
+                     t / MB, stream, (const float4*)x, (const float4*)w,
+                     (float4*)y);
 }
 
 extern "C" int probe_matmul_after_scratch(const void* x, const void* w,
@@ -739,10 +801,9 @@ extern "C" int probe_matmul_after_scratch(const void* x, const void* w,
 
 extern "C" int probe_mini_kernel(const void* xq, const void* w, void* out,
                                  int batch, int fq, int rows, void* stream) {
-  const int err = with_smem((const void*)mini_kernel, MINI_SMEM);
-  if (err != 0) return err;
-  dim3 grid(rows / MT, fq, batch);
-  mini_kernel<<<grid, THREADS, MINI_SMEM, (cudaStream_t)stream>>>(
-      (const float*)xq, (const float*)w, (float*)out, fq, rows);
-  return (int)cudaGetLastError();
+  static const int resident =
+      resident_per_column(mini_kernel, MTHREADS, MINI_SMEM, MNB);
+  return walk_launch(mini_kernel, resident, MTHREADS, MINI_SMEM, MNB,
+                     batch * fq * (rows / MMT), stream, (const float4*)xq,
+                     (const float4*)w, (float4*)out, fq, rows);
 }

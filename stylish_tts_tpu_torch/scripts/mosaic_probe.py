@@ -82,10 +82,11 @@ def probe_matmul_after_scratch(x: torch.Tensor):
     return pp.matmul_after_scratch(x, w), w
 
 
-def mini_inputs():
-    """xq [2, 5, 520, 128] and w [1728, 128], in the TPU probe's order."""
+def mini_inputs(rows: int = 2 * T):
+    """xq [2, 5, rows + 8, 128] and w [1728, 128], in the TPU probe's order
+    (its own size: 512 rows)."""
     rng = np.random.default_rng(1)
-    xq = rng.standard_normal((2, 5, 2 * T + 8, 128)).astype(np.float32)
+    xq = rng.standard_normal((2, 5, rows + 8, 128)).astype(np.float32)
     w = rng.standard_normal((pp.MINI_K, 128)).astype(np.float32) * 0.1
     return xq, w
 

@@ -7,7 +7,9 @@ The eight probe kernels (``csrc/patch_probe.cu``) run at the probe
 script's sizes and inputs (T = 256); the five copies #4-8 and the two
 products #9-10 also at T = 131072, where P (100.7 MB) is larger than the
 50 MB L2, so bytes set the copies' time and operations the products'
-(6.44 GFLOP, 96.2 us at the f32 peak, against 84.0 MB, 25.1 us).  Each
+(6.44 GFLOP, 96.2 us at the f32 peak, against 84.0 MB, 25.1 us), and
+with them the mini kernel #11 at R = 8192 rows, where its blocks walk many
+row tiles (21.7 GFLOP, 324.5 us, against 68.0 MB, 20.3 us).  Each
 kernel is first held against its plain version (the copies bit for bit,
 the products within 1e-5 of the largest value) and the library call
 against it, then timed by torch.profiler (the kernels' own durations,
@@ -39,6 +41,9 @@ PEAK_BYTES = 3.35e12
 # rows of P at which the copies move more bytes than the L2 holds, and the
 # products do operations enough that they, not the launch, set the time
 LARGE_T = 131072
+# the mini kernel's rows R: the probe script's 512 at its T = 256, and
+# 8192 at LARGE_T, where its blocks walk many row tiles
+MINI_ROWS = {256: 512, LARGE_T: 8192}
 
 
 class Case(NamedTuple):
@@ -76,9 +81,10 @@ def mini_conv_weight(w: torch.Tensor) -> torch.Tensor:
 
 
 def probe_cases(device, t: int) -> dict:
-    """{kernel: Case} at ``t`` rows of P: at the probe script's T all eight
-    kernels on its inputs, at any other T the five copies and the two
-    products, x and w drawn as the probe script draws them."""
+    """{kernel: Case} at ``t`` rows of P: the five copies and the two
+    products, x and w drawn as the probe script draws them, and at the
+    probe script's T and at LARGE_T the mini kernel too, at
+    ``MINI_ROWS[t]`` rows (at T its inputs are the probe script's)."""
     from stylish_tts_tpu_torch.ops import patch_probe as pp
     from stylish_tts_tpu_torch.scripts import mosaic_probe as mp
 
@@ -113,8 +119,9 @@ def probe_cases(device, t: int) -> dict:
               2.0 * t * pp.K * 128,
               4.0 * (x.numel() + w.numel() + t * 128))
     cases[pp.matmul_after_concat] = cases[pp.matmul_after_scratch] = mm
-    if t == mp.T:
-        xq, wq = (torch.from_numpy(a).to(device) for a in mp.mini_inputs())
+    if t in MINI_ROWS:
+        xq, wq = (torch.from_numpy(a).to(device)
+                  for a in mp.mini_inputs(MINI_ROWS[t]))
         xq_nchw = xq.permute(0, 3, 1, 2)  # a channels-last view
         wq_conv = mini_conv_weight(wq)
 

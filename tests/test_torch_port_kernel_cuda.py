@@ -380,10 +380,12 @@ def _probe_plain(kernel, *inputs):
 # rows of output: the probe's 256; 96, three of the old 32-row blocks; 32,
 # one of them; and, for the copies #4-8 and the products #9-10, 131072,
 # where P (100.7 MB) is larger than the L2 and #9's blocks walk many row
-# tiles each; 160, five 32-row blocks, for #8 and #10
+# tiles each; 160, five 32-row blocks, for #8 and #10; 8192 for the mini
+# kernel #11, whose blocks then walk 96 row tiles each
 PROBE_ROWS = [(k, rows) for rows in (256, 96, 32) for k in pp.KERNELS] + [
     (k, 131072) for k in pp.KERNELS if k is not pp.mini_kernel] + [
-    (pp.dma_assemble, 160), (pp.matmul_after_scratch, 160)]
+    (pp.dma_assemble, 160), (pp.matmul_after_scratch, 160),
+    (pp.mini_kernel, 8192)]
 
 
 @pytest.mark.cuda
@@ -427,6 +429,30 @@ def test_probe_matmul_after_scratch_is_deterministic(cuda, rows):
     inputs = _probe_inputs(pp.matmul_after_scratch, rows)
     first = pp.matmul_after_scratch(*inputs)
     again = pp.matmul_after_scratch(*inputs)
+    torch.cuda.synchronize()
+    assert torch.equal(first, again)
+
+
+# #11's blocks keep 16 columns of w resident (216 KB of shared memory: one
+# an SM, 16 a column on 132 SMs) and walk row tiles of 32 rows, B F R / 32
+# of them: at R = 160 (30 tiles) and R = 1440 (270) the last step of the
+# walk is taken by some blocks only.
+@pytest.mark.cuda
+@pytest.mark.parametrize("rows", [160, 1440])
+def test_probe_mini_kernel_walks_the_row_tiles(cuda, rows):
+    xq, w = _probe_inputs(pp.mini_kernel, rows)
+    got = pp.mini_kernel(xq, w)
+    want = pp.mini_plain(xq, w)
+    err = (got - want).abs().max().item()
+    assert err <= 1e-5 * want.abs().max().item(), err
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rows", [512, 8192])
+def test_probe_mini_kernel_is_deterministic(cuda, rows):
+    inputs = _probe_inputs(pp.mini_kernel, rows)
+    first = pp.mini_kernel(*inputs)
+    again = pp.mini_kernel(*inputs)
     torch.cuda.synchronize()
     assert torch.equal(first, again)
 
