@@ -558,28 +558,41 @@ matmul_after_scratch_kernel(const float4* __restrict__ x,
 //
 // A block owns MNB = 16 columns and keeps their slice of w resident in
 // shared memory (108 KB, staged once); the blocks of a column walk the row
-// tiles of MMT = 32 rows (one (b, f), 32 consecutive t).  Its 12 warps
-// split K: warp (gi, h) takes channels 16h .. 16h + 15 of group gi at all
-// 9 taps (144 k).  Each warp stages its own part of the tile's window (the
-// 40 rows t0 .. t0 + 39 of those channels, the TPU probe's six used groups
-// copied by offset from the tile index) and its own 144 rows of the w
-// slice by 16-byte cp.async, waits for its own copies only, and has the
-// next tile's window in flight during this tile's FMAs.  A lane keeps a
-// 4 x 4 tile of sums, rows rg + 8i (rg = lane / 4), columns 4cg .. 4cg + 3
-// (cg = lane % 4).  A k-step of four reads one float4 of the window (4
-// channels of a row) for each of its rows, the lane-offset slice of tap
-// dt, and one float4 of w (its 4 columns) for each k: 8 LDS.128 for 64
-// FMAs.  The window's rows are 128 B with float4 column q of row r at
-// q ^ (r & 7), so a warp's read of 8 consecutive rows meets no bank
-// conflict.  The 12 partial tiles meet in shared memory (two buffers, one
-// barrier a tile) and are summed in warp order: the output does not depend
-// on the grid.
+// tiles of MMT = 64 rows (one (b, f), up to 64 consecutive t).  Its 12
+// warps split K: warp (gi, h) takes channels 16h .. 16h + 15 of group gi
+// at all 9 taps (144 k).  Each warp stages its own part of the tile's
+// window (the 72 rows t0 .. t0 + 71 of those channels: the TPU probe's six
+// used groups, copied by offset from the tile index) and its own 144 rows
+// of the w slice by 16-byte cp.async, and waits for its own copies only.
+//
+// A lane keeps 8 consecutive rows x 4 columns of sums: rows 8 rg .. 8 rg
+// + 7 (rg = lane / 4), columns 4 cg .. 4 cg + 3 (cg = lane % 4).  Tap dt
+// is the window's lane-offset slice that starts dt rows down, so for four
+// channels the lane reads the 16 rows 8 rg .. 8 rg + 15 once, as float4,
+// and uses each at every tap that reaches it: 16 + 36 LDS.128 (x, then a
+// float4 of w a tap and channel) for 1152 FMAs.  A float4 read delivers 4
+// words to each lane, and an SM delivers 32 words a clock against 128
+// FMAs, so this 5.5 FMAs a word keeps the FMA pipes the limit, where a
+// 4 x 4 tile of strided rows (2 FMAs a word) was held to half of them.
+// The window's rows are 128 B, float4 column q of row r at
+// q ^ ((r >> 3) & 7): the 8 rows a warp reads at once are 8 apart and
+// meet no bank conflict.
+//
+// A warp issues the next tile's window as soon as its lanes are done with
+// this one's, so the copy runs during the partial sums.  The 12 partial
+// tiles meet in shared memory and are summed in warp order (two barriers
+// a tile): the output does not depend on the grid.  Where R is no multiple
+// of MMT, the last tile of each (b, f) has 32 rows: the window rows past
+// R + 7 are not copied and only rows past R read them, which are not
+// stored.
 
 constexpr int GROUPS = 6;                 // 32-channel groups g = 3..8
 constexpr int KT = 9;                     // taps on t
 constexpr int MK = GROUPS * KT * CIN;     // 1728
 constexpr int XQ4 = 4 * SQ;               // float4 of a row of xq
-constexpr int MMT = 32;                   // rows of a tile
+constexpr int MMT = 64;                   // rows of a tile
+constexpr int LROWS = 8;                  // consecutive rows of a lane
+constexpr int LWIN = LROWS + KT - 1;      // rows of the window a lane reads
 constexpr int MNB = 16;                   // columns of a block
 constexpr int MNB4 = MNB / 4;             // float4 of a block's row of w
 constexpr int HALF = CIN / 2;             // channels of a warp's part
@@ -589,27 +602,27 @@ constexpr int MWIN = MMT + KT - 1;        // rows of a tile's window
 constexpr int WIN4 = MWIN * SQ;           // float4 of a group's window
 constexpr int MW4 = MK * MNB4;            // float4 of the w slice
 constexpr int MPART4 = MMT * MNB4;        // float4 of a tile of sums
-constexpr int MINI_SMEM =
-    (MW4 + 2 * GROUPS * WIN4 + 2 * MWARPS * MPART4) * 16;
-static_assert(MMT == 8 * 4 && MNB4 == 4, "8 x 4 lanes of 4 x 4 tiles");
-static_assert(MPART4 <= MTHREADS, "one float4 of the sum a thread");
-static_assert(T_MULT % MMT == 0 && N % MNB == 0, "whole tiles");
+constexpr int MINI_SMEM = (MW4 + GROUPS * WIN4 + MWARPS * MPART4) * 16;
+static_assert(MMT == 8 * LROWS && MNB4 == 4, "8 x 4 lanes of 8 x 4 tiles");
+static_assert(MPART4 <= MTHREADS && MPART4 % 32 == 0, "the sum's threads");
+static_assert(T_MULT == MMT / 2 && N % MNB == 0, "whole or half tiles");
 
-// This warp's part of the window of row tile `tile` into xw, its group's
-// [MWIN][SQ] buffer: rows t0 .. t0 + MWIN - 1 of channels 32 (g % 4) +
-// 16 h .. + 15 of frequency block f + g / 4.
+// This warp's part of the window of the row tile at (bf, t0) into xw, its
+// group's [MWIN][SQ] buffer: rows t0 .. t0 + MWIN - 1 (those below R + 8)
+// of channels 32 (g % 4) + 16 h .. + 15 of frequency block f + g / 4.
 __device__ __forceinline__ void stage_window(const float4* __restrict__ xq,
-                                             float4* xw, int tile, int fq,
-                                             int rows, int g, int h,
+                                             float4* xw, int bf, int t0,
+                                             int fq, int rows, int g, int h,
                                              int lane) {
-  const int row_tiles = rows / MMT, bf = tile / row_tiles;
-  const int t0 = (tile - bf * row_tiles) * MMT, b = bf / fq, f = bf - b * fq;
+  const int b = bf / fq, f = bf - b * fq, in_rows = rows + KT - 1;
+  const int valid = min(MWIN, in_rows - t0);
   const float4* src =
-      xq + ((size_t)(b * (fq + 2) + f + g / 4) * (rows + KT - 1) + t0) * XQ4 +
+      xq + ((size_t)(b * (fq + 2) + f + g / 4) * in_rows + t0) * XQ4 +
       (g % 4) * SQ + h * (HALF / 4);
-  for (int i = lane; i < MWIN * (HALF / 4); i += 32) {
+  for (int i = lane; i < valid * (HALF / 4); i += 32) {
     const int r = i >> 2, q = h * (HALF / 4) + (i & 3);
-    cp_async16(&xw[r * SQ + (q ^ (r & 7))], src + (size_t)r * XQ4 + (i & 3));
+    cp_async16(&xw[r * SQ + (q ^ ((r >> 3) & 7))],
+               src + (size_t)r * XQ4 + (i & 3));
   }
 }
 
@@ -617,78 +630,80 @@ __global__ void __launch_bounds__(MTHREADS, 1)
 mini_kernel(const float4* __restrict__ xq, const float4* __restrict__ w,
             float4* __restrict__ out, int fq, int rows, int tiles) {
   extern __shared__ float4 smem4[];
-  float4* ws = smem4;                     // [MK][MNB4], the w slice
-  float4* xs = ws + MW4;                  // [2][GROUPS][MWIN][SQ]
-  float4* part = xs + 2 * GROUPS * WIN4;  // [2][MWARPS][MPART4]
+  float4* ws = smem4;                   // [MK][MNB4], the w slice
+  float4* xs = ws + MW4;                // [GROUPS][MWIN][SQ], the window
+  float4* part = xs + GROUPS * WIN4;    // [MWARPS][LROWS][32 lanes]
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int gi = warp >> 1, h = warp & 1, g = gi + 3;
   const int rg = lane >> 2, cg = lane & 3;
   const int n4 = blockIdx.x * MNB4;
+  const int row_tiles = (rows + MMT - 1) / MMT;  // tiles of one (b, f)
   // the warp's rows of the w slice, k = 32 (9 gi + dt) + 16 h + c
   for (int i = lane; i < KT * HALF * MNB4; i += 32) {
     const int dt = i / (HALF * MNB4), c = (i >> 2) & (HALF - 1);
     const int k = CIN * (KT * gi + dt) + HALF * h + c;
     cp_async16(&ws[k * MNB4 + (i & 3)], w + (size_t)k * N4 + n4 + (i & 3));
   }
-  float4* xw = xs + gi * WIN4;  // the warp's group in buffer 0
+  float4* xw = xs + gi * WIN4;  // the warp's group
   int tile = blockIdx.y;        // < tiles: at most one block a tile
-  stage_window(xq, xw, tile, fq, rows, g, h, lane);
+  stage_window(xq, xw, tile / row_tiles, tile % row_tiles * MMT, fq, rows, g,
+               h, lane);
   cp_async_commit();
 
   const float4* wk = ws + (CIN * KT * gi + HALF * h) * MNB4 + cg;
-  for (int b = 0; tile < tiles; tile += gridDim.y, b ^= 1) {
-    // the buffer refilled here was last read before the last step's barrier
-    const int next = tile + gridDim.y;
-    if (next < tiles)
-      stage_window(xq, xw + (b ^ 1) * GROUPS * WIN4, next, fq, rows, g, h,
-                   lane);
-    cp_async_commit();
-    cp_async_wait<1>();  // the w slice and this tile's window, own copies
+  for (; tile < tiles; tile += gridDim.y) {
+    cp_async_wait<0>();  // the w slice and this tile's window, own copies
     __syncwarp();        // ... and the warp's other lanes'
-    const float4* xb = xw + b * GROUPS * WIN4;
-    float acc[4][4] = {};
-    for (int dt = 0; dt < KT; ++dt) {
-      const int r = rg + dt, sw = r & 7;  // rows r + 8i share the swizzle
-      const float4* xr = xb + r * SQ;
-      const float4* wt = wk + CIN * dt * MNB4;
+    float acc[LROWS][4] = {};
+#pragma unroll 1
+    for (int q = 0; q < HALF / 4; ++q) {
+      const int col = h * (HALF / 4) + q;  // float4 column of the window
+      float4 a[LWIN];                      // rows 8 rg + m
 #pragma unroll
-      for (int q = 0; q < HALF / 4; ++q) {
-        float4 a[4];
+      for (int m = 0; m < LWIN; ++m) {
+        const int r = LROWS * rg + m;
+        a[m] = xw[r * SQ + (col ^ ((r >> 3) & 7))];
+      }
+      const float4* wq = wk + 4 * q * MNB4;
 #pragma unroll
-        for (int i = 0; i < 4; ++i)
-          a[i] = xr[8 * i * SQ + ((h * (HALF / 4) + q) ^ sw)];
+      for (int dt = 0; dt < KT; ++dt)
 #pragma unroll
         for (int kk = 0; kk < 4; ++kk) {
-          const float4 bv = wt[(4 * q + kk) * MNB4];
+          const float4 bv = wq[(CIN * dt + kk) * MNB4];
 #pragma unroll
-          for (int i = 0; i < 4; ++i) {
-            const float av = part_of(a[i], kk);
+          for (int i = 0; i < LROWS; ++i) {
+            const float av = part_of(a[i + dt], kk);
             acc[i][0] = fmaf(av, bv.x, acc[i][0]);
             acc[i][1] = fmaf(av, bv.y, acc[i][1]);
             acc[i][2] = fmaf(av, bv.z, acc[i][2]);
             acc[i][3] = fmaf(av, bv.w, acc[i][3]);
           }
         }
-      }
     }
-    float4* pb = part + b * MWARPS * MPART4;
+    __syncwarp();  // every lane is done with the window: refill it
+    const int next = tile + gridDim.y;
+    if (next < tiles)
+      stage_window(xq, xw, next / row_tiles, next % row_tiles * MMT, fq, rows,
+                   g, h, lane);
+    cp_async_commit();
+    __syncthreads();  // every thread is done summing the last tile
 #pragma unroll
-    for (int i = 0; i < 4; ++i)
-      pb[warp * MPART4 + (rg + 8 * i) * MNB4 + cg] =
+    for (int i = 0; i < LROWS; ++i)
+      part[(warp * LROWS + i) * 32 + lane] =
           make_float4(acc[i][0], acc[i][1], acc[i][2], acc[i][3]);
-    // every warp's partials are in; buffer b of them is written again two
-    // steps on, after the next step's barrier, which every summing thread
-    // reaches only once it is done here
-    __syncthreads();
-    if (threadIdx.x < MPART4) {
-      float4 s = pb[threadIdx.x];
+    __syncthreads();  // every warp's partials are in
+    if (threadIdx.x < MPART4) {  // row 8 (l / 4) + i, float4 column l % 4
+      const int i = threadIdx.x >> 5, l = threadIdx.x & 31;
+      float4 s = part[threadIdx.x];
 #pragma unroll
       for (int q = 1; q < MWARPS; ++q) {
-        const float4 o = pb[q * MPART4 + threadIdx.x];
+        const float4 o = part[q * MPART4 + threadIdx.x];
         s.x += o.x; s.y += o.y; s.z += o.z; s.w += o.w;
       }
-      out[(size_t)(tile * MMT + (threadIdx.x >> 2)) * N4 + n4 +
-          (threadIdx.x & 3)] = s;
+      const int bf = tile / row_tiles;
+      const int t = tile % row_tiles * MMT + LROWS * (l >> 2) + i;
+      if (t < rows)
+        out[((size_t)bf * rows + t) * N4 + n4 + (l & 3)] = s;
     }
   }
 }
@@ -804,6 +819,7 @@ extern "C" int probe_mini_kernel(const void* xq, const void* w, void* out,
   static const int resident =
       resident_per_column(mini_kernel, MTHREADS, MINI_SMEM, MNB);
   return walk_launch(mini_kernel, resident, MTHREADS, MINI_SMEM, MNB,
-                     batch * fq * (rows / MMT), stream, (const float4*)xq,
-                     (const float4*)w, (float4*)out, fq, rows);
+                     batch * fq * ((rows + MMT - 1) / MMT), stream,
+                     (const float4*)xq, (const float4*)w, (float4*)out, fq,
+                     rows);
 }

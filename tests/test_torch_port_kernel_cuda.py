@@ -433,10 +433,11 @@ def test_probe_matmul_after_scratch_is_deterministic(cuda, rows):
     assert torch.equal(first, again)
 
 
-# #11's blocks keep 16 columns of w resident (216 KB of shared memory: one
-# an SM, 16 a column on 132 SMs) and walk row tiles of 32 rows, B F R / 32
-# of them: at R = 160 (30 tiles) and R = 1440 (270) the last step of the
-# walk is taken by some blocks only.
+# #11's blocks keep 16 columns of w resident (210 KB of shared memory: one
+# an SM, 16 a column on 132 SMs) and walk row tiles of 64 rows, the last of
+# each (b, f) a half tile where R is an odd multiple of 32: B F ceil(R / 64)
+# of them.  At R = 160 (18 tiles, 3 a (b, f)) and R = 1440 (138, 23 a
+# (b, f)) the last step of the walk is taken by some blocks only.
 @pytest.mark.cuda
 @pytest.mark.parametrize("rows", [160, 1440])
 def test_probe_mini_kernel_walks_the_row_tiles(cuda, rows):
