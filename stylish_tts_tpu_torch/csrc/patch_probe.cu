@@ -596,6 +596,7 @@ constexpr int LWIN = LROWS + KT - 1;      // rows of the window a lane reads
 constexpr int MNB = 16;                   // columns of a block
 constexpr int MNB4 = MNB / 4;             // float4 of a block's row of w
 constexpr int HALF = CIN / 2;             // channels of a warp's part
+constexpr int HQ = HALF / 4;              // float4 of a row of that part
 constexpr int MWARPS = 2 * GROUPS;        // one a half group
 constexpr int MTHREADS = 32 * MWARPS;
 constexpr int MWIN = MMT + KT - 1;        // rows of a tile's window
@@ -618,11 +619,11 @@ __device__ __forceinline__ void stage_window(const float4* __restrict__ xq,
   const int valid = min(MWIN, in_rows - t0);
   const float4* src =
       xq + ((size_t)(b * (fq + 2) + f + g / 4) * in_rows + t0) * XQ4 +
-      (g % 4) * SQ + h * (HALF / 4);
-  for (int i = lane; i < valid * (HALF / 4); i += 32) {
-    const int r = i >> 2, q = h * (HALF / 4) + (i & 3);
+      (g % 4) * SQ + h * HQ;
+  for (int i = lane; i < valid * HQ; i += 32) {
+    const int r = i / HQ, q = h * HQ + i % HQ;
     cp_async16(&xw[r * SQ + (q ^ ((r >> 3) & 7))],
-               src + (size_t)r * XQ4 + (i & 3));
+               src + (size_t)r * XQ4 + i % HQ);
   }
 }
 
@@ -640,9 +641,9 @@ mini_kernel(const float4* __restrict__ xq, const float4* __restrict__ w,
   const int row_tiles = (rows + MMT - 1) / MMT;  // tiles of one (b, f)
   // the warp's rows of the w slice, k = 32 (9 gi + dt) + 16 h + c
   for (int i = lane; i < KT * HALF * MNB4; i += 32) {
-    const int dt = i / (HALF * MNB4), c = (i >> 2) & (HALF - 1);
+    const int dt = i / (HALF * MNB4), c = i / MNB4 % HALF, c4 = i % MNB4;
     const int k = CIN * (KT * gi + dt) + HALF * h + c;
-    cp_async16(&ws[k * MNB4 + (i & 3)], w + (size_t)k * N4 + n4 + (i & 3));
+    cp_async16(&ws[k * MNB4 + c4], w + (size_t)k * N4 + n4 + c4);
   }
   float4* xw = xs + gi * WIN4;  // the warp's group
   int tile = blockIdx.y;        // < tiles: at most one block a tile
@@ -656,8 +657,8 @@ mini_kernel(const float4* __restrict__ xq, const float4* __restrict__ w,
     __syncwarp();        // ... and the warp's other lanes'
     float acc[LROWS][4] = {};
 #pragma unroll 1
-    for (int q = 0; q < HALF / 4; ++q) {
-      const int col = h * (HALF / 4) + q;  // float4 column of the window
+    for (int q = 0; q < HQ; ++q) {
+      const int col = h * HQ + q;          // float4 column of the window
       float4 a[LWIN];                      // rows 8 rg + m
 #pragma unroll
       for (int m = 0; m < LWIN; ++m) {
