@@ -19,8 +19,9 @@
 //      the paired layout xp = [x, 2x] [T + 6, 64] (built by the caller, as
 //      the TPU probe builds it outside its kernel):
 //        P[t, 32j + c] = xp[t + j, 32 (j % 2) + c].
-//      16-byte float4 loads and stores; the 32-float column offset is 128 B,
-//      so every vector stays aligned.
+//      #4's gather on the paired layout: float4 loads at the 128 B column
+//      offset of slice j (8 runs of 128 B at a row pitch of 256 B a slice
+//      of the block), all issued before #4's float4 stores.
 //   #6 probe_scratch_write (:82) -> scratch_write: P is assembled in a
 //      shared-memory tile, each slice written at its 32-column offset, then
 //      written out coalesced.  A block owns 8 rows of P; slice j of them is
@@ -64,12 +65,14 @@
 //                          32 (g%4) : +32] @ w[32 (9 (g-3) + dt) : +32, :]
 //      xq [B, F + 2, R + 8, 128], w [1728, 128], out [B, F, R, 128].  The
 //      TPU kernel copies a [3, 264, 128] f32 window (405 KB) per grid step;
-//      that does not fit a block's 227 KB.  Here a block owns (b, f, 32 rows
-//      of t), stages with 16-byte cp.async only the six 32-channel groups the
-//      function reads (block 0 lane 3, block 1 lanes 0-3, block 2 lane 0)
-//      for its rows plus the 8-row halo (30 KB), streams w in 54 chunks of
-//      32 rows through a double buffer, and keeps a 4 x 4 register tile of
-//      f32 sums per thread.
+//      that does not fit a block's 227 KB.  Here a persistent block keeps 16
+//      columns of w resident and walks row tiles of 64 rows; its 12 warps
+//      split K by half channel group, each staging by 16-byte cp.async only
+//      its part of the six 32-channel groups the function reads (block 0
+//      lane 3, block 1 lanes 0-3, block 2 lane 0) for the tile's rows plus
+//      the 8-row halo, and reads the 9 taps as lane-offset slices of that
+//      window.  A lane keeps 8 consecutive rows x 4 columns of f32 sums; the
+//      12 partial tiles are summed in warp order.
 //
 // Every product is f32 by FMA: no TF32, no tensor cores.  The TPU probes
 // take an f32 dot with f32 accumulation, and their checks (atol 1e-3 on sums
@@ -82,9 +85,9 @@
 //   #11:    1.359 GFLOP -> 20.3 us, above its 5.12 MB (1.53 us).
 // #4-10 take far less time than a launch does (a one-element fill_ takes
 // 1.0 us of device time), so at these sizes their times are a launch and a
-// chain of dependent memory round trips.  #4, #6 and #7 keep that chain
-// short: 32 blocks of 128 threads (8 rows of P each) in place of 8 blocks
-// of 32 rows, every thread issues all its float4 loads before its first
+// chain of dependent memory round trips.  #4-7 keep that chain short: 32
+// blocks of 128 threads (8 rows of P each) in place of 8 blocks of 32
+// rows, every thread issues all its float4 loads before its first
 // dependent store, and every access is 16 bytes a thread, neighbouring
 // threads on neighbouring addresses; #8 takes the same block shape, but
 // its loads are the copy engine's.  #9 and #10 spread their product over
@@ -93,17 +96,20 @@
 // 100.7 MB, more than the 50 MB L2): 35.1 us of bytes, the bound they are
 // built for there (#5 reads xp: 134.2 MB, 40.1 us); the products do
 // 6.44 GFLOP, 96.2 us at the f32 peak, above their 84.0 MB (25.1 us), and
-// their blocks then walk the row tiles, staging w once each.  Device time
+// their blocks then walk the row tiles, staging w once each.  #11 at
+// R = 8192 does 21.7 GFLOP, 324.5 us at the f32 peak, above its 68.0 MB
+// (20.3 us), its blocks walking 48 row tiles each.  Device time
 // (stylish_tts_tpu_torch/scripts/probe_times.py, NVIDIA H100 80GB HBM3,
-// 700.00 W; two runs in one call), at T = 256 and at T = 131072: #4 1.08
-// and 42.6-42.7 us; #6 / #7 1.13-1.14 / 1.18 and 41.6-41.9 / 41.9-42.0 us;
-// #8 1.48-1.49 and 41.7-43.0 us, 82-84% of the bytes bound (the strided
-// library copy 1.51-1.53 and 61.8-62.1; the 32-row design before it 2.23
-// and 44.0-44.2); #9 2.73 and 222.5-222.7 us, 43% of the f32 bound
-// (F.conv1d in f32 11.06 and 249.6-252.3); #10 2.42 and 168.8-169.1 us,
-// 57% of the f32 bound (the 32-row, 193-pitch design before it 11.51 and
-// 354.5-355.1).  #5 and #11 are first versions that are right; only #11
-// does enough work at the probe's sizes for its design to show.
+// 700.00 W; two runs in one call), at T = 256 and at T = 131072: #4 1.09
+// and 42.4 us; #5 1.09-1.10 and 48.2-48.3 us, 83% of the bytes bound (the
+// strided reshape 1.66-1.79 and 73.0-73.3; the 32-row design before it
+// 1.71-1.83 and 48.7); #6 / #7 1.13-1.15 / 1.16-1.17 and 41.6 / 41.7-41.9
+// us; #8 1.43-1.48 and 42.7-42.9 us; #9 2.72-2.75 and 222.2-222.3 us, 43%
+// of the f32 bound; #10 2.41-2.42 and 168.6-169.0 us, 57% of it (F.conv1d
+// in f32 11.06-11.10 and 249.5-253.3).  #11: 35.4-35.6 us at R = 512,
+// 57% of the f32 bound, and 516.9-517.0 us at R = 8192, 63% (F.conv2d over
+// all 128 channels, twice the useful FLOP, 153.4-159.9 and 1142-1217; the
+// design before it, one block a (b, f, 32 rows), 88.0 and 731.3-731.7).
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -572,8 +578,9 @@ matmul_after_scratch_kernel(const float4* __restrict__ x,
 // and uses each at every tap that reaches it: 16 + 36 LDS.128 (x, then a
 // float4 of w a tap and channel) for 1152 FMAs.  A float4 read delivers 4
 // words to each lane, and an SM delivers 32 words a clock against 128
-// FMAs, so this 5.5 FMAs a word keeps the FMA pipes the limit, where a
-// 4 x 4 tile of strided rows (2 FMAs a word) was held to half of them.
+// FMAs: a 4 x 4 tile of strided rows (2 FMAs a word) is held to half the
+// FMA rate, and this tile's 5.5 FMAs a word lift that ceiling (PERF.md
+// holds both designs' times).
 // The window's rows are 128 B, float4 column q of row r at
 // q ^ ((r >> 3) & 7): the 8 rows a warp reads at once are 8 apart and
 // meet no bank conflict.
@@ -709,11 +716,6 @@ mini_kernel(const float4* __restrict__ xq, const float4* __restrict__ w,
   }
 }
 
-int with_smem(const void* kernel, int bytes) {
-  return (int)cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
-}
-
 // #9-11 over the card: N / nb columns of blocks, each of as many blocks as
 // the card holds at once (an occupancy query), at most one a row tile; the
 // blocks of a column walk the rest.  A kernel's last argument is the
@@ -721,7 +723,8 @@ int with_smem(const void* kernel, int bytes) {
 template <typename Kernel>
 int resident_per_column(Kernel kernel, int threads, int smem, int nb) {
   int dev = 0, sms = 0, per_sm = 0;
-  if (with_smem((const void*)kernel, smem) != cudaSuccess ||
+  if (cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                           smem) != cudaSuccess ||
       cudaGetDevice(&dev) != cudaSuccess ||
       cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev) !=
           cudaSuccess ||
