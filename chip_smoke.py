@@ -50,7 +50,21 @@ Phases, in order; any failure raises and the exit code is non-zero:
    wgrad as often as the MRD's 12 layers give; then one f32 step at full
    width on 1 x 64 frames runs on the CPU and on the card from the same
    weights and their metrics are compared;
-6. one JSON line of every kernel's numbers, with its launches on the path
+6. training runtime: at the same width, a synthetic dataset of 24 train
+   segments of 0.7-1.3 x 5.75 s (460 frames) is written to disk, a
+   ``BatchManager`` (``probe_batch_max=8``) feeds 4 acoustic steps on the
+   card from its epoch iterator (each step's wall ms and data wait
+   printed; the last step profiled, which must name the STFT kernel and
+   the three spec-conv kernels); after 2 steps a checkpoint is saved and
+   loaded into a state drawn from another seed (every tensor and the
+   generator state equal), and step 3 resumed from it with
+   ``skip_batches=2`` is held against the uninterrupted step 3 within the
+   f32-vs-card step's tolerances; then the checkpoint is packaged as an
+   inference artifact, loaded on the card and one ``synthesize`` of 80
+   phonemes from it is checked as in phase 4; the launch counts are set to
+   0 before the first step and read after the synthesis; checkpoint bytes
+   and save, load and package seconds printed;
+7. one JSON line of every kernel's numbers, with its launches on the path
    that runs it (per train step, synthesis request or probe run), then the
    result line.
 
@@ -99,6 +113,21 @@ CONV_SHAPES = [("res0 conv_1", (8, 257, 2761, 32), 9, 2),
 # names them
 PORT_KERNEL_SYMBOLS = ("stft_fft_kernel", "spec_conv_",
                        "sum_partials_kernel")
+# relative bounds between two runs of one train step's metrics.  f32
+# terms: the same f32 model on two devices, sums in another order; the MRD
+# and the SLM run in bf16 on both, through cuDNN and the kernels on one and
+# the CPU's convs on the other
+STEP_TOL = {"mel": 1e-3, "mag": 1e-3, "phase": 1e-3, "pitch": 1e-3,
+            "energy": 1e-3, "slm": 2e-2, "generator": 2e-2,
+            "discriminator": 2e-2, "loss": 2e-3}
+# the training runtime's phase: a synthetic dataset on disk of segments
+# spread around the train step's 460 frames, steps fed by the epoch
+# iterator, a checkpoint after RUNTIME_SAVE_AT of them; the kernels its
+# profiled step must name (csrc/stft.cu, csrc/spec_conv.cu)
+RUNTIME_SEGMENTS, RUNTIME_SECONDS = 26, 5.75
+RUNTIME_STEPS, RUNTIME_SAVE_AT = 4, 2
+RUNTIME_KERNELS = ("stft_fft_kernel", "spec_conv_fwd_kernel",
+                   "spec_conv_dgrad_kernel", "spec_conv_wgrad_kernel")
 
 
 def card_line() -> str:
@@ -377,7 +406,9 @@ def train_setup(mc, cfg, device, seed: int, models=None):
 
 
 def on_device(batch: dict, device) -> dict:
-    return {k: torch.from_numpy(v).to(device) for k, v in batch.items()}
+    """The arrays of a numpy batch as tensors on ``device``."""
+    return {k: torch.from_numpy(v).to(device) for k, v in batch.items()
+            if isinstance(v, np.ndarray)}
 
 
 def train_path(mc, device, card: str, kernels) -> dict:
@@ -471,14 +502,8 @@ def cpu_vs_card_step(mc, card: str) -> dict:
                           pcph_noise=torch.from_numpy(noise).to(device),
                           pcph_phase=torch.zeros(1, 1, device=device))
         results[device] = {k: v.item() for k, v in metrics.items()}
-    # f32 terms: the same f32 model on two devices, sums in another order;
-    # the MRD and the SLM run in bf16 on both, through cuDNN and the kernels
-    # on one and the CPU's convs on the other
-    tol = {"mel": 1e-3, "mag": 1e-3, "phase": 1e-3, "pitch": 1e-3,
-           "energy": 1e-3, "slm": 2e-2, "generator": 2e-2,
-           "discriminator": 2e-2, "loss": 2e-3}
     rel = {}
-    for key, bound in tol.items():
+    for key, bound in STEP_TOL.items():
         a, b = results["cpu"][key], results["cuda"][key]
         rel[key] = abs(a - b) / max(abs(a), 1e-30)
         if not rel[key] <= bound:
@@ -501,6 +526,282 @@ def profile_step(step, state, batch, gen, card: str) -> dict:
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
     return _device_table(prof, wall_ms, "train step", card)
+
+
+# --------------------------------------------------------------------------- #
+# the training runtime: data on disk, checkpoint, resume, artifact
+
+
+def _states_equal(a, b) -> int:
+    """Assert two train states hold equal tensors (every parameter, buffer
+    and optimizer tensor, the EMA, the step); returns how many tensors."""
+    count = 0
+    for key in a.models:
+        sa, sb = a.models[key].state_dict(), b.models[key].state_dict()
+        if sa.keys() != sb.keys():
+            raise AssertionError(f"{key}: the loaded state has other names")
+        for name in sa:
+            if not torch.equal(sa[name], sb[name]):
+                raise AssertionError(f"{key}.{name} differs after the load")
+            count += 1
+        oa, ob = a.optimizers[key].state_dict(), b.optimizers[key].state_dict()
+        if oa["param_groups"] != ob["param_groups"] or \
+                oa["state"].keys() != ob["state"].keys():
+            raise AssertionError(f"{key}: the loaded optimizer differs")
+        for index, entry in oa["state"].items():
+            for name, value in entry.items():
+                if not torch.equal(value, ob["state"][index][name]):
+                    raise AssertionError(f"{key}: moment {index} {name} "
+                                         f"differs after the load")
+                count += 1
+    for key in a.disc_ema:
+        if not torch.equal(a.disc_ema[key], b.disc_ema[key]):
+            raise AssertionError(f"disc_ema {key} differs after the load")
+    if a.step != b.step:
+        raise AssertionError(f"step {a.step} vs {b.step} after the load")
+    return count + len(a.disc_ema)
+
+
+def _profiled_names(step, state, batch, gen, card: str) -> tuple:
+    """One profiled train step: the device table, and which of
+    RUNTIME_KERNELS it names.  Retaken (up to twice) where the profiler
+    lost the records of a kernel."""
+    for attempt in range(3):
+        table = profile_step(step, state, batch, gen, card)
+        seen = sorted({k.split("<")[0] for k in table["port_kernels"]})
+        missing = [n for n in RUNTIME_KERNELS if n not in seen]
+        if not missing:
+            return table, seen, attempt
+        print(f"profiled step {attempt + 1}: no record of {missing}")
+    raise AssertionError(f"the profiled train step never names {missing}")
+
+
+def runtime_path(mc, device, card: str, kernels) -> dict:
+    """The training runtime at full width: a synthetic dataset written to
+    disk, batches from ``BatchManager.epoch_iterator`` into
+    RUNTIME_STEPS acoustic steps on the card (each step's wall ms and its
+    data wait: the ms blocked on the iterator plus the copy to the card),
+    one of them profiled; a checkpoint after RUNTIME_SAVE_AT steps, loaded
+    into a state drawn from another seed and held equal tensor by tensor,
+    the next step resumed from it with ``skip_batches`` and its metrics
+    held against the uninterrupted run's; then the inference artifact
+    packaged from the checkpoint, loaded on the card, and one synthesis
+    of 80 phonemes from it.  The launch counts are set to 0 before the
+    first step and read after the synthesis."""
+    import tempfile
+
+    from stylish_tts_tpu_torch.config import Config, dump_json
+    from stylish_tts_tpu_torch.data.batch_manager import BatchManager
+    from stylish_tts_tpu_torch.data.dataset import (FilePathDataset,
+                                                    get_data_path_list)
+    from stylish_tts_tpu_torch.export.infer import Synthesizer
+    from stylish_tts_tpu_torch.export.package import (
+        load_inference_models, package_inference_artifact)
+    from stylish_tts_tpu_torch.text import TextCleaner
+    from stylish_tts_tpu_torch.train.checkpoint import (
+        Manifest, NormalizationStats, checkpoint_name, load_checkpoint,
+        save_checkpoint)
+    from stylish_tts_tpu_torch.train.init import build_train_state, init_slm
+    from stylish_tts_tpu_torch.train.stages import (STAGES, StageContext,
+                                                    make_train_step)
+    from stylish_tts_tpu_torch.utils.synthetic import make_synthetic_dataset
+
+    out: dict = {"card": card}
+    cfg = Config()
+    # the stage's models, the MRD and the other two inference models: a
+    # state that packages into a whole artifact
+    keys = STAGES["acoustic"].train_models + [
+        "mrd", "duration_predictor", "pe_text_style_encoder"]
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_runtime_") as tmp:
+        root = Path(tmp)
+        # 1. the dataset on disk
+        t0 = time.perf_counter()
+        make_synthetic_dataset(root / "data", n_segments=RUNTIME_SEGMENTS,
+                               seconds=RUNTIME_SECONDS)
+        written = time.perf_counter() - t0
+        data = root / "data"
+        dataset = FilePathDataset(
+            data_list=get_data_path_list(data / "train-list.txt"),
+            root_path=data / "wav24", text_cleaner=TextCleaner(mc.symbol),
+            model_config=mc, pitch_path=str(data / "pitch.safetensors"),
+            alignment_path=str(data / "alignment.safetensors"))
+        manager = BatchManager(dataset, root / "out", "acoustic",
+                               probe_batch_max=8)
+        bins = {b: len(i) for b, i in sorted(manager.time_bins.items())}
+        out["dataset"] = {"segments": len(dataset), "write_s": written,
+                          "bins": bins, "batch_sizes": manager.batch_sizes,
+                          "steps_per_epoch": manager.steps_per_epoch()}
+        print(f"runtime dataset: {len(dataset)} train segments written in "
+              f"{written:.2f} s; segments per bin {bins}; batch sizes "
+              f"{manager.batch_sizes}; {manager.steps_per_epoch()} batches "
+              f"an epoch")
+
+        # 2. acoustic steps fed by the epoch iterator
+        def new_state(seed):
+            state = build_train_state(
+                mc, keys, device=device,
+                generator=torch.Generator().manual_seed(seed))
+            speech_levels(state.models)
+            return state
+
+        state = new_state(30)
+        slm = init_slm(mc, torch.Generator().manual_seed(31)).to(device)
+        ctx = StageContext(model_config=mc, config=cfg, mel_mean=-4.0,
+                           mel_std=4.0, step_limit=10_000, slm=slm)
+        step = make_train_step("acoustic", ctx, 1e-4)
+        gen = torch.Generator(device=device).manual_seed(32)
+        for k in kernels:
+            k.launches = 0
+
+        def fed_step(it, state, gen, profiled=False):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            numpy_batch = next(it)
+            t1 = time.perf_counter()
+            batch = on_device(numpy_batch, device)
+            torch.cuda.synchronize()
+            t2 = time.perf_counter()
+            if profiled:
+                table, seen, retakes = _profiled_names(step, state, batch,
+                                                       gen, card)
+                metrics = None
+            else:
+                _, metrics = step(state, batch, gen)
+                torch.cuda.synchronize()
+            t3 = time.perf_counter()
+            row = {"bin": int(numpy_batch["bin"]),
+                   "shape": list(numpy_batch["alignment"].shape),
+                   "wall_ms": (t3 - t0) * 1e3, "wait_ms": (t2 - t0) * 1e3,
+                   "iterator_ms": (t1 - t0) * 1e3,
+                   "copy_ms": (t2 - t1) * 1e3, "step_ms": (t3 - t2) * 1e3}
+            if profiled:
+                # the step's wall inside the profiler; the profiler's own
+                # start, stop and table are left out
+                row.update(profiled=True, kernels_seen=seen,
+                           profile_retakes=retakes,
+                           step_ms=table["wall_ms"],
+                           wall_ms=row["wait_ms"] + table["wall_ms"],
+                           kernels_ms=table["device_ms"])
+            else:
+                row["metrics"] = {k: v.item() for k, v in metrics.items()}
+            return row
+
+        it = manager.epoch_iterator(stage="acoustic", epoch=1)
+        rows = []
+        for i in range(RUNTIME_STEPS):
+            if i == RUNTIME_SAVE_AT:
+                # 3. checkpoint, then load into a state from another seed
+                manifest = Manifest(current_epoch=1, current_step=i,
+                                    steps_per_epoch=manager.steps_per_epoch(),
+                                    current_total_step=i, stage="acoustic")
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                ckpt = save_checkpoint(
+                    root / "ckpt", checkpoint_name(1, i), state, manifest,
+                    NormalizationStats(), dump_json(cfg), dump_json(mc),
+                    generator=gen)
+                save_s = time.perf_counter() - t0
+                resumed, gen_b = new_state(33), torch.Generator(
+                    device=device).manual_seed(34)
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                _, loaded_manifest, _, _ = load_checkpoint(ckpt, resumed,
+                                                           gen_b)
+                torch.cuda.synchronize()
+                load_s = time.perf_counter() - t0
+                n_equal = _states_equal(state, resumed)
+                if not torch.equal(gen.get_state(), gen_b.get_state()):
+                    raise AssertionError("the generator state differs after "
+                                         "the load")
+                nbytes = sum(p.stat().st_size for p in ckpt.rglob("*")
+                             if p.is_file())
+                out["checkpoint"] = {"bytes": nbytes, "save_s": save_s,
+                                     "load_s": load_s,
+                                     "tensors_equal": n_equal}
+                print(f"checkpoint after step {i}: {nbytes} bytes, save "
+                      f"{save_s:.2f} s, load {load_s:.2f} s; {n_equal} "
+                      f"tensors and the generator state equal after the "
+                      f"load [{card}]")
+            rows.append(fed_step(it, state, gen,
+                                 profiled=i == RUNTIME_STEPS - 1))
+            r = rows[-1]
+            busy = (f", kernels {r['kernels_ms']:.1f} ms, profiled"
+                    if r.get("profiled") else "")
+            print(f"runtime step {i + 1} (bin {r['bin']}, alignment "
+                  f"{r['shape']}): wall {r['wall_ms']:.1f} ms, data wait "
+                  f"{r['wait_ms']:.1f} ms (iterator {r['iterator_ms']:.1f}, "
+                  f"copy {r['copy_ms']:.1f}), step {r['step_ms']:.1f} ms"
+                  f"{busy} [{card}]")
+        it.close()
+        print(f"profiled step: the port's kernels seen "
+              f"{rows[-1]['kernels_seen']} [{card}]")
+
+        # the resumed step from the checkpoint, against the uninterrupted
+        resumed_it = manager.epoch_iterator(
+            stage="acoustic", epoch=1,
+            skip_batches=loaded_manifest.current_step)
+        row = fed_step(resumed_it, resumed, gen_b)
+        resumed_it.close()
+        want = rows[RUNTIME_SAVE_AT]
+        if (row["bin"], row["shape"]) != (want["bin"], want["shape"]):
+            raise AssertionError("the resumed iterator gave another batch")
+        gap = {}
+        for key, bound in STEP_TOL.items():
+            a, b = want["metrics"][key], row["metrics"][key]
+            gap[key] = abs(a - b) / max(abs(a), 1e-30)
+            if not gap[key] <= bound:
+                raise AssertionError(f"resumed step {key}: {b} vs the "
+                                     f"uninterrupted {a}")
+        print(f"resumed step {RUNTIME_SAVE_AT + 1} vs the uninterrupted "
+              f"run: relative gaps {json.dumps(gap)}; data wait "
+              f"{row['wait_ms']:.1f} ms [{card}]")
+        out.update(steps=rows, resumed_step=row, resumed_gap=gap)
+        del state, resumed, step, ctx, slm
+        torch.cuda.empty_cache()
+
+        # 4. the artifact from the checkpoint, and speech from it
+        t0 = time.perf_counter()
+        artifact = package_inference_artifact(ckpt, root / "artifact")
+        package_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        amc, models = load_inference_models(artifact, device)
+        torch.cuda.synchronize()
+        artifact_load_s = time.perf_counter() - t0
+        synth = Synthesizer(amc, models, device=device, sample_seed=0)
+        text = phoneme_strings(amc.symbol, [80], seed=1)[0]
+        t0 = time.perf_counter()
+        audio = synth.synthesize(text, fixed_duration=8)
+        synth_s = time.perf_counter() - t0
+        check_audio(audio, 80 + 2, 8, amc.hop_length,
+                    "synthesize from the packaged artifact")
+        launches = {k.name: k.launches for k in kernels}
+        for name, n in launches.items():
+            if n == 0:
+                raise AssertionError(f"{name} never launched on the "
+                                     f"runtime phase")
+        out.update(package_s=package_s, artifact_load_s=artifact_load_s,
+                   synthesis={"audio_s": audio.shape[0] / amc.sample_rate,
+                              "wall_s": synth_s,
+                              "max_abs": float(np.abs(audio).max())},
+                   launches=launches)
+        print(f"artifact: packaged in {package_s:.2f} s, loaded on the card "
+              f"in {artifact_load_s:.2f} s; synthesize(80 phonemes) "
+              f"{audio.shape[0] / amc.sample_rate:.2f} s of audio in "
+              f"{synth_s * 1e3:.1f} ms (first request), max |audio| "
+              f"{np.abs(audio).max():.3f} [{card}]")
+        print(f"runtime phase launches: {launches}")
+    waits = [r["wait_ms"] for r in rows[1:]]
+    steps_ms = [r["step_ms"] for r in rows[1:-1]]
+    print(f"runtime: data wait of steps 2-{RUNTIME_STEPS} "
+          f"{', '.join(f'{w:.1f}' for w in waits)} ms against unprofiled "
+          f"steps of {', '.join(f'{s:.1f}' for s in steps_ms)} ms; "
+          f"checkpoint {out['checkpoint']['bytes']} bytes, save "
+          f"{out['checkpoint']['save_s']:.2f} s, load "
+          f"{out['checkpoint']['load_s']:.2f} s, package {package_s:.2f} s "
+          f"[{card}]")
+    del synth, models
+    torch.cuda.empty_cache()
+    return out
 
 
 # --------------------------------------------------------------------------- #
@@ -529,16 +830,24 @@ def seeded_models(mc, seed: int):
                     p.copy_(normal / p[0].numel() ** 0.5)
                 else:
                     p.copy_(0.1 * normal)  # biases, betas
-        pe = models["pitch_energy_predictor"]
-        pe.f0_proj.weight.mul_(50.0)
-        pe.f0_proj.bias.add_(180.0)  # Hz
-        sp = models["speech_predictor"]
-        heads = [sp.prior_encoder] + [getattr(sp.flow, f"flow_{i}")
-                                      for i in range(sp.flow.n_flows)]
-        for head in heads:
-            head.proj_mean.weight.mul_(0.1)
-            head.proj_logstd.weight.mul_(0.1)
-        sp.generator.amp_output_conv.Conv_0.weight.mul_(0.1)
+    return speech_levels(models)
+
+
+@torch.no_grad()
+def speech_levels(models):
+    """Set the four heads of ``models`` that synthesis needs at a trained
+    model's levels, in place: F0 of speech, small prior and flow heads, a
+    log-amplitude below the final tanh's saturation."""
+    pe = models["pitch_energy_predictor"]
+    pe.f0_proj.weight.mul_(50.0)
+    pe.f0_proj.bias.add_(180.0)  # Hz
+    sp = models["speech_predictor"]
+    heads = [sp.prior_encoder] + [getattr(sp.flow, f"flow_{i}")
+                                  for i in range(sp.flow.n_flows)]
+    for head in heads:
+        head.proj_mean.weight.mul_(0.1)
+        head.proj_logstd.weight.mul_(0.1)
+    sp.generator.amp_output_conv.Conv_0.weight.mul_(0.1)
     return models
 
 
@@ -897,7 +1206,11 @@ def main() -> int:
     torch.cuda.empty_cache()
     record["train_cpu_vs_card"] = cpu_vs_card_step(mc, card)
 
-    # 6. results: each kernel's own numbers and its launches on the path
+    # 6. the training runtime: dataset on disk, steps fed by the epoch
+    # iterator, checkpoint and resume, the artifact and speech from it
+    record["runtime"] = runtime_path(mc, device, card, kernels)
+
+    # 7. results: each kernel's own numbers and its launches on the path
     # that runs it: per train step, or per probe run
     out_dir = Path("chiprun_out")
     out_dir.mkdir(exist_ok=True)

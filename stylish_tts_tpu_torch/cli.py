@@ -3,9 +3,13 @@
     python -m stylish_tts_tpu_torch.cli speak --artifact DIR \\
         --phonemes "ðɪs ɪz ə tˈɛst" --out out.wav [--device cpu]
 
+    python -m stylish_tts_tpu_torch.cli convert --checkpoint DIR --out DIR
+
 ``speak`` synthesizes IPA phonemes from an inference artifact (see
 ``export/package.py``) into a 16-bit mono WAV file.  Text and book input
-need the G2P front end, which is not ported yet.
+need the G2P front end, which is not ported yet.  ``convert`` packages the
+inference artifact of a training checkpoint (``train/checkpoint.py``); it
+reads both configs from the checkpoint's ``meta.json``.
 """
 
 from __future__ import annotations
@@ -17,7 +21,7 @@ from typing import List, Optional
 import numpy as np
 
 from .export.infer import Synthesizer
-from .export.package import load_inference_models
+from .export.package import load_inference_models, package_inference_artifact
 
 
 def write_wav(path: str, audio: np.ndarray, sample_rate: int) -> None:
@@ -49,7 +53,16 @@ def main(argv: Optional[List[str]] = None) -> None:
     sp.add_argument("--out", required=True, help="output WAV path")
     sp.add_argument("--device", default=None,
                     help="torch device (default: cuda)")
+    cp = sub.add_parser("convert",
+                        help="package a checkpoint as an inference artifact")
+    cp.add_argument("--checkpoint", required=True,
+                    help="training checkpoint directory")
+    cp.add_argument("--out", required=True, help="artifact directory")
     args = parser.parse_args(argv)
+    if args.command == "convert":
+        out = package_inference_artifact(args.checkpoint, args.out)
+        print(f"wrote {out}")
+        return
     seconds = speak(args.artifact, args.phonemes, args.out, args.device)
     print(f"wrote {args.out} ({seconds:.2f}s)")
 

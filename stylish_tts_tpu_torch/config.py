@@ -3,8 +3,9 @@
 Field names, defaults and nesting equal the JAX package's pydantic
 ``ModelConfig`` and ``Config``, so the JSON that pydantic's
 ``model_dump_json`` writes (an inference artifact's ``model_config.json``, a
-run's config) loads here unchanged.  Only the stdlib is used: the card's
-machine has no pydantic or yaml.
+run's config) loads here unchanged, and ``dump_json`` writes that JSON
+back.  Only the stdlib is used: the card's machine has no pydantic or
+yaml.
 """
 
 from __future__ import annotations
@@ -308,3 +309,10 @@ def load_model_config_json(data: str) -> ModelConfig:
 def load_config_json(data: str) -> Config:
     """Parse the JSON written by ``model_dump_json`` of the run schema."""
     return _build(Config, json.loads(data))
+
+
+def dump_json(config: Union[ModelConfig, Config]) -> str:
+    """The JSON that pydantic's ``model_dump_json`` writes for the same
+    config in the JAX package: fields in order, compact, not ASCII-escaped."""
+    return json.dumps(dataclasses.asdict(config), ensure_ascii=False,
+                      separators=(",", ":"))

@@ -59,3 +59,15 @@ class DurationProcessor:
         return (
             (frames >= starts[..., None]) & (frames < ends[..., None])
         ).to(torch.float32)
+
+
+def duration_to_alignment_np(duration: np.ndarray, n_frames: int
+                             ) -> np.ndarray:
+    """Integer durations [T] -> one-hot alignment [T, n_frames] (f32) on
+    the host, for the data pipeline's collate."""
+    duration = duration.astype(np.int64)
+    ends = np.cumsum(duration)
+    starts = ends - duration
+    frames = np.arange(n_frames)[None, :]
+    return ((frames >= starts[:, None]) & (frames < ends[:, None])).astype(
+        np.float32)

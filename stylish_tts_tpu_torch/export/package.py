@@ -1,60 +1,55 @@
-"""Load an inference artifact: ``model_config.json`` plus one
-``<model>.safetensors`` of flat flax names for each inference model.
+"""The inference artifact: ``model_config.json``, ``metadata.json``
+(normalisation stats and the run's manifest) and one
+``<model>.safetensors`` of flat flax names for each inference model, the
+layout the JAX package writes and reads.
 
-The safetensors format is read by hand (the card's machine has no
-``safetensors`` package): an 8-byte little-endian header length, a JSON
-header mapping each name to its dtype, shape and byte range, then the raw
-little-endian data.
+``package_inference_artifact`` writes it from a training checkpoint;
+``load_inference_models`` reads it.  The speech predictor's file keeps the
+training-only posterior encoder, as the JAX package's does: its reader
+needs it, and the port's skips it.
 """
 
 from __future__ import annotations
 
 import json
-import struct
+import shutil
 from pathlib import Path
 from typing import Dict, Optional, Tuple, Union
 
-import numpy as np
 import torch
 from torch import nn
 
-from ..config import ModelConfig, load_model_config_json
+from ..config import ModelConfig, dump_json, load_model_config_json
 from ..convert import load_flax_params
 from ..device import resolve_device
 from ..models import INFERENCE_MODELS, build_models
-
-_DTYPES = {
-    "F64": np.float64, "F32": np.float32, "F16": np.float16,
-    "I64": np.int64, "I32": np.int32, "I16": np.int16, "I8": np.int8,
-    "U8": np.uint8, "BOOL": np.bool_,
-}
+from ..train.init import build_training_models
+# read_safetensors is also read from here by the artifact's callers
+from ..utils.tensorfile import read_safetensors
 
 
-def read_safetensors(path: Union[str, Path]) -> Dict[str, np.ndarray]:
-    """name -> numpy array for every tensor of a ``.safetensors`` file."""
-    data = Path(path).read_bytes()
-    if len(data) < 8:
-        raise ValueError(f"{path}: not a safetensors file")
-    (header_len,) = struct.unpack("<Q", data[:8])
-    if 8 + header_len > len(data):
-        raise ValueError(f"{path}: header runs past the end of the file")
-    header = json.loads(data[8 : 8 + header_len].decode("utf-8"))
-    body = memoryview(data)[8 + header_len :]
-    out = {}
-    for name, info in header.items():
-        if name == "__metadata__":
-            continue
-        if info["dtype"] not in _DTYPES:
-            raise ValueError(f"{path}: {name} has unsupported dtype "
-                             f"{info['dtype']}")
-        dtype = np.dtype(_DTYPES[info["dtype"]]).newbyteorder("<")
-        begin, end = info["data_offsets"]
-        shape = tuple(info["shape"])
-        count = int(np.prod(shape, dtype=np.int64))
-        if end - begin != count * dtype.itemsize or end > len(body):
-            raise ValueError(f"{path}: {name} has a bad byte range")
-        out[name] = np.frombuffer(body[begin:end], dtype=dtype) \
-            .reshape(shape).astype(dtype.newbyteorder("="))
+def package_inference_artifact(checkpoint_dir: Union[str, Path],
+                               out_path: Union[str, Path]) -> Path:
+    """Write the artifact of the training checkpoint at
+    ``checkpoint_dir`` (``train/checkpoint.py``) to ``out_path``.  Each
+    inference model's file is checked against the model it fills (every
+    name used, every parameter filled, every shape fitting), then copied."""
+    ckpt = Path(checkpoint_dir)
+    meta = json.loads((ckpt / "meta.json").read_text())
+    mc = load_model_config_json(json.dumps(meta["model_config"]))
+    models = build_training_models(mc)
+    out = Path(out_path)
+    out.mkdir(parents=True, exist_ok=True)
+    for key in INFERENCE_MODELS:
+        src = ckpt / "models" / f"{key}.safetensors"
+        if not src.is_file():
+            raise FileNotFoundError(f"{ckpt}: the checkpoint holds no {key}")
+        load_flax_params(key, read_safetensors(src), models[key])
+        shutil.copyfile(src, out / f"{key}.safetensors")
+    (out / "model_config.json").write_text(dump_json(mc))
+    (out / "metadata.json").write_text(json.dumps({
+        "normalization": meta["normalization"],
+        "manifest": meta["manifest"]}))
     return out
 
 
