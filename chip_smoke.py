@@ -634,7 +634,7 @@ def runtime_path(mc, device, card: str, kernels) -> dict:
         print(f"runtime dataset: {len(dataset)} train segments written in "
               f"{written:.2f} s; segments per bin {bins}; batch sizes "
               f"{manager.batch_sizes}; {manager.steps_per_epoch()} batches "
-              f"an epoch")
+              f"an epoch [{card}]")
 
         # 2. acoustic steps fed by the epoch iterator
         def new_state(seed):
