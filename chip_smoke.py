@@ -50,20 +50,25 @@ Phases, in order; any failure raises and the exit code is non-zero:
    wgrad as often as the MRD's 12 layers give; then one f32 step at full
    width on 1 x 64 frames runs on the CPU and on the card from the same
    weights and their metrics are compared;
-6. training runtime: at the same width, a synthetic dataset of 24 train
+6. training runtime: at the same width, a synthetic dataset of 158 train
    segments of 0.7-1.3 x 5.75 s (460 frames) is written to disk, a
-   ``BatchManager`` (``probe_batch_max=8``) feeds 4 acoustic steps on the
+   ``BatchManager`` (``probe_batch_max=8``: the bin of 460 frames takes
+   batches of 8) times its producer's decode and collate of one full
+   batch beside phase 5's warm step, then feeds 4 acoustic steps on the
    card from its epoch iterator (each step's wall ms and data wait
    printed; the last step profiled, which must name the STFT kernel and
    the three spec-conv kernels); after 2 steps a checkpoint is saved and
    loaded into a state drawn from another seed (every tensor and the
    generator state equal), and step 3 resumed from it with
-   ``skip_batches=2`` is held against the uninterrupted step 3 within the
-   f32-vs-card step's tolerances; then the checkpoint is packaged as an
-   inference artifact, loaded on the card and one ``synthesize`` of 80
-   phonemes from it is checked as in phase 4; the launch counts are set to
-   0 before the first step and read after the synthesis; checkpoint bytes
-   and save, load and package seconds printed;
+   ``skip_batches=2`` must give the uninterrupted step 3's metrics
+   exactly; then the checkpoint is packaged as an inference artifact,
+   loaded on the card and one ``synthesize`` of 80 phonemes from it is
+   checked as in phase 4; the launch counts are set to 0 before the first
+   step and read after the synthesis; checkpoint bytes and save, load and
+   package seconds printed; last, at every batch shape the steps took,
+   the STFT at its five settings and the spec-conv forward, dgrad and
+   wgrad at the MRD's 12 layer shapes are held against their plain
+   versions as in phase 2;
 7. one JSON line of every kernel's numbers, with its launches on the path
    that runs it (per train step, synthesis request or probe run), then the
    result line.
@@ -121,10 +126,12 @@ STEP_TOL = {"mel": 1e-3, "mag": 1e-3, "phase": 1e-3, "pitch": 1e-3,
             "energy": 1e-3, "slm": 2e-2, "generator": 2e-2,
             "discriminator": 2e-2, "loss": 2e-3}
 # the training runtime's phase: a synthetic dataset on disk of segments
-# spread around the train step's 460 frames, steps fed by the epoch
+# spread around the train step's 460 frames (158 train segments over 14
+# bins, enough that the first batches an epoch takes are at their bins'
+# planned sizes, the first one b8 x f460), steps fed by the epoch
 # iterator, a checkpoint after RUNTIME_SAVE_AT of them; the kernels its
 # profiled step must name (csrc/stft.cu, csrc/spec_conv.cu)
-RUNTIME_SEGMENTS, RUNTIME_SECONDS = 26, 5.75
+RUNTIME_SEGMENTS, RUNTIME_SECONDS = 160, 5.75
 RUNTIME_STEPS, RUNTIME_SAVE_AT = 4, 2
 RUNTIME_KERNELS = ("stft_fft_kernel", "spec_conv_fwd_kernel",
                    "spec_conv_dgrad_kernel", "spec_conv_wgrad_kernel")
@@ -162,10 +169,10 @@ def time_ms(fn, iters: int = 10, flush: torch.Tensor | None = None) -> float:
 # the STFT kernel
 
 
-def stft_numbers(x: torch.Tensor, n_fft: int, hop: int, win: int,
-                 flush: torch.Tensor) -> dict:
-    """Hold the kernel against the plain version on ``x`` and time both,
-    torch.stft, and the bound."""
+def stft_error(x: torch.Tensor, n_fft: int, hop: int, win: int) -> tuple:
+    """The kernel's (real, imag) on ``x`` and its max error against the
+    plain version; raises past KERNEL_TOL of the largest plain value or
+    where the wrapper did not launch the kernel."""
     from stylish_tts_tpu_torch.ops import stft as plain
     from stylish_tts_tpu_torch.ops.stft_kernel import stft_forward
 
@@ -183,9 +190,22 @@ def stft_numbers(x: torch.Tensor, n_fft: int, hop: int, win: int,
         e = (got - want).abs().max().item()
         scale = want.abs().max().item()
         if not e <= KERNEL_TOL * scale:
-            raise AssertionError(f"stft {part} n_fft={n_fft} hop={hop}: "
-                                 f"max err {e:.3e} > {KERNEL_TOL} * {scale:.3e}")
+            raise AssertionError(f"stft {part} {tuple(x.shape)} n_fft={n_fft} "
+                                 f"hop={hop}: max err {e:.3e} > {KERNEL_TOL} "
+                                 f"* {scale:.3e}")
         err = max(err, e)
+    return real, imag, err
+
+
+def stft_numbers(x: torch.Tensor, n_fft: int, hop: int, win: int,
+                 flush: torch.Tensor) -> dict:
+    """Hold the kernel against the plain version on ``x`` and time both,
+    torch.stft, and the bound."""
+    from stylish_tts_tpu_torch.ops import stft as plain
+    from stylish_tts_tpu_torch.ops.stft_kernel import stft_forward
+
+    kw = dict(n_fft=n_fft, hop_length=hop, win_length=win)
+    real, imag, err = stft_error(x, n_fft, hop, win)
 
     # and against an independent algorithm: cuFFT through torch.stft
     window = plain._padded_window(win, n_fft).to(x.device)
@@ -246,6 +266,22 @@ def stft_line(r: dict) -> str:
 # the spec-conv kernels
 
 
+def conv_error(name: str, shape, kernel, plain) -> tuple:
+    """(max |kernel - plain|, max |plain|) of one spec-conv wrapper call
+    and its plain version; raises past the tolerance of ``max_error`` or
+    where the wrapper did not launch its kernel."""
+    from stylish_tts_tpu_torch.ops import spec_conv as sc
+
+    counter = getattr(sc, f"spec_conv_{name}")
+    before = counter.launches
+    got = kernel()
+    if counter.launches != before + 1:
+        raise AssertionError(f"spec_conv_{name}: no kernel launch")
+    want = plain()
+    torch.cuda.synchronize()
+    return max_error(name, shape, got, want)
+
+
 def spec_conv_numbers(shape, kt: int, stride: int, flush: torch.Tensor,
                       seed: int) -> dict:
     """Forward, dgrad and wgrad at one MRD layer shape: each kernel held
@@ -263,15 +299,7 @@ def spec_conv_numbers(shape, kt: int, stride: int, flush: torch.Tensor,
     out = {}
     for name, (kernel, plain, library) in conv_calls(
             shape, kt, stride, seed).items():
-        counter = getattr(sc, f"spec_conv_{name}")
-        before = counter.launches
-        got = kernel()
-        if counter.launches != before + 1:
-            raise AssertionError(f"spec_conv_{name}: no kernel launch")
-        want = plain()
-        torch.cuda.synchronize()
-        err, scale = max_error(name, shape, got, want)
-        del got, want
+        err, scale = conv_error(name, shape, kernel, plain)
         t_ops = flops / PEAK_BF16_FLOPS * 1e3
         t_bytes = nbytes[name] / PEAK_BYTES * 1e3
         ms = time_ms(kernel, flush=flush)
@@ -576,7 +604,41 @@ def _profiled_names(step, state, batch, gen, card: str) -> tuple:
     raise AssertionError(f"the profiled train step never names {missing}")
 
 
-def runtime_path(mc, device, card: str, kernels) -> dict:
+def batch_shape_checks(shapes, card: str) -> list:
+    """The STFT and spec-conv kernels held against their plain versions at
+    the shapes that runtime batches give them: for each (B, samples) of
+    audio, the STFT at every STFT_SHAPES setting on [B, samples] and the
+    spec-conv forward, dgrad and wgrad at the MRD's 12 layer shapes of that
+    audio (``mrd_layers``), on random inputs.  Raises past KERNEL_TOL or
+    the spec-conv tolerances of phase 2, or where a wrapper did not launch
+    its kernel."""
+    rows = []
+    for b, samples in shapes:
+        gen = torch.Generator(device="cuda").manual_seed(b * samples)
+        x = torch.randn(b, samples, generator=gen, device="cuda")
+        stft = max(stft_error(x, *s)[2] for s in STFT_SHAPES)
+        del x
+        conv = {}
+        layers = mrd_layers(b, samples)
+        for seed, (_, shape, kt, stride) in enumerate(layers):
+            for name, (kernel, plain, _) in conv_calls(
+                    shape, kt, stride, seed).items():
+                err, scale = conv_error(name, shape, kernel, plain)
+                conv[name] = max(conv.get(name, 0.0), err / scale)
+        rows.append({"batch": b, "samples": samples, "stft_max_abs_err": stft,
+                     "spec_conv_max_rel_err": conv,
+                     "widths": [shape[2] for _, shape, _, _ in layers]})
+        print(f"runtime batch shape {b} x {samples} samples: stft at "
+              f"{len(STFT_SHAPES)} settings max err {stft:.2e}; spec-conv "
+              f"at the MRD's {len(layers)} layers (widths "
+              f"{rows[-1]['widths']}), max err / max |plain| "
+              f"{json.dumps({k: float(f'{v:.3e}') for k, v in conv.items()})}"
+              f" [{card}]")
+    return rows
+
+
+def runtime_path(mc, device, card: str, kernels,
+                 warm_step_ms: float) -> dict:
     """The training runtime at full width: a synthetic dataset written to
     disk, batches from ``BatchManager.epoch_iterator`` into
     RUNTIME_STEPS acoustic steps on the card (each step's wall ms and its
@@ -587,13 +649,19 @@ def runtime_path(mc, device, card: str, kernels) -> dict:
     held against the uninterrupted run's; then the inference artifact
     packaged from the checkpoint, loaded on the card, and one synthesis
     of 80 phonemes from it.  The launch counts are set to 0 before the
-    first step and read after the synthesis."""
+    first step and read after the synthesis; then the kernels are held
+    against their plain versions at every batch shape the steps took.
+    ``warm_step_ms`` (phase 5's median step at b8 x f460) is what the
+    producer's time for one full batch is set against."""
     import tempfile
+    from concurrent.futures import ThreadPoolExecutor
 
     from stylish_tts_tpu_torch.config import Config, dump_json
     from stylish_tts_tpu_torch.data.batch_manager import BatchManager
+    from stylish_tts_tpu_torch.data.collate import collate
     from stylish_tts_tpu_torch.data.dataset import (FilePathDataset,
-                                                    get_data_path_list)
+                                                    get_data_path_list,
+                                                    get_frame_count)
     from stylish_tts_tpu_torch.export.infer import Synthesizer
     from stylish_tts_tpu_torch.export.package import (
         load_inference_models, package_inference_artifact)
@@ -636,6 +704,30 @@ def runtime_path(mc, device, card: str, kernels) -> dict:
               f"{manager.batch_sizes}; {manager.steps_per_epoch()} batches "
               f"an epoch [{card}]")
 
+        # the producer's work for one full batch, outside the iterator: the
+        # bin nearest TRAIN_FRAMES at its planned size, decoded on a thread
+        # pool as wide as the iterator's and collated; the first pass reads
+        # the files cold
+        near = min(manager.time_bins,
+                   key=lambda b: abs(get_frame_count(b) - TRAIN_FRAMES))
+        idxs = manager.time_bins[near][:manager.get_batch_size(near)]
+        producer_ms = []
+        with ThreadPoolExecutor(manager.num_workers) as pool:
+            for r in range(4):
+                t0 = time.perf_counter()
+                items = list(pool.map(dataset.load_item, idxs))
+                collate(items, stage="acoustic",
+                        rng=np.random.default_rng(r), jitter=True)
+                producer_ms.append((time.perf_counter() - t0) * 1e3)
+        out["producer"] = {"bin": near, "frames": get_frame_count(near),
+                           "batch": len(idxs), "ms": producer_ms,
+                           "warm_step_ms": warm_step_ms}
+        print(f"runtime producer: decode and collate of one batch of "
+              f"{len(idxs)} at bin {near} ({get_frame_count(near)} frames) "
+              f"{', '.join(f'{t:.1f}' for t in producer_ms)} ms (the first "
+              f"cold), against the warm b{TRAIN_BATCH} x f{TRAIN_FRAMES} step "
+              f"of phase 5, {warm_step_ms:.1f} ms [{card}]")
+
         # 2. acoustic steps fed by the epoch iterator
         def new_state(seed):
             state = build_train_state(
@@ -671,6 +763,7 @@ def runtime_path(mc, device, card: str, kernels) -> dict:
             t3 = time.perf_counter()
             row = {"bin": int(numpy_batch["bin"]),
                    "shape": list(numpy_batch["alignment"].shape),
+                   "audio": list(numpy_batch["audio_gt"].shape),
                    "wall_ms": (t3 - t0) * 1e3, "wait_ms": (t2 - t0) * 1e3,
                    "iterator_ms": (t1 - t0) * 1e3,
                    "copy_ms": (t2 - t1) * 1e3, "step_ms": (t3 - t2) * 1e3}
@@ -745,11 +838,13 @@ def runtime_path(mc, device, card: str, kernels) -> dict:
         want = rows[RUNTIME_SAVE_AT]
         if (row["bin"], row["shape"]) != (want["bin"], want["shape"]):
             raise AssertionError("the resumed iterator gave another batch")
+        # the same weights, batch, generator state and card: every metric
+        # is held equal, not within a tolerance
         gap = {}
-        for key, bound in STEP_TOL.items():
+        for key in STEP_TOL:
             a, b = want["metrics"][key], row["metrics"][key]
             gap[key] = abs(a - b) / max(abs(a), 1e-30)
-            if not gap[key] <= bound:
+            if a != b:
                 raise AssertionError(f"resumed step {key}: {b} vs the "
                                      f"uninterrupted {a}")
         print(f"resumed step {RUNTIME_SAVE_AT + 1} vs the uninterrupted "
@@ -801,6 +896,8 @@ def runtime_path(mc, device, card: str, kernels) -> dict:
           f"[{card}]")
     del synth, models
     torch.cuda.empty_cache()
+    out["batch_shape_checks"] = batch_shape_checks(
+        sorted({tuple(r["audio"]) for r in rows}), card)
     return out
 
 
@@ -1208,7 +1305,8 @@ def main() -> int:
 
     # 6. the training runtime: dataset on disk, steps fed by the epoch
     # iterator, checkpoint and resume, the artifact and speech from it
-    record["runtime"] = runtime_path(mc, device, card, kernels)
+    record["runtime"] = runtime_path(mc, device, card, kernels,
+                                     train["median_s"] * 1e3)
 
     # 7. results: each kernel's own numbers and its launches on the path
     # that runs it: per train step, or per probe run

@@ -27,9 +27,8 @@ from typing import Callable, List, Tuple
 import torch
 import torch.nn.functional as F
 
-BATCH = 8
-# per resolution: (F, frames) of the |STFT| image at 8 x 138,000 samples
-MRD_RESOLUTIONS = [(257, 2761), (513, 1151), (1025, 576)]
+# the train step's batch: 8 x 460 frames of 300 samples
+BATCH, SAMPLES = 8, 138_000
 # conv_1..conv_4: (kt, stride)
 MRD_CONVS = [(9, 2), (9, 2), (9, 2), (3, 1)]
 # each layer runs the forward 4 times a train step: real and generated
@@ -53,12 +52,19 @@ WGRAD_FUNCTIONS = ("spec_conv_wgrad_kernel", "sum_partials_kernel")
 TOL = {"forward": 1e-2, "dgrad": 1e-2, "wgrad": 1e-3}
 
 
-def mrd_layers() -> List[Tuple[str, Tuple[int, int, int, int], int, int]]:
-    """(label, x shape [B, H, W, 32], kt, stride) of every spec-conv layer."""
+def mrd_layers(batch: int = BATCH, samples: int = SAMPLES
+               ) -> List[Tuple[str, Tuple[int, int, int, int], int, int]]:
+    """(label, x shape [B, H, W, 32], kt, stride) of every spec-conv layer
+    on a batch of ``batch`` x ``samples`` audio: per resolution of
+    ``ops/multi_spectrogram.py`` the |STFT| image has n_fft // 2 + 1 rows
+    and samples // hop + 1 frames (a centred STFT)."""
+    from stylish_tts_tpu_torch.ops.multi_spectrogram import RESOLUTIONS
+
     layers = []
-    for res, (f, w) in enumerate(MRD_RESOLUTIONS):
+    for res, r in enumerate(RESOLUTIONS):
+        f, w = r.fft // 2 + 1, samples // r.hop + 1
         for i, (kt, stride) in enumerate(MRD_CONVS, 1):
-            layers.append((f"res{res} conv_{i}", (BATCH, f, w, 32), kt,
+            layers.append((f"res{res} conv_{i}", (batch, f, w, 32), kt,
                            stride))
             w = -(-w // stride)
     return layers

@@ -106,14 +106,15 @@ def _load_optimizer(model_name: str, module: nn.Module,
                     optimizer: torch.optim.Optimizer,
                     flat: Dict[str, np.ndarray], groups: list) -> None:
     names = {id(p): n for n, p in module.named_parameters()}
-    left = dict(flat)
+    left: Dict[str, Dict[str, torch.Tensor]] = {}
+    for key, value in flat.items():
+        name, _, leaf = key.rpartition("/")
+        left.setdefault(name, {})[leaf] = torch.from_numpy(value)
     state, group_indices, bare, index = {}, [], [], 0
     for group in optimizer.param_groups:
         indices = []
         for p in group["params"]:
-            prefix = f"{names[id(p)]}/"
-            entry = {k[len(prefix):]: torch.from_numpy(left.pop(k))
-                     for k in list(left) if k.startswith(prefix)}
+            entry = left.pop(names[id(p)], None)
             if entry:
                 state[index] = entry
             else:
@@ -123,7 +124,7 @@ def _load_optimizer(model_name: str, module: nn.Module,
         group_indices.append(indices)
     if left:
         raise KeyError(f"{model_name}: optimizer tensors left unused: "
-                       f"{sorted(left)}")
+                       f"{sorted(f'{n}/{k}' for n in left for k in left[n])}")
     kinds = {tuple(sorted(entry)) for entry in state.values()}
     if state and (bare or len(kinds) != 1):
         raise KeyError(f"{model_name}: optimizer state missing for "
