@@ -69,7 +69,28 @@ Phases, in order; any failure raises and the exit code is non-zero:
    the STFT at its five settings and the spec-conv forward, dgrad and
    wgrad at the MRD's 12 layer shapes are held against their plain
    versions as in phase 2;
-7. one JSON line of every kernel's numbers, with its launches on the path
+7. the training chain: CLI ``train`` in-process at the full-width
+   default ModelConfig on a synthetic dataset on disk (96 train and 8 val
+   segments of about 5.9 s, over 3 bins), each stage of acoustic ->
+   textual -> style -> duration at 1 epoch, the measured memory plan on
+   (``memory_budget_mib`` 85% of the card's memory), a validation and a
+   save every 3 steps; a hook at each stage's start, after its memory
+   plan and at its end sets the launch counts to 0, holds the state after
+   the probe equal to the state before it (every tensor), and reads the
+   counts and which models moved.  Checked: the chain's order, each
+   stage's ``checkpoint_final`` and manifest counters, every trained model
+   moved and every other one bit-equal (the MRD moves only in acoustic
+   and textual), finite metrics and validation losses, the persisted
+   plan (measured, or kept where the fit is degenerate, as for the light
+   style and duration stages), the STFT launched in every stage and the spec-conv kernels only
+   in acoustic and textual, as often as the MRD's 12 layers give; then at
+   every batch shape textual took the STFT and the spec-conv kernels are
+   held against their plain versions as in phase 6; last ``convert`` and
+   ``speak`` through the CLI's ``main`` on the last checkpoint, and 80
+   phonemes from the artifact checked as in phase 4.  Per stage: the
+   probe's seconds and fit, each step's wall ms (first visit of its
+   shape in the stage, or warm), validation and save seconds;
+8. one JSON line of every kernel's numbers, with its launches on the path
    that runs it (per train step, synthesis request or probe run), then the
    result line.
 
@@ -135,6 +156,18 @@ RUNTIME_SEGMENTS, RUNTIME_SECONDS = 160, 5.75
 RUNTIME_STEPS, RUNTIME_SAVE_AT = 4, 2
 RUNTIME_KERNELS = ("stft_fft_kernel", "spec_conv_fwd_kernel",
                    "spec_conv_dgrad_kernel", "spec_conv_wgrad_kernel")
+# the training chain's phase: 104 segments of 0.9375-1.0625 x 5.875 s
+# (440-498 frames), the last 8 the val set: 96 train over bins 21-23
+# (480-520 frames), enough that a bin holds two full batches of the
+# measured plan (13-15 at the acoustic stage, PR 15) and a stage meets a
+# shape twice; every stage 1 epoch, a validation and a save every
+# CHAIN_INTERVAL steps (a stage takes at least one batch a bin, so 3 steps
+# or more, and validates and saves at least once), the memory budget a
+# share of the card's memory
+CHAIN = ("acoustic", "textual", "style", "duration")
+CHAIN_SEGMENTS, CHAIN_VAL, CHAIN_SECONDS, CHAIN_SPREAD = \
+    104, 8, 5.875, 0.0625
+CHAIN_INTERVAL, CHAIN_BUDGET_SHARE = 3, 0.85
 
 
 def card_line() -> str:
@@ -902,6 +935,275 @@ def runtime_path(mc, device, card: str, kernels,
 
 
 # --------------------------------------------------------------------------- #
+# the training chain: CLI train through the four stages
+
+
+def _snapshots_equal(a, b, what: str) -> int:
+    """Raise where two ``snapshot_state`` results differ in any tensor,
+    moment or count; returns how many tensors were compared."""
+    if isinstance(a, dict):
+        if a.keys() != b.keys():
+            raise AssertionError(f"{what}: keys differ")
+        return sum(_snapshots_equal(a[k], b[k], f"{what}.{k}") for k in a)
+    if isinstance(a, (list, tuple)):
+        if len(a) != len(b):
+            raise AssertionError(f"{what}: lengths differ")
+        return sum(_snapshots_equal(x, y, f"{what}[{i}]")
+                   for i, (x, y) in enumerate(zip(a, b)))
+    if torch.is_tensor(a):
+        if not torch.equal(a, b):
+            raise AssertionError(f"{what} differs")
+        return 1
+    if a != b:
+        raise AssertionError(f"{what}: {a} vs {b}")
+    return 0
+
+
+def _stage_hook(kernels, record: dict):
+    """The train loop's ``on_stage``: at a stage's start the launch counts
+    go to 0 and the state is snapshotted to the host; after the memory plan
+    the state must equal that snapshot; at the end the counts are read and
+    each model's parameters checked for movement against the snapshot."""
+    from stylish_tts_tpu_torch.train.state import snapshot_state
+
+    def hook(event: str, stage: str, state) -> None:
+        torch.cuda.synchronize()
+        record["events"].append([event, stage])
+        if event == "start":
+            for k in kernels:
+                k.launches = 0
+            record["start"] = snapshot_state(state)
+            return
+        if event == "planned":
+            n = _snapshots_equal(snapshot_state(state), record["start"],
+                                 f"{stage} state after the memory probe")
+            record["stages"][stage] = {"probe_equal_tensors": n}
+            return
+        start = record.pop("start")["models"]
+        moved = {}
+        for key, module in state.models.items():
+            params = {n for n, _ in module.named_parameters()}
+            now = module.state_dict()
+            moved[key] = [n for n in now if not torch.equal(
+                now[n].cpu(), start[key][n])]
+            moved[key] = {"params": sum(n in params for n in moved[key]),
+                          "buffers": sum(n not in params
+                                         for n in moved[key])}
+        record["stages"][stage].update(
+            launches={k.name: k.launches for k in kernels}, moved=moved)
+
+    return hook
+
+
+def chain_path(device, card: str, kernels) -> dict:
+    """CLI ``train`` through acoustic -> textual -> style -> duration at
+    full width on a synthetic dataset on disk, with the measured memory
+    plan; then ``convert`` and ``speak`` through the CLI; see the module
+    docstring, phase 7."""
+    import functools
+    import tempfile
+    import wave
+
+    from stylish_tts_tpu_torch import cli
+    from stylish_tts_tpu_torch.config import Config, ModelConfig, dump_json
+    from stylish_tts_tpu_torch.data.dataset import (FilePathDataset,
+                                                    get_data_path_list,
+                                                    get_frame_count)
+    from stylish_tts_tpu_torch.export.infer import Synthesizer
+    from stylish_tts_tpu_torch.export.package import load_inference_models
+    from stylish_tts_tpu_torch.scripts.spec_conv_times import \
+        LAUNCHES_PER_LAYER
+    from stylish_tts_tpu_torch.text import TextCleaner
+    from stylish_tts_tpu_torch.train import loop
+    from stylish_tts_tpu_torch.train.stages import STAGES
+    from stylish_tts_tpu_torch.utils.synthetic import make_synthetic_dataset
+
+    t_phase = time.perf_counter()
+    mc = ModelConfig()
+    budget = int(CHAIN_BUDGET_SHARE
+                 * torch.cuda.get_device_properties(0).total_memory / 2**20)
+    print(f"chain: memory_budget_mib {budget} ({CHAIN_BUDGET_SHARE:.0%} of "
+          f"the card's memory) [{card}]")
+    record: dict = {"events": [], "stages": {}, "card": card,
+                    "memory_budget_mib": budget}
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_chain_") as tmp:
+        root = Path(tmp)
+        data, out = root / "data", root / "out"
+        make_synthetic_dataset(data, n_segments=CHAIN_SEGMENTS,
+                               seconds=CHAIN_SECONDS, spread=CHAIN_SPREAD,
+                               n_val=CHAIN_VAL)
+        dataset = FilePathDataset(
+            data_list=get_data_path_list(data / "train-list.txt"),
+            root_path=data / "wav24", text_cleaner=TextCleaner(mc.symbol),
+            model_config=mc)
+        bins, _ = dataset.time_bins()
+        per_epoch_s = sum(len(i) * get_frame_count(b) * mc.hop_length
+                          for b, i in bins.items()) / mc.sample_rate
+        record["bins"] = {int(b): len(i) for b, i in sorted(bins.items())}
+        cfg = Config()
+        cfg.dataset.path = str(data)
+        for stage in CHAIN:
+            plan = getattr(cfg.training_plan, stage)
+            plan.epochs, plan.probe_batch_max = 1, 8
+        cfg.training.log_interval = 1
+        cfg.training.val_interval = cfg.training.save_interval = \
+            CHAIN_INTERVAL
+        cfg.training.aot_memory_plan = True
+        cfg.training.memory_budget_mib = budget
+        (root / "config.json").write_text(dump_json(cfg))
+        print(f"chain dataset: {len(dataset)} train segments per bin "
+              f"{record['bins']}, {per_epoch_s:.1f} s of padded audio an "
+              f"epoch; every stage 1 epoch [{card}]")
+
+        original = loop.train_model
+        loop.train_model = functools.partial(
+            original, on_stage=_stage_hook(kernels, record))
+        t0 = time.perf_counter()
+        try:
+            cli.main(["train", "--config", str(root / "config.json"),
+                      "--out", str(out)])
+        finally:
+            loop.train_model = original
+        record["train_s"] = time.perf_counter() - t0
+
+        # the chain's order, its checkpoints and their manifests
+        want = [[e, s] for s in CHAIN for e in ("start", "planned", "end")]
+        if record["events"] != want:
+            raise AssertionError(f"stage events {record['events']}")
+        total_steps, audio_s = 0, 0.0
+        for stage in CHAIN:
+            stats = json.loads((out / stage / "train_stats.json").read_text())
+            meta = json.loads((out / stage / "checkpoint_final" / "meta.json")
+                              .read_text())
+            man = meta["manifest"]
+            total_steps += stats["steps"]
+            audio_s += per_epoch_s
+            if (man["stage"], man["current_step"], man["current_epoch"],
+                    man["current_total_step"], man["steps_per_epoch"]) != (
+                    stage, stats["steps"], 1, total_steps, stats["steps"]):
+                raise AssertionError(f"{stage}: manifest {man}, "
+                                     f"{stats['steps']} steps")
+            if abs(man["total_trained_audio_seconds"] - audio_s) > \
+                    1e-9 * audio_s:
+                raise AssertionError(f"{stage}: audio seconds "
+                                     f"{man['total_trained_audio_seconds']}"
+                                     f" vs {audio_s}")
+            _check_chain_stage(stage, stats, record["stages"][stage],
+                               STAGES[stage], out, LAUNCHES_PER_LAYER,
+                               card)
+            record["stages"][stage]["stats"] = stats
+            record["stages"][stage]["manifest"] = man
+        if not np.isfinite(man["best_loss"]):
+            raise AssertionError(f"best_loss {man['best_loss']}")
+        print(f"chain: CLI train {record['train_s']:.1f} s for "
+              f"{total_steps} steps, {audio_s:.1f} s of audio [{card}]")
+
+        # convert and speak through the CLI on the chain's last checkpoint
+        artifact, wav = root / "artifact", root / "speech.wav"
+        text = phoneme_strings(mc.symbol, [80], seed=5)[0]
+        t0 = time.perf_counter()
+        cli.main(["convert", "--checkpoint",
+                  str(out / "duration" / "checkpoint_final"),
+                  "--out", str(artifact)])
+        cli.main(["speak", "--artifact", str(artifact), "--phonemes", text,
+                  "--out", str(wav)])
+        with wave.open(str(wav), "rb") as f:
+            frames = f.getnframes()
+            pcm = np.frombuffer(f.readframes(frames), "<i2")
+        if frames == 0 or frames % mc.hop_length or not np.abs(pcm).max():
+            raise AssertionError(f"speak wrote {frames} samples, max "
+                                 f"{np.abs(pcm).max() if frames else 0}")
+        amc, models = load_inference_models(artifact, device)
+        synth = Synthesizer(amc, models, device=device, sample_seed=0)
+        audio = synth.synthesize(text, fixed_duration=8)
+        check_audio(audio, 80 + 2, 8, amc.hop_length,
+                    "synthesize from the chain's artifact")
+        record["artifact"] = {"speak_samples": frames,
+                              "synth_audio_s": audio.shape[0]
+                              / amc.sample_rate,
+                              "max_abs": float(np.abs(audio).max()),
+                              "convert_speak_s": time.perf_counter() - t0}
+        print(f"chain artifact: CLI speak wrote {frames / mc.sample_rate:.2f}"
+              f" s of predicted durations; 80 phonemes at 8 frames each "
+              f"{audio.shape[0] / amc.sample_rate:.2f} s, max |audio| "
+              f"{np.abs(audio).max():.3f} [{card}]")
+        del synth, models
+    torch.cuda.empty_cache()
+    shapes = sorted({(rows, samples) for _, rows, samples in
+                     record["stages"]["textual"]["stats"]["batches"]})
+    record["batch_shape_checks"] = batch_shape_checks(shapes, card)
+    record["seconds"] = time.perf_counter() - t_phase
+    print(f"chain phase: {record['seconds']:.1f} s [{card}]")
+    return record
+
+
+def _check_chain_stage(stage, stats, seen, stage_type, out,
+                       per_layer, card) -> None:
+    """One stage of the chain against what it must have done; prints its
+    numbers."""
+    from stylish_tts_tpu_torch.scripts.spec_conv_times import mrd_layers
+
+    trained = stage_type.train_models + stage_type.discriminators
+    for key, moved in seen["moved"].items():
+        if key in trained and not moved["params"]:
+            raise AssertionError(f"{stage}: {key} did not move")
+        if key not in trained and (moved["params"] or moved["buffers"]):
+            raise AssertionError(f"{stage}: {key} changed: {moved}")
+    probe = stats["probe"]
+    if not probe or not probe["measured"]:
+        raise AssertionError(f"{stage}: the memory probe did not run")
+    sizes = json.loads((out / stage / f"{stage}_batch_sizes.json")
+                       .read_text())
+    if sizes != probe["batch_sizes"] or min(sizes.values()) < 1:
+        raise AssertionError(f"{stage}: batch sizes {sizes}")
+    values = [e["loss"] for e in stats["logs"]] + [
+        v for e in stats["logs"] for v in e["metrics"].values()] + [
+        v["loss"] for v in stats["validations"]] + [
+        m for v in stats["validations"] for m in v["metrics"].values()]
+    if not stats["validations"]:
+        raise AssertionError(f"{stage}: no validation")
+    if not all(np.isfinite(values)):
+        raise AssertionError(f"{stage}: non-finite metrics")
+    launches = seen["launches"]
+    if launches["stft_forward"] == 0:
+        raise AssertionError(f"{stage}: the STFT never launched")
+    measured = [m for m in probe["measured"] if m[2] is not None]
+    mrd_steps = len(measured) + stats["steps"]
+    clean = stats["guard"]["oom"] == 0 and len(measured) == len(
+        probe["measured"])
+    for name, n in per_layer.items():
+        got = launches[f"spec_conv_{name}"]
+        want = (n * len(mrd_layers()) * mrd_steps
+                if "mrd" in stage_type.discriminators else 0)
+        # a step that ran out of memory launched some of its kernels
+        ok = got == want if clean or not want else got >= want
+        if not ok:
+            raise AssertionError(f"{stage}: spec_conv_{name} launched {got} "
+                                 f"times, the MRD's layers give {want}")
+    # log_interval 1: one log window a step; a step is warm where its
+    # (rows, samples) shape ran before in the stage
+    shapes, first, warm = set(), [], []
+    for entry, (_, rows, samples) in zip(stats["logs"], stats["batches"]):
+        (warm if (rows, samples) in shapes else first).append(
+            round(entry["seconds"] * 1e3))
+        shapes.add((rows, samples))
+    fit = (f"fixed {probe['fixed'] / 2**20:.0f} MiB, "
+           f"{probe['per_sample_frame'] / 2**20:.3f} MiB per sample-frame"
+           if probe["kept"] is None else f"plan kept: {probe['kept']}")
+    print(f"chain {stage}: probe {probe['seconds']:.1f} s over "
+          f"{len(probe['measured'])} measured steps, {fit}, "
+          f"batch sizes {sizes} (state equal after: "
+          f"{seen['probe_equal_tensors']} tensors); {stats['steps']} steps "
+          f"{stats['batches']}, wall ms first visit {first}, warm "
+          f"{warm or 'none'}; validation "
+          f"{[round(v['seconds'], 2) for v in stats['validations']]} s, "
+          f"saves {[round(v['seconds'], 2) for v in stats['saves']]} s; "
+          f"guard snapshots {stats['guard']['snapshots']} in "
+          f"{stats['guard']['snapshot_s']:.2f} s, OOM "
+          f"{stats['guard']['oom']}; launches {launches} [{card}]")
+
+
+# --------------------------------------------------------------------------- #
 # the main path
 
 
@@ -1308,7 +1610,10 @@ def main() -> int:
     record["runtime"] = runtime_path(mc, device, card, kernels,
                                      train["median_s"] * 1e3)
 
-    # 7. results: each kernel's own numbers and its launches on the path
+    # 7. the training chain through CLI train, then convert and speak
+    record["chain"] = chain_path(device, card, kernels)
+
+    # 8. results: each kernel's own numbers and its launches on the path
     # that runs it: per train step, or per probe run
     out_dir = Path("chiprun_out")
     out_dir.mkdir(exist_ok=True)

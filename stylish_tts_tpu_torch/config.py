@@ -4,8 +4,9 @@ Field names, defaults and nesting equal the JAX package's pydantic
 ``ModelConfig`` and ``Config``, so the JSON that pydantic's
 ``model_dump_json`` writes (an inference artifact's ``model_config.json``, a
 run's config) loads here unchanged, and ``dump_json`` writes that JSON
-back.  Only the stdlib is used: the card's machine has no pydantic or
-yaml.
+back.  Only the stdlib is used: the card's machine has no pydantic and
+is not known to have PyYAML, so ``load_config_file`` reads YAML only where
+``yaml`` imports.
 """
 
 from __future__ import annotations
@@ -14,6 +15,7 @@ import dataclasses
 import json
 import typing
 from dataclasses import dataclass, field
+from pathlib import Path
 from typing import List, Optional, Union
 
 
@@ -309,6 +311,23 @@ def load_model_config_json(data: str) -> ModelConfig:
 def load_config_json(data: str) -> Config:
     """Parse the JSON written by ``model_dump_json`` of the run schema."""
     return _build(Config, json.loads(data))
+
+
+def load_config_file(path: Union[str, Path], cls=Config):
+    """A ``Config`` (or ``cls``) from a JSON file, or from a YAML file
+    where PyYAML imports; raises naming the JSON form where it does not."""
+    path = Path(path)
+    text = path.read_text(encoding="utf-8")
+    if path.suffix.lower() in (".yml", ".yaml"):
+        try:
+            import yaml
+        except ImportError:
+            raise RuntimeError(
+                f"{path}: reading YAML needs PyYAML, which is not "
+                f"installed; write the config as JSON (the same keys, as "
+                f"dump_json writes them) and pass the .json file") from None
+        return _build(cls, yaml.safe_load(text) or {})
+    return _build(cls, json.loads(text))
 
 
 def dump_json(config: Union[ModelConfig, Config]) -> str:

@@ -33,6 +33,18 @@ class DurationProcessor:
         self.class_count = class_count
         self.max_duration = max_duration
 
+    def dur_to_class_ids(self, durs: torch.Tensor) -> torch.Tensor:
+        """Durations in frames -> class ids (int64), clipped to
+        [1, max_duration]."""
+        durs = torch.clamp(durs, 1, self.max_duration).to(torch.int64)
+        return torch.as_tensor(DUR_TO_CLASS, dtype=torch.int64,
+                               device=durs.device)[durs]
+
+    def align_to_class(self, alignment: torch.Tensor) -> torch.Tensor:
+        """One-hot alignment [..., T, F] -> class ids [..., T]: the
+        training target of the duration predictor."""
+        return self.dur_to_class_ids(alignment.sum(dim=-1))
+
     def prediction_to_duration(self, pred: torch.Tensor) -> torch.Tensor:
         """Class logits [..., T, C] -> durations [..., T] (float).
 

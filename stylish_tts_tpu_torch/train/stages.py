@@ -1,12 +1,21 @@
-"""Stage steps: the acoustic stage's losses and the generic train step of
-the stages with the MRD discriminator.
+"""Stage steps of the four-stage chain, acoustic -> textual -> style ->
+duration: each stage's losses, the generic train step and the eval step.
 
 ``make_train_step(stage, ctx, base_lr)`` returns
 ``step(state, batch, generator) -> (state, metrics)``, with the JAX
-package's metric names.  One step runs the stage's losses, the two GAN
-views of the MRD, one backward of the total, and one AdamW update per
-module: the generator modules at the cosine LR, the MRD at that LR times
-the gap-aware multiplier of its loss EMA.  The state is updated in place.
+package's metric names.  One step runs the stage's losses, for the stages
+with the MRD discriminator (acoustic, textual) also the two GAN views of
+the MRD, one backward of the total, and one AdamW update per trained
+module: at the cosine LR, the MRD at that LR times the gap-aware
+multiplier of its loss EMA.  The models a stage only evaluates pass
+gradients to the trained ones through their activations, but take none
+themselves: the step turns their parameters' ``requires_grad`` off.  The
+state is updated in place.
+
+``make_eval_step(stage, ctx)`` returns
+``step(state, batch, generator) -> (metrics, audio_pred)``: the stage's
+validation losses on its inference composition, under ``no_grad``, with
+no state change.
 
 Mixed precision follows the JAX package's casts, not ``torch.autocast``:
 with ``mixed_precision == "bf16"`` each module runs on bf16 copies of its
@@ -29,6 +38,7 @@ from torch.utils.checkpoint import checkpoint
 
 from .. import losses as L
 from ..config import Config, ModelConfig
+from ..duration import DurationProcessor
 from ..models.norms import set_dropout_generator
 from ..ops.mel import MelSpectrogram, calculate_mel, log_norm_energy
 from ..ops.multi_spectrogram import MultiSpectrogram
@@ -77,6 +87,8 @@ class StageContext:
     mel_std: float
     step_limit: int
     slm: Optional[nn.Module] = None  # frozen, for the 'slm' loss
+    # per duration class, from the dataset's alignments (duration stage)
+    duration_class_weight: Optional[torch.Tensor] = None
     weights: Dict[str, float] = field(init=False)
 
     def __post_init__(self):
@@ -85,6 +97,9 @@ class StageContext:
             n_mels=mc.n_mels, n_fft=mc.n_fft, win_length=mc.win_length,
             hop_length=mc.hop_length, sample_rate=mc.sample_rate)
         self.multi_spectrogram = MultiSpectrogram(mc.sample_rate)
+        self.duration_processor = DurationProcessor(
+            mc.duration_predictor.duration_classes,
+            mc.duration_predictor.max_duration)
         self.weights = dataclasses.asdict(self.config.loss_weight)
         self.compute_dtype = (
             torch.bfloat16 if self.config.training.mixed_precision == "bf16"
@@ -130,26 +145,65 @@ class StageContext:
 
 @dataclass
 class StageType:
+    next_stage: Optional[str]
     compute_losses: Callable
     train_models: List[str]
+    # models the stage runs but does not train: gradients pass through
+    # their activations, never into their parameters
+    eval_models: List[str]
     discriminators: List[str]
+    # the batch keys the stage reads (the memory probe's synthetic batch)
+    inputs: List[str]
+    # models whose dropout is on in the stage's losses (the JAX package's
+    # ``train=True``); the trained models unless named
+    dropout_models: Optional[List[str]] = None
+
+    def __post_init__(self):
+        if self.dropout_models is None:
+            self.dropout_models = list(self.train_models)
+
+    @property
+    def models(self) -> List[str]:
+        """Every model the stage's train step runs or updates."""
+        return list(dict.fromkeys(self.train_models + self.eval_models
+                                  + self.discriminators))
 
 
 STAGES: Dict[str, StageType] = {}
+INPUTS = ["text", "text_length", "audio_gt", "pitch", "alignment"]
 
 
-def _acoustic_losses(ctx: StageContext, state: TrainState, batch, *,
-                     sample: bool = True,
-                     generator: Optional[torch.Generator] = None,
-                     pcph_noise: Optional[torch.Tensor] = None,
-                     pcph_phase: Optional[torch.Tensor] = None):
+def _speech(ctx: StageContext, state: TrainState, batch, alignment, pitch,
+            energy, audio_gt=None, *, sample: bool = True,
+            generator: Optional[torch.Generator] = None,
+            pcph_noise: Optional[torch.Tensor] = None,
+            pcph_phase: Optional[torch.Tensor] = None):
+    """The speech predictor on the batch's text: prior (and, with
+    ``audio_gt``, posterior) samples and the harmonic prior's noise from
+    ``generator`` or the hooks."""
+    return ctx.apply(
+        state, "speech_predictor", batch["text"], batch["text_length"],
+        alignment, pitch, energy, audio_gt, sample=sample,
+        generator=generator, pcph_noise=pcph_noise, pcph_phase=pcph_phase)
+
+
+def _spectral_losses(ctx: StageContext, batch, pred):
+    """The mel, mag and phase losses of a predicted waveform, and the
+    |S| images the MRD compares."""
+    t_mag, p_mag, _, _, t_fft, p_fft = ctx.multi_spectrogram(
+        target=batch["audio_gt"], pred=pred.audio)
+    mag_l, phase_l = L.magphase_loss(pred.magnitude, pred.phase,
+                                     batch["audio_gt"],
+                                     **ctx.magphase_params())
+    return {"mel": L.multi_resolution_stft_loss(t_mag, p_mag),
+            "mag": mag_l, "phase": phase_l}, (t_fft, p_fft)
+
+
+def _acoustic_losses(ctx: StageContext, state: TrainState, batch, **hooks):
     """(metrics, (target |S| images, predicted |S| images))."""
     mel, _, energy = ctx.mel_and_energy(batch["audio_gt"])
-    pred = ctx.apply(
-        state, "speech_predictor", batch["text"], batch["text_length"],
-        batch["alignment"], batch["pitch"], energy, batch["audio_gt"],
-        sample=sample, generator=generator, pcph_noise=pcph_noise,
-        pcph_phase=pcph_phase)
+    pred = _speech(ctx, state, batch, batch["alignment"], batch["pitch"],
+                   energy, batch["audio_gt"], **hooks)
     pe_enc, _, _ = ctx.apply(state, "pe_text_encoder", batch["text"],
                              batch["text_length"])
     pe_mel_style = ctx.apply(state, "pe_mel_style_encoder", mel,
@@ -157,29 +211,142 @@ def _acoustic_losses(ctx: StageContext, state: TrainState, batch, *,
     pred_pitch, pred_energy = ctx.apply(
         state, "pitch_energy_predictor", pe_enc, batch["text_length"],
         batch["alignment"], pe_mel_style)
-
-    t_mag, p_mag, _, _, t_fft, p_fft = ctx.multi_spectrogram(
-        target=batch["audio_gt"], pred=pred.audio)
-    mag_l, phase_l = L.magphase_loss(pred.magnitude, pred.phase,
-                                     batch["audio_gt"],
-                                     **ctx.magphase_params())
+    spectral, images = _spectral_losses(ctx, batch, pred)
     metrics = {
-        "mel": L.multi_resolution_stft_loss(t_mag, p_mag),
+        "mel": spectral["mel"],
         "slm": ctx.slm_loss(batch["audio_gt"], pred.audio),
-        "mag": mag_l,
-        "phase": phase_l,
+        "mag": spectral["mag"],
+        "phase": spectral["phase"],
         "pitch": L.smooth_l1_loss(pred_pitch, batch["pitch"]),
         "energy": L.smooth_l1_loss(pred_energy, energy),
     }
-    return metrics, (t_fft, p_fft)
+    return metrics, images
+
+
+def _textual_losses(ctx: StageContext, state: TrainState, batch, **hooks):
+    """The pitch/energy branch trained through the frozen speech
+    predictor: its predicted F0 and energy drive the synthesis whose
+    spectra the losses and the MRD compare."""
+    mel, _, energy = ctx.mel_and_energy(batch["audio_gt"])
+    pe_enc, _, _ = ctx.apply(state, "pe_text_encoder", batch["text"],
+                             batch["text_length"])
+    pe_mel_style = ctx.apply(state, "pe_mel_style_encoder", mel,
+                             update_stats=True)
+    pred_pitch, pred_energy = ctx.apply(
+        state, "pitch_energy_predictor", pe_enc, batch["text_length"],
+        batch["alignment"], pe_mel_style)
+    pred = _speech(ctx, state, batch, batch["alignment"], pred_pitch,
+                   pred_energy, **hooks)
+    spectral, images = _spectral_losses(ctx, batch, pred)
+    metrics = {
+        **spectral,
+        "pitch": L.smooth_l1_loss(pred_pitch, batch["pitch"]),
+        "energy": L.smooth_l1_loss(pred_energy, energy),
+    }
+    return metrics, images
+
+
+def _style_losses(ctx: StageContext, state: TrainState, batch, **hooks):
+    """The text style encoder against the mel style encoder's vector, and
+    the pitch/energy the text style gives."""
+    mel, _, energy = ctx.mel_and_energy(batch["audio_gt"])
+    pe_enc, _, _ = ctx.apply(state, "pe_text_encoder", batch["text"],
+                             batch["text_length"])
+    pe_text_style = ctx.apply(state, "pe_text_style_encoder", pe_enc,
+                              batch["text_length"])
+    pe_mel_style = ctx.apply(state, "pe_mel_style_encoder", mel)
+    pred_pitch, pred_energy = ctx.apply(
+        state, "pitch_energy_predictor", pe_enc, batch["text_length"],
+        batch["alignment"], pe_text_style)
+    metrics = {
+        "style": L.smooth_l1_loss(pe_text_style, pe_mel_style) * 10.0,
+        "pitch": L.smooth_l1_loss(pred_pitch, batch["pitch"]),
+        "energy": L.smooth_l1_loss(pred_energy, energy),
+    }
+    return metrics, None
+
+
+def _duration_losses(ctx: StageContext, state: TrainState, batch, **hooks):
+    """Class-weighted cross entropy and class-distance loss of the
+    duration predictor against the alignment's durations."""
+    targets = ctx.duration_processor.align_to_class(batch["alignment"])
+    pred = ctx.apply(state, "duration_predictor", batch["text"],
+                     batch["text_length"])
+    ce, cdw = L.duration_loss(pred, targets, batch["text_length"],
+                              ctx.duration_class_weight)
+    return {"duration_ce": ce, "duration": cdw}, None
 
 
 STAGES["acoustic"] = StageType(
+    next_stage="textual",
     compute_losses=_acoustic_losses,
     train_models=["speech_predictor", "pitch_energy_predictor",
                   "pe_text_encoder", "pe_mel_style_encoder"],
+    eval_models=[],
     discriminators=["mrd"],
+    inputs=INPUTS,
 )
+STAGES["textual"] = StageType(
+    next_stage="style",
+    compute_losses=_textual_losses,
+    train_models=["pitch_energy_predictor", "pe_text_encoder",
+                  "pe_mel_style_encoder"],
+    eval_models=["speech_predictor"],
+    discriminators=["mrd"],
+    inputs=INPUTS,
+)
+STAGES["style"] = StageType(
+    next_stage="duration",
+    compute_losses=_style_losses,
+    train_models=["pe_text_style_encoder"],
+    eval_models=["pe_mel_style_encoder", "pitch_energy_predictor",
+                 "pe_text_encoder", "speech_predictor"],
+    discriminators=[],
+    inputs=INPUTS,
+    dropout_models=["pe_text_style_encoder", "pe_text_encoder",
+                    "pitch_energy_predictor"],
+)
+STAGES["duration"] = StageType(
+    next_stage=None,
+    compute_losses=_duration_losses,
+    train_models=["duration_predictor"],
+    eval_models=["pitch_energy_predictor", "speech_predictor",
+                 "pe_text_encoder", "pe_text_style_encoder"],
+    discriminators=[],
+    inputs=["text", "text_length", "alignment", "audio_gt"],
+)
+
+# the stages of the JAX package that the port does not run yet, and the
+# queue item that ports each
+NOT_PORTED = {
+    "alignment": "Queue 1 item 6 (alignment and dataprep)",
+    "joint": "Queue 1 item 5 (the joint stage)",
+    "hubert_acoustic": "Queue 1 item 7 (experimental stages)",
+    "cfm_hubert_mel": "Queue 1 item 7 (experimental stages)",
+    "cfm_hubert_pitch": "Queue 1 item 7 (experimental stages)",
+}
+
+
+def check_stage(name: str) -> StageType:
+    """The stage ``name``; raises for a stage the port does not run."""
+    if name in STAGES:
+        return STAGES[name]
+    if name in NOT_PORTED:
+        raise NotImplementedError(
+            f"stage {name!r} is not ported yet: {NOT_PORTED[name]}")
+    raise ValueError(f"invalid stage {name!r}; valid: {list(STAGES)}")
+
+
+def chain_models(first: str) -> List[str]:
+    """Every model that the stages from ``first`` to the end of its chain
+    train, evaluate or discriminate with, in order of first use."""
+    keys: List[str] = []
+    name: Optional[str] = first
+    while name is not None:
+        stage = check_stage(name)
+        keys += [k for k in stage.models if k not in keys]
+        name = stage.next_stage
+    return keys
 
 
 def gan_losses(mrd: nn.Module, t_fft, p_fft,
@@ -200,6 +367,16 @@ def gan_losses(mrd: nn.Module, t_fft, p_fft,
     return gen_loss, d_total, d_plain
 
 
+def _set_trainable(state: TrainState, trained: List[str]) -> None:
+    """Parameters of ``trained`` take gradients, every other model's do
+    not (a model's flag is switched only where it differs)."""
+    for key, module in state.models.items():
+        want = key in trained
+        first = next(module.parameters(), None)
+        if first is not None and first.requires_grad != want:
+            module.requires_grad_(want)
+
+
 def make_train_step(stage_name: str, ctx: StageContext, base_lr: float):
     """step(state, batch, generator, *, sample=True, pcph_noise=None,
     pcph_phase=None) -> (state, metrics).
@@ -208,22 +385,24 @@ def make_train_step(stage_name: str, ctx: StageContext, base_lr: float):
     prior, posterior and harmonic-prior noise.  ``sample=False`` takes the
     latent means instead of samples; ``pcph_noise``/``pcph_phase`` hand the
     harmonic prior its noise and phase."""
-    stage = STAGES[stage_name]
+    stage = check_stage(stage_name)
     has_disc = bool(stage.discriminators)
+    updated = stage.train_models + stage.discriminators
 
     def step(state: TrainState, batch: Dict[str, torch.Tensor],
              generator: Optional[torch.Generator] = None, **hooks):
-        for key in stage.train_models:
+        _set_trainable(state, updated)
+        for key in stage.dropout_models:
             state.models[key].train()
             set_dropout_generator(state.models[key], generator)
-        for key in stage.train_models + stage.discriminators:
+        for key in updated:
             state.optimizers[key].zero_grad(set_to_none=True)
         batch_size = batch["text"].shape[0]
         try:
             metrics, disc_inputs = stage.compute_losses(
                 ctx, state, batch, generator=generator, **hooks)
         finally:
-            for key in stage.train_models:
+            for key in stage.dropout_models:
                 state.models[key].eval()
         if has_disc:
             t_fft, p_fft = disc_inputs
@@ -248,5 +427,78 @@ def make_train_step(stage_name: str, ctx: StageContext, base_lr: float):
         metrics = {k: v.detach() for k, v in metrics.items()}
         metrics["loss"] = weighted_total(metrics, ctx.weights)
         return state, metrics
+
+    return step
+
+
+def make_eval_step(stage_name: str, ctx: StageContext):
+    """step(state, batch, generator, *, sample=True, pcph_noise=None,
+    pcph_phase=None) -> (metrics, audio_pred).
+
+    The stage's validation on its inference composition, under
+    ``no_grad`` with every model in eval mode; nothing in the state
+    changes.  ``acoustic`` synthesizes from the ground-truth pitch and
+    energy, ``textual`` and ``style`` from the predicted ones (``style``
+    with the text style vector); ``duration`` runs the whole inference
+    path: predicted durations -> alignment at the batch's frame count ->
+    pitch and energy -> speech.  The speech predictor's noise comes from
+    ``generator`` or the hooks."""
+    check_stage(stage_name)
+
+    @torch.no_grad()
+    def step(state: TrainState, batch: Dict[str, torch.Tensor],
+             generator: Optional[torch.Generator] = None, **hooks):
+        for module in state.models.values():
+            module.eval()
+        text, lengths = batch["text"], batch["text_length"]
+        if stage_name == "duration":
+            targets = ctx.duration_processor.align_to_class(
+                batch["alignment"])
+            pred = ctx.apply(state, "duration_predictor", text, lengths)
+            ce, cdw = L.duration_loss(pred, targets, lengths,
+                                      ctx.duration_class_weight)
+            metrics = {"duration_ce": ce, "duration": cdw}
+            dp = ctx.duration_processor
+            durs = dp.prediction_to_duration(pred)
+            token_mask = (torch.arange(durs.shape[1], device=durs.device)
+                          [None, :] < lengths[:, None])
+            durs = torch.where(token_mask, durs, torch.zeros_like(durs))
+            alignment = dp.batched_duration_to_alignment(
+                durs, batch["alignment"].shape[-1])
+            pe_enc, _, _ = ctx.apply(state, "pe_text_encoder", text, lengths)
+            style = ctx.apply(state, "pe_text_style_encoder", pe_enc, lengths)
+            pitch, energy = ctx.apply(state, "pitch_energy_predictor",
+                                      pe_enc, lengths, alignment, style)
+            audio = _speech(ctx, state, batch, alignment, pitch, energy,
+                            generator=generator, **hooks).audio
+        else:
+            mel, _, energy = ctx.mel_and_energy(batch["audio_gt"])
+            pe_enc, _, _ = ctx.apply(state, "pe_text_encoder", text, lengths)
+            pe_mel_style = ctx.apply(state, "pe_mel_style_encoder", mel)
+            style = (ctx.apply(state, "pe_text_style_encoder", pe_enc,
+                               lengths)
+                     if stage_name == "style" else pe_mel_style)
+            pred_pitch, pred_energy = ctx.apply(
+                state, "pitch_energy_predictor", pe_enc, lengths,
+                batch["alignment"], style)
+            if stage_name == "acoustic":
+                pitch, use_energy = batch["pitch"], energy
+            else:
+                pitch, use_energy = pred_pitch, pred_energy
+            pred = _speech(ctx, state, batch, batch["alignment"], pitch,
+                           use_energy, generator=generator, **hooks)
+            t_mag, p_mag, _, _, _, _ = ctx.multi_spectrogram(
+                target=batch["audio_gt"], pred=pred.audio)
+            metrics = {
+                "mel": L.multi_resolution_stft_loss(t_mag, p_mag),
+                "pitch": L.smooth_l1_loss(pred_pitch, batch["pitch"]),
+                "energy": L.smooth_l1_loss(pred_energy, energy),
+            }
+            if stage_name == "style":
+                metrics["style"] = L.smooth_l1_loss(style,
+                                                    pe_mel_style) * 10.0
+            audio = pred.audio
+        metrics["loss"] = weighted_total(metrics, ctx.weights)
+        return metrics, audio
 
     return step

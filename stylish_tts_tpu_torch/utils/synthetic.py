@@ -19,10 +19,13 @@ from .tensorfile import write_safetensors
 
 def make_synthetic_dataset(
     root: Path, n_segments: int = 6, seconds: float | None = None,
+    spread: float = 0.3, n_val: int = 2,
 ) -> None:
     """Sine-speech segments with pitch and alignment caches.  Default
     utterances are 0.3-0.5 s (fast tests); ``seconds`` gives segments of
-    0.7-1.3 times that length.  The last two segments form the val list."""
+    1 - ``spread`` to 1 + ``spread`` times that length.  The last ``n_val``
+    segments form the val list.  The defaults draw the JAX generator's
+    dataset."""
     root = Path(root)
     sr, hop = 24000, 300
     rng = np.random.default_rng(0)
@@ -36,7 +39,8 @@ def make_synthetic_dataset(
         else:
             base_frames = int(seconds * sr / hop)
             frames = int(rng.integers(
-                max(24, int(base_frames * 0.7)), int(base_frames * 1.3)
+                max(24, int(base_frames * (1 - spread))),
+                int(base_frames * (1 + spread))
             ))
         n = frames * hop + int(rng.integers(0, hop))
         f0 = 120.0 + 40.0 * rng.random()
@@ -67,8 +71,8 @@ def make_synthetic_dataset(
             [durs, np.full(tokens, 0.2, np.float32),
              np.full(tokens, 0.2, np.float32)]
         )
-    (root / "train-list.txt").write_text("\n".join(lines[:-2]))
-    (root / "val-list.txt").write_text("\n".join(lines[-2:]))
+    (root / "train-list.txt").write_text("\n".join(lines[:-n_val]))
+    (root / "val-list.txt").write_text("\n".join(lines[-n_val:]))
     write_safetensors(root / "pitch.safetensors", pitch_map)
     write_safetensors(root / "alignment.safetensors", align_map)
 
