@@ -1129,7 +1129,7 @@ def chain_path(device, card: str, kernels) -> dict:
               f"{np.abs(audio).max():.3f} [{card}]")
         del synth, models
     torch.cuda.empty_cache()
-    shapes = sorted({(rows, samples) for _, rows, samples in
+    shapes = sorted({(rows, samples) for _, rows, _, samples in
                      record["stages"]["textual"]["stats"]["batches"]})
     record["batch_shape_checks"] = batch_shape_checks(shapes, card)
     record["seconds"] = time.perf_counter() - t_phase
@@ -1181,12 +1181,12 @@ def _check_chain_stage(stage, stats, seen, stage_type, out,
             raise AssertionError(f"{stage}: spec_conv_{name} launched {got} "
                                  f"times, the MRD's layers give {want}")
     # log_interval 1: one log window a step; a step is warm where its
-    # (rows, samples) shape ran before in the stage
+    # (rows, tokens, samples) shape ran before in the stage
     shapes, first, warm = set(), [], []
-    for entry, (_, rows, samples) in zip(stats["logs"], stats["batches"]):
-        (warm if (rows, samples) in shapes else first).append(
+    for entry, (_, *shape) in zip(stats["logs"], stats["batches"]):
+        (warm if tuple(shape) in shapes else first).append(
             round(entry["seconds"] * 1e3))
-        shapes.add((rows, samples))
+        shapes.add(tuple(shape))
     fit = (f"fixed {probe['fixed'] / 2**20:.0f} MiB, "
            f"{probe['per_sample_frame'] / 2**20:.3f} MiB per sample-frame"
            if probe["kept"] is None else f"plan kept: {probe['kept']}")

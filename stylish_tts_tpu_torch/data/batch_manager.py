@@ -35,6 +35,10 @@ from .sampler import DynamicBatchSampler
 
 logger = logging.getLogger(__name__)
 
+# share of the memory budget the measured plan solves each bin against
+# (the JAX package's ``refine_plan_aot`` margin)
+PLAN_MARGIN = 0.92
+
 
 class BatchManager:
     def __init__(
@@ -95,9 +99,6 @@ class BatchManager:
         *,
         budget_bytes: int,
         probe_batch: int = 8,
-        scale: int = 1,
-        validate: bool = True,
-        margin: float = 0.92,
     ) -> dict:
         """Replace the heuristic plan by one solved from measured bytes.
         ``measure(batch, bin)`` gives the peak bytes of a step at that
@@ -106,13 +107,13 @@ class BatchManager:
 
           1. two probes at ``probe_batch`` (largest and middle bin) fit
              total(b, f) = fixed + c * b * f;
-          2. every bin is solved against ``margin * budget_bytes``;
+          2. every bin is solved against ``PLAN_MARGIN * budget_bytes``;
           3. the chosen sizes of the largest and the smallest bin are
              measured and shrunk until they fit.
 
         The plan is kept where a probe runs out of memory, the fit is
-        degenerate or the fixed part alone exceeds the budget.  Sizes scale
-        by ``scale`` (the data-parallel width) and are persisted.  Returns
+        degenerate or the fixed part alone exceeds the budget.  Sizes are
+        at least ``divisor`` and are persisted.  Returns
         ``kept`` (None, or why the plan was kept), the ``measured``
         (batch, bin, bytes) triples and, where solved, the fit's ``fixed``
         and ``per_sample_frame`` bytes."""
@@ -137,7 +138,7 @@ class BatchManager:
         per_sample_frame = (y_large - y_mid) / (probe_batch
                                                 * (f_large - f_mid))
         fixed = y_large - per_sample_frame * probe_batch * f_large
-        usable = budget_bytes * margin - fixed
+        usable = budget_bytes * PLAN_MARGIN - fixed
         if usable <= 0:
             return kept("the fixed state exceeds the budget")
         for bin_num in bins:
@@ -145,25 +146,23 @@ class BatchManager:
             bs = int(usable / (per_sample_frame * f))
             self.batch_sizes[str(bin_num)] = max(1, min(bs, 256))
 
-        if validate:
-            for bin_num in (largest, bins[0]):
-                bs = self.batch_sizes[str(bin_num)]
-                for _ in range(4):
-                    if bs <= 1:
-                        break
-                    y = measure(bs, bin_num)
-                    measured.append((bs, bin_num, y))
-                    if y is None:  # out of memory
-                        bs = max(1, bs * 3 // 4)
-                        continue
-                    if y <= budget_bytes:
-                        break
-                    bs = max(1, int(bs * budget_bytes * margin / y))
-                self.batch_sizes[str(bin_num)] = bs
+        for bin_num in (largest, bins[0]):
+            bs = self.batch_sizes[str(bin_num)]
+            for _ in range(4):
+                if bs <= 1:
+                    break
+                y = measure(bs, bin_num)
+                measured.append((bs, bin_num, y))
+                if y is None:  # out of memory
+                    bs = max(1, bs * 3 // 4)
+                    continue
+                if y <= budget_bytes:
+                    break
+                bs = max(1, int(bs * budget_bytes * PLAN_MARGIN / y))
+            self.batch_sizes[str(bin_num)] = bs
 
         for key in self.batch_sizes:
-            self.batch_sizes[key] = max(self.divisor,
-                                        self.batch_sizes[key] * scale)
+            self.batch_sizes[key] = max(self.divisor, self.batch_sizes[key])
         self.save_batch_sizes()
         logger.info("measured memory plan: fixed %.0f MiB, %.0f B per "
                     "sample-frame, largest-bin batch %s", fixed / 2**20,

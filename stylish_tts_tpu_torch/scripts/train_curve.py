@@ -13,7 +13,7 @@ steps.  Every 10 steps the loop logs the means of the window's metrics and
 the discriminator-loss EMA after its last step; this prints, per window,
 ``mel``, ``generator``, ``discriminator``, the EMA, the LR multiplier that
 EMA gives the next discriminator update, and the window's wall ms per
-step (first visits of a (bin, batch) shape included), then one JSON object
+step (first visits of a batch shape included), then one JSON object
 of all of it.  Runs on the card only.
 """
 

@@ -144,6 +144,14 @@ def _device_batch(batch: dict, device, rows: Optional[int] = None
             for k, v in batch.items() if isinstance(v, np.ndarray)}
 
 
+def _shape_key(batch: dict, rows: int) -> tuple:
+    """The shapes of the batch's arrays cut to their first ``rows``: what
+    a step at that batch runs at (rows, tokens, frames, samples)."""
+    return tuple((k, (min(rows, v.shape[0]),) + v.shape[1:])
+                 for k, v in sorted(batch.items())
+                 if isinstance(v, np.ndarray))
+
+
 def _guarded_step(step_fn, state: TrainState, batch: dict, generator, bm,
                   device, skip_bins: set, validated: Optional[set] = None,
                   record: Optional[dict] = None):
@@ -152,10 +160,11 @@ def _guarded_step(step_fn, state: TrainState, batch: dict, generator, bm,
     the bin's batch size is halved and persisted and the batch, cut to the
     new size, retried; after 3 failures the bin is skipped for the epoch.
 
-    The first time each (bin, batch size) runs (``validated`` tracks
-    them) the state and the generator are snapshotted to the host first,
-    so an OOM part way through the step (after a spectral-norm vector or
-    a first moment was written) restores them exactly.  Before a retry the
+    The first time each set of shapes runs (``_shape_key``; ``validated``
+    tracks them, so a new text bucket or a partial last batch counts) the
+    state and the generator are snapshotted to the host first, so an OOM
+    part way through the step (after a spectral-norm vector or a first
+    moment was written) restores them exactly.  Before a retry the
     failed step's tensors are dropped, every gradient cleared and the
     allocator's cache emptied.  ``record`` counts the snapshots and their
     seconds.  Other errors raise.  Returns (state, metrics or None)."""
@@ -163,7 +172,7 @@ def _guarded_step(step_fn, state: TrainState, batch: dict, generator, bm,
     rows = batch["text"].shape[0]
     oom_tries = 0
     while oom_tries < 3:
-        key = (bin_num, bm.get_batch_size(bin_num))
+        key = _shape_key(batch, rows)
         first_run = validated is not None and key not in validated
         snapshot = None
         if first_run:
@@ -225,7 +234,7 @@ def _summary_writer(path: Path):
 
 def _stage_stats() -> dict:
     return {"probe": None, "logs": [], "validations": [], "saves": [],
-            "batches": [],  # [bin, rows, samples] of each step
+            "batches": [],  # [bin, rows, tokens, samples] of each step
             "guard": {"snapshots": 0, "snapshot_s": 0.0, "oom": 0},
             "first_visits": 0, "steps": 0, "seconds": 0.0}
 
@@ -347,7 +356,7 @@ def train_model(
                 window["first"] += len(validated) > seen
                 stats["steps"] += 1
                 stats["batches"].append([int(batch["bin"]),
-                                         int(batch["text"].shape[0]),
+                                         *map(int, batch["text"].shape),
                                          int(batch["audio_gt"].shape[1])])
                 ctx.manifest.current_step += 1
                 ctx.manifest.current_total_step += 1

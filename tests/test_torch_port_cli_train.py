@@ -69,7 +69,8 @@ def test_cli_train_runs_the_chain(trained):
         assert manifest["current_total_step"] == total == i + 1
         stats = json.loads((out / stage / "train_stats.json").read_text())
         assert stats["steps"] == 1 and len(stats["logs"]) == 1
-        assert stats["batches"] == [[0, 4, 60 * 300]]
+        # [bin, rows, tokens, samples]
+        assert stats["batches"] == [[0, 4, 64, 60 * 300]]
         assert stats["probe"] == {"kept": "no device memory to measure on "
                                           "cpu"}
         assert json.loads((out / stage / f"{stage}_batch_sizes.json")

@@ -329,7 +329,7 @@ def _assert_same(a, b):
 
 
 def test_guard_restores_the_state_after_a_first_visit_oom():
-    """The first step at a new (bin, batch size) writes parameters, a
+    """The first step at new batch shapes writes parameters, a
     buffer, first moments, the EMA, the step and the generator before it
     runs out of memory: the retry starts from the exact pre-step state."""
     state, gen = _tiny_state(), torch.Generator().manual_seed(4)
@@ -359,7 +359,8 @@ def test_guard_restores_the_state_after_a_first_visit_oom():
     assert metrics is not None and out.step == 8
     assert len(entries) == 2
     _assert_same(entries[1], before)  # restored exactly
-    assert bm.sizes["3"] == 8 and validated == {(3, 8)}
+    assert bm.sizes["3"] == 8
+    assert validated == {(("text", (8, 4)),)}  # the shapes that ran
 
 
 def test_guard_validated_shape_takes_no_snapshot(monkeypatch):
@@ -369,8 +370,27 @@ def test_guard_validated_shape_takes_no_snapshot(monkeypatch):
     monkeypatch.setattr(ploop, "snapshot_state", boom)
     _, metrics = ploop._guarded_step(
         lambda s, b, g: (s, {"loss": torch.zeros(())}), _tiny_state(),
-        _batch(8), None, _BM(8), "cpu", set(), validated={(3, 8)})
+        _batch(8), None, _BM(8), "cpu", set(),
+        validated={(("text", (8, 4)),)})
     assert metrics is not None
+
+
+@pytest.mark.parametrize("batch", ["tokens", "rows"])
+def test_guard_new_shape_in_a_seen_bin_takes_a_snapshot(batch):
+    """A new text bucket, or a partial last batch, at a (bin, batch size)
+    that has run before is a first visit: the step updates the state in
+    place, so its OOM must restore from a snapshot."""
+    seen = np.zeros((8, 4), np.int32)
+    new = {"tokens": np.zeros((8, 6), np.int32),
+           "rows": np.zeros((5, 4), np.int32)}[batch]
+    validated = {ploop._shape_key({"text": seen, "bin": 3}, 8)}
+    snaps = {"snapshots": 0, "snapshot_s": 0.0, "oom": 0}
+    _, metrics = ploop._guarded_step(
+        lambda s, b, g: (s, {"loss": torch.zeros(())}), _tiny_state(),
+        {"text": new, "bin": 3, "global_batch_size": new.shape[0]}, None,
+        _BM(8), "cpu", set(), validated=validated, record=snaps)
+    assert metrics is not None and snaps["snapshots"] == 1
+    assert validated == {(("text", (8, 4)),), (("text", new.shape),)}
 
 
 def test_guard_raises_other_errors():

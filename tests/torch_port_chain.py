@@ -32,6 +32,13 @@ from test_torch_port_helpers import (TRAIN_KEYS, _inference_shapes,
                                      train_config, train_params)
 
 LR = 1e-4
+# a voiced predicted F0 (chain_params' head) against the JAX
+# package: the multi-resolution mel term within 2e-3 relative (measured
+# 9.9e-5 to 4.2e-4 at the tiny config), the audio within 3e-2 of full
+# scale (measured 1.3e-2 to 2.0e-2, on a peak of 0.035) and its STFT
+# magnitudes within 25% by L2 (``spectral_distance``, measured 9.9-11.6%;
+# the audio of an unvoiced F0 lies 53-55% away)
+VOICED_MEL_REL, VOICED_AUDIO, VOICED_SPECTRAL = 2e-3, 3e-2, 0.25
 NOISE_AMPLITUDE = 0.01  # generate_pcph's default
 MEL_MEAN, MEL_STD, STEP_LIMIT = -4.0, 4.0, 100
 CHAIN_KEYS = TRAIN_KEYS + ("pe_text_style_encoder", "duration_predictor")
@@ -62,26 +69,27 @@ def chain_config():
 
 def chain_params(mc_jax, seed: int):
     """(params of the chain's seven models and the SLM, the mel style
-    encoder's batch stats), every leaf drawn from ``seed``.
-
-    The F0 head is zero, kernel and bias: the stages past acoustic
-    synthesize from the predicted F0, and a voiced one is ill-posed on any
-    implementation (``well_posed_prior_inputs``): off its grid the
-    harmonic prior's phase integral parts in the last bits, and a voiced
-    onset leaves STFT frame 0 real, its phase 0 or pi by the sign of a
-    rounding (measured with a random head: mel 1e-4 to 9e-4 relative,
-    audio 1.3e-2 of full scale; with a constant 187.5 Hz: mel 2e-3).  An
-    unvoiced prediction leaves the prior the shared noise, silent at the
-    onset.  The head's own gradient is still compared; the F0 path above
-    it is not (the acoustic test holds it)."""
+    encoder's batch stats), every leaf drawn from ``seed``; the F0 head is
+    ``train_params``' (about 180 Hz, voiced)."""
     params, stats = train_params(mc_jax, seed=seed)
-    f0 = params["pitch_energy_predictor"]["f0_proj"]
-    f0["kernel"] = jnp.zeros_like(f0["kernel"])
-    f0["bias"] = jnp.zeros_like(f0["bias"])
     shapes = _inference_shapes(mc_jax.model_dump_json())
     for i, key in enumerate(("pe_text_style_encoder", "duration_predictor")):
         params[key] = fill_params(shapes[key], seed + 50 + i)
     return params, stats
+
+
+def zero_f0_head(params):
+    """``params`` with the F0 head zero, kernel and bias.  The stages past
+    acoustic synthesize from the predicted F0, and a voiced one is
+    ill-posed on any implementation (``well_posed_prior_inputs``): off its
+    grid the harmonic prior's phase integral parts in the last bits, and a
+    voiced onset leaves STFT frame 0 real, its phase 0 or pi by the sign
+    of a rounding.  An unvoiced prediction leaves the prior the shared
+    noise, silent at the onset, so the tight tolerances hold; the voiced
+    cases hold the synthesis at the looser ``VOICED_*`` limits."""
+    pe = dict(params["pitch_energy_predictor"])
+    pe["f0_proj"] = {k: jnp.zeros_like(v) for k, v in pe["f0_proj"].items()}
+    return {**params, "pitch_energy_predictor": pe}
 
 
 def class_weight() -> np.ndarray:
@@ -108,12 +116,16 @@ def jax_noise_fixed(noise: np.ndarray):
         yield
 
 
+def jax_state(mc_jax, params, stats):
+    variables = {k: {"params": params[k]} for k in CHAIN_KEYS}
+    variables["pe_mel_style_encoder"]["batch_stats"] = stats
+    return jax_train_state(variables, mc_jax)
+
+
 def jax_setup(mc_jax, params, stats, batch):
     cfg = JaxConfig()
     cfg.training.mixed_precision = "no"
-    variables = {k: {"params": params[k]} for k in CHAIN_KEYS}
-    variables["pe_mel_style_encoder"]["batch_stats"] = stats
-    state = jax_train_state(variables, mc_jax)
+    state = jax_state(mc_jax, params, stats)
     ctx = JaxContext(models=jax_build_models(mc_jax), model_config=mc_jax,
                      config=cfg, mel_mean=MEL_MEAN, mel_std=MEL_STD,
                      step_limit=STEP_LIMIT,
@@ -157,11 +169,27 @@ def port_hooks(noise):
 def chain_inputs():
     """The configs, weights, batch and prior noise of the chain tests."""
     mc_jax = chain_config()
-    params, stats = chain_params(mc_jax, seed=7)
+    voiced, stats = chain_params(mc_jax, seed=7)
+    params = zero_f0_head(voiced)
     batch, noise = acoustic_batch(mc_jax, seed=3, tokens=8, frames=16)
     return dict(mc_jax=mc_jax,
                 mc=load_model_config_json(mc_jax.model_dump_json()),
-                params=params, stats=stats, batch=batch, noise=noise)
+                params=params, voiced_params=voiced, stats=stats,
+                batch=batch, noise=noise)
+
+
+def spectral_distance(audio, reference, n_fft: int = 512) -> float:
+    """||S(audio) - S(reference)|| / ||S(reference)|| of the STFT
+    magnitudes (Hann window, hop n_fft / 4): blind to the phase that a
+    voiced prior leaves ill-posed."""
+    def mag(a):
+        x = torch.tensor(np.asarray(a, np.float32))
+        return torch.stft(x.reshape(-1, x.shape[-1]), n_fft, n_fft // 4,
+                          window=torch.hann_window(n_fft),
+                          return_complex=True).abs()
+
+    s, ref = mag(audio), mag(reference)
+    return float((s - ref).norm() / ref.norm())
 
 
 def model_states(state):
