@@ -90,7 +90,26 @@ Phases, in order; any failure raises and the exit code is non-zero:
    phonemes from the artifact checked as in phase 4.  Per stage: the
    probe's seconds and fit, each step's wall ms (first visit of its
    shape in the stage, or warm), validation and save seconds;
-8. one JSON line of every kernel's numbers, with its launches on the path
+8. from a book to a voice, at the full-width default ModelConfig, every
+   step through the CLI's ``main``: a two-chapter markdown book of 40
+   sentences (numbers, abbreviations, homographs) is read by ``speak
+   --book`` on phase 4's seeded models (their duration head at a speech
+   rate, their magnitude a 180 Hz comb) with 0.5 s between sentences, each chapter's WAV held to what the
+   synthesizer gives (every sentence its predicted frames x hop samples);
+   ``prepare-book`` (no transcripts) cuts them into a dataset whose
+   lines have 4 fields and phonemes in the symbol set; ``pitch`` (YIN)
+   writes a finite track of samples // hop + 1 frames a segment, some
+   voiced; ``train-align`` takes a few steps (at most one epoch) with a
+   validation after a pass over the val set and a save: the aligner
+   moved, the priors set at the epoch's end, its file written, finite
+   ``align_loss`` and ``confidence``, the STFT launched at every step and
+   the spec-conv kernels never; ``align`` writes durations that sum to
+   each segment's frames, boundary probabilities in [0, 1] and a score a
+   segment; the STFT is held against its plain version at every shape
+   those two gave it; one acoustic step of ``train`` reads the new caches;
+   last ``speak --text`` reads three sentences on phase 7's artifact.
+   Each step's seconds, launches and segment counts printed;
+9. one JSON line of every kernel's numbers, with its launches on the path
    that runs it (per train step, synthesis request or probe run), then the
    result line.
 
@@ -995,12 +1014,13 @@ def _stage_hook(kernels, record: dict):
     return hook
 
 
-def chain_path(device, card: str, kernels) -> dict:
+def chain_path(device, card: str, kernels, keep_artifact: Path) -> dict:
     """CLI ``train`` through acoustic -> textual -> style -> duration at
     full width on a synthetic dataset on disk, with the measured memory
-    plan; then ``convert`` and ``speak`` through the CLI; see the module
-    docstring, phase 7."""
+    plan; then ``convert`` and ``speak`` through the CLI, the artifact
+    copied to ``keep_artifact``; see the module docstring, phase 7."""
     import functools
+    import shutil
     import tempfile
     import wave
 
@@ -1105,6 +1125,7 @@ def chain_path(device, card: str, kernels) -> dict:
         cli.main(["convert", "--checkpoint",
                   str(out / "duration" / "checkpoint_final"),
                   "--out", str(artifact)])
+        shutil.copytree(artifact, keep_artifact)
         cli.main(["speak", "--artifact", str(artifact), "--phonemes", text,
                   "--out", str(wav)])
         with wave.open(str(wav), "rb") as f:
@@ -1201,6 +1222,454 @@ def _check_chain_stage(stage, stats, seen, stage_type, out,
           f"guard snapshots {stats['guard']['snapshots']} in "
           f"{stats['guard']['snapshot_s']:.2f} s, OOM "
           f"{stats['guard']['oom']}; launches {launches} [{card}]")
+
+
+# --------------------------------------------------------------------------- #
+# from a book to a voice: speak --book, prepare-book, pitch, train-align,
+# align, train, speak --text through the CLI
+
+
+# a two-chapter markdown book: numbers, abbreviations and homographs
+BOOK_CHAPTERS = (
+    ("The Lighthouse", (
+        "Dr. Hale read the old record of the lighthouse on the 3rd of May.",
+        "The keeper had kept 12 lamps burning for 25 years.",
+        "He paid $40 for a lead weight and 2 coils of rope.",
+        "Mr. Grant would lead the boats past the rocks at dawn.",
+        "They record the wind and the tide in a small blue book.",
+        "Each entry was written at 6 o'clock sharp, rain or shine.",
+        "In 1887 a storm broke 3 windows and the great lens.",
+        "The crew read every letter aloud by the fire that night.",
+        "A record crowd of 150 people came to watch the repairs.",
+        "Mrs. Hale said the light must never go out again.",
+        "So the keeper climbed 98 steps each evening at sunset.",
+        "The lead pipe in the tower rattled when the gale rose.",
+        "He wound the clock, trimmed the wick and cleaned the glass.",
+        "Ships far out at sea would read the flash as a warning.",
+        "By the 21st of June the new lens was finally in place.",
+        "It cost the town nearly $2,500, a fortune at the time.",
+        "The children live close to the harbor and love the light.",
+        "On clear nights it shone for 18 miles across the water.",
+        "Dr. Hale wrote that the old keeper never missed a night.",
+        "The last page of his record ends with a single word: home.",
+    )),
+    ("The Orchard", (
+        "Prof. Lane planted 40 apple trees along the south wall.",
+        "She would read about grafting late into the night.",
+        "The first harvest, in 1902, filled only 7 baskets.",
+        "Her neighbors said the soil held too much lead and clay.",
+        "She tested it twice and kept a careful record of each result.",
+        "By the 2nd year the trees gave three times as much fruit.",
+        "A buyer from the city paid $3.50 for each crate.",
+        "Lane let her students lead the tours on Saturday mornings.",
+        "They learned to prune, to graft and to read the weather.",
+        "One cold spring, frost killed half the blossoms in a week.",
+        "St. Mary's school sent 60 pupils to help with the picking.",
+        "The orchard now covers 12 acres on the hill above the river.",
+        "Each tree has a tag and a record of its yield since planting.",
+        "Visitors who live nearby still come to walk among the rows.",
+        "The oldest tree is 118 years old and still bears fruit.",
+        "Lane's notes fill 14 notebooks in the town library.",
+        "Students read them to learn how the orchard began.",
+        "A plaque by the gate gives the date: the 9th of April.",
+        "The wind in the branches sounds like rain on a tin roof.",
+        "At dusk the whole hill smells of cider and cut grass.",
+    )),
+)
+BOOK_PAUSE_MS = 500  # silence between sentences: phrase breaks
+BOOK_F0 = 180.0  # Hz, the voice's harmonics
+BOOK_VAL_FRACTION = 0.2
+# train-align: a few steps of at most one epoch, validating (after a pass
+# over the val set) and saving every BOOK_INTERVAL steps
+BOOK_ALIGN_STEPS, BOOK_INTERVAL, BOOK_PROBE_BATCH = 4, 2, 4
+SPEAK_TEXT = ("The keeper read the record twice. It was the 3rd of May, "
+              "at 6 p.m. Dr. Hale paid $40 for the lead weight.")
+
+
+@torch.no_grad()
+def book_levels(mc, models):
+    """``speech_levels``' models read at a speech rate and voiced: the
+    duration head at about 5-6 frames (62-75 ms) a phoneme, where random
+    weights spread the classes to 46 frames; and the log-amplitude head's
+    bias a comb at the harmonics of 180 Hz below 5 kHz.  Random weights
+    give an aperiodic spectrum, noise to YIN whatever the prior's F0; a
+    harmonic magnitude makes each frame periodic whatever the phase head
+    gives it (99.5% of the frames voiced on a full-width sentence on the
+    CPU)."""
+    dp = models["duration_predictor"].duration_proj
+    dp.weight.mul_(0.2)
+    dp.bias.zero_()
+    dp.bias[4] = 4.0  # 5 frames
+    dp.bias[5] = 3.0  # 6
+    amp = models["speech_predictor"].generator.amp_output_conv.Conv_0
+    harmonic = torch.arange(amp.bias.shape[0]) * (
+        mc.sample_rate / mc.n_fft) / BOOK_F0
+    near = (harmonic - torch.round(harmonic)).abs() < 0.12
+    amp.bias.copy_(torch.where(near & (harmonic > 0.5)
+                               & (harmonic * BOOK_F0 < 5000.0), 1.5, -6.0))
+    return models
+
+
+def write_artifact(mc, models, out: Path) -> Path:
+    """An inference artifact of ``models`` (the layout ``convert``
+    writes)."""
+    from stylish_tts_tpu_torch.config import dump_json
+    from stylish_tts_tpu_torch.convert import export_flax_params
+    from stylish_tts_tpu_torch.models import INFERENCE_MODELS
+    from stylish_tts_tpu_torch.utils.tensorfile import write_safetensors
+
+    out.mkdir(parents=True)
+    for key in INFERENCE_MODELS:
+        write_safetensors(out / f"{key}.safetensors",
+                          export_flax_params(key, models[key]))
+    (out / "model_config.json").write_text(dump_json(mc))
+    return out
+
+
+def read_pcm(path: Path) -> np.ndarray:
+    import wave
+
+    with wave.open(str(path), "rb") as f:
+        return np.frombuffer(f.readframes(f.getnframes()), "<i2")
+
+
+def longform_reference(artifact: Path, texts, pause_ms: float, device):
+    """What CLI ``speak`` must have written for ``texts`` (one long-form
+    utterance each, in order, from one synthesizer): each as int16 PCM,
+    with every sentence's untrimmed audio checked to be its predicted
+    frames x hop samples, finite and not silent."""
+    from stylish_tts_tpu_torch.cli import text_to_phonemes
+    from stylish_tts_tpu_torch.export.infer import Synthesizer
+    from stylish_tts_tpu_torch.export.package import load_inference_models
+    from stylish_tts_tpu_torch.textfrontend import G2P
+
+    mc, models = load_inference_models(artifact, device)
+    synth = Synthesizer(mc, models, device=device)
+    single = synth.synthesize
+    sentences = []
+
+    def synthesize(phonemes, **kwargs):
+        audio = single(phonemes, **kwargs)
+        frames = int(synth.predict_durations(phonemes).sum())
+        sentences.append(audio.shape[0])
+        check_audio(audio, frames, 1, mc.hop_length, "a sentence")
+        return audio
+
+    synth.synthesize = synthesize
+    g2p, out = G2P(), []
+    for text in texts:
+        audio = synth.synthesize_longform(text_to_phonemes(text, g2p),
+                                          silence_ms=pause_ms)
+        if not np.all(np.isfinite(audio)) or not np.abs(audio).max() > 0:
+            raise AssertionError("long-form audio non-finite or silent")
+        out.append((np.clip(audio, -1, 1) * 32767).astype("<i2"))
+    return out, sentences
+
+
+def _record_stft_shapes(shapes: list):
+    """Wrap the STFT wrapper's launch so that each launch's (B, T, n_fft,
+    hop, win) lands in ``shapes``; returns the restore."""
+    from stylish_tts_tpu_torch.ops.stft_kernel import stft_forward
+
+    launch = stft_forward.launch
+
+    def recording(x, n_fft, hop_length, win_length):
+        shapes.append((*x.shape, n_fft, hop_length, win_length))
+        return launch(x, n_fft, hop_length, win_length)
+
+    stft_forward.launch = recording
+    return lambda: setattr(stft_forward, "launch", launch)
+
+
+def book_path(device, card: str, kernels, chain_artifact: Path) -> dict:
+    """From a book's text to a voice through the CLI's ``main``, at the
+    full-width default ModelConfig; see the module docstring, phase 8."""
+    import functools
+    import shutil
+    import tempfile
+
+    from stylish_tts_tpu_torch import cli
+    from stylish_tts_tpu_torch.config import Config, ModelConfig, dump_json
+    from stylish_tts_tpu_torch.data.audio import wav_info
+    from stylish_tts_tpu_torch.dataprep.book import split_markdown_chapters
+    from stylish_tts_tpu_torch.text import TextCleaner
+    from stylish_tts_tpu_torch.textfrontend import G2P
+    from stylish_tts_tpu_torch.train import loop
+    from stylish_tts_tpu_torch.utils.tensorfile import read_safetensors
+
+    t_phase = time.perf_counter()
+    mc = ModelConfig()
+    hop = mc.hop_length
+    record: dict = {"card": card, "seconds": {}, "events": [], "stages": {}}
+    seconds = record["seconds"]
+    g2p = G2P()
+    record["g2p"] = f"espeak ({g2p.espeak})" if g2p.espeak else \
+        "lexicon and rules (no espeak on the path)"
+    md = "".join(f"# {title}\n\n" + " ".join(body) + "\n\n"
+                 for title, body in BOOK_CHAPTERS)
+    n_sentences = sum(len(b) for _, b in BOOK_CHAPTERS)
+    t0 = time.perf_counter()
+    for _, body in BOOK_CHAPTERS:
+        cli.text_to_phonemes(" ".join(body), g2p)
+    seconds["g2p"] = time.perf_counter() - t0
+    print(f"book: {len(BOOK_CHAPTERS)} chapters, {n_sentences} sentences; "
+          f"G2P {record['g2p']}, {1e3 * seconds['g2p'] / n_sentences:.2f} "
+          f"ms a sentence [{card}]")
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_book_") as tmp:
+        root = Path(tmp)
+        artifact = write_artifact(
+            mc, book_levels(mc, seeded_models(mc, seed=0)),
+            root / "artifact")
+        (root / "book.md").write_text(md)
+        chapters = split_markdown_chapters(md)
+        (root / "book.txt").write_text("\n\n".join(b for _, b in chapters))
+
+        # the book: one WAV a chapter, each what the synthesizer gives
+        t0 = time.perf_counter()
+        cli.main(["speak", "--artifact", str(artifact), "--book",
+                  str(root / "book.md"), "--out", str(root / "chapters"),
+                  "--pause-ms", str(BOOK_PAUSE_MS)])
+        seconds["speak_book"] = time.perf_counter() - t0
+        wavs = sorted((root / "chapters").glob("chapter-*.wav"))
+        if len(wavs) != len(BOOK_CHAPTERS):
+            raise AssertionError(f"speak --book wrote {len(wavs)} WAVs")
+        want, sentences = longform_reference(
+            artifact, [b for _, b in chapters], BOOK_PAUSE_MS, device)
+        if len(sentences) != n_sentences:
+            raise AssertionError(f"{len(sentences)} sentences synthesized")
+        record["chapters"] = []
+        for path, ref in zip(wavs, want):
+            pcm = read_pcm(path)
+            if pcm.shape != ref.shape or not np.abs(pcm).max():
+                raise AssertionError(f"{path.name}: {pcm.shape} samples, "
+                                     f"the synthesizer gives {ref.shape}")
+            record["chapters"].append({
+                "samples": int(pcm.shape[0]),
+                "max_abs_diff": int(np.abs(pcm.astype(np.int32)
+                                           - ref).max())})
+        audio_s = sum(c["samples"] for c in record["chapters"]) / \
+            mc.sample_rate
+        print(f"book: speak --book {seconds['speak_book']:.1f} s for "
+              f"{audio_s:.1f} s of audio in {len(wavs)} chapters "
+              f"{record['chapters']} (each sentence its predicted frames x "
+              f"{hop} samples: {sum(sentences)} samples in "
+              f"{n_sentences}) [{card}]")
+
+        # the dataset
+        data = root / "data"
+        t0 = time.perf_counter()
+        cli.main(["prepare-book", *sum((["--audio", str(p)] for p in wavs),
+                                       []),
+                  "--text", str(root / "book.txt"), "--out", str(data),
+                  "--sample-rate", str(mc.sample_rate),
+                  "--val-fraction", str(BOOK_VAL_FRACTION)])
+        seconds["prepare_book"] = time.perf_counter() - t0
+        cleaner = TextCleaner(mc.symbol)
+        lists = {}
+        for split in ("train", "val"):
+            lines = (data / f"{split}-list.txt").read_text().splitlines()
+            lists[split] = [line.split("|") for line in lines]
+            for fields in lists[split]:
+                if len(fields) != 4 or fields[2] != "0" or not fields[3]:
+                    raise AssertionError(f"{split} list line {fields}")
+                if not fields[1] or len(cleaner(fields[1])) != len(
+                        fields[1]):
+                    raise AssertionError(f"phonemes outside the symbol set: "
+                                         f"{fields[1]!r}")
+                if not (data / "wav24" / fields[0]).is_file():
+                    raise AssertionError(f"{fields[0]} not written")
+        if not lists["train"] or not lists["val"]:
+            raise AssertionError(f"segments: {len(lists['train'])} train, "
+                                 f"{len(lists['val'])} val")
+        segments = {f[0]: wav_info(data / "wav24" / f[0]).frames
+                    for split in lists.values() for f in split}
+        record["segments"] = {"train": len(lists["train"]),
+                              "val": len(lists["val"]),
+                              "seconds": sum(segments.values())
+                              / mc.sample_rate}
+        print(f"book: prepare-book {seconds['prepare_book']:.1f} s: "
+              f"{record['segments']} [{card}]")
+
+        cfg = Config()
+        cfg.dataset.path = str(data)
+        cfg.training_plan.alignment.epochs = 1
+        cfg.training_plan.alignment.probe_batch_max = BOOK_PROBE_BATCH
+        cfg.training_plan.acoustic.probe_batch_max = 1
+        cfg.training.log_interval = 1
+        cfg.training.val_interval = cfg.training.save_interval = \
+            BOOK_INTERVAL
+        cfg.training.aot_memory_plan = False
+        (root / "config.json").write_text(dump_json(cfg))
+        config = ["--config", str(root / "config.json")]
+
+        # pitch
+        t0 = time.perf_counter()
+        cli.main(["pitch", *config])
+        seconds["pitch"] = time.perf_counter() - t0
+        pitch = read_safetensors(data / "pitch.safetensors")
+        if set(pitch) != set(segments):
+            raise AssertionError(f"pitch for {len(pitch)} of "
+                                 f"{len(segments)} segments")
+        for name, f0 in pitch.items():
+            if f0.shape != (segments[name] // hop + 1,) or not np.all(
+                    np.isfinite(f0)):
+                raise AssertionError(f"{name}: f0 {f0.shape}")
+        voiced = float(np.mean(np.concatenate(list(pitch.values())) > 0))
+        if not voiced > 0:
+            raise AssertionError("no voiced frame")
+        record["voiced_share"] = voiced
+        print(f"book: pitch {seconds['pitch']:.1f} s, {len(pitch)} tracks, "
+              f"{100 * voiced:.1f}% of the frames voiced [{card}]")
+
+        # the aligner
+        align_shapes: list = []
+        restore = _record_stft_shapes(align_shapes)
+        original = loop.train_model
+        loop.train_model = functools.partial(
+            original, on_stage=_stage_hook(kernels, record))
+        t0 = time.perf_counter()
+        try:
+            cli.main(["train-align", *config, "--out", str(root / "align"),
+                      "--max-steps", str(BOOK_ALIGN_STEPS)])
+        finally:
+            loop.train_model = original
+        seconds["train_align"] = time.perf_counter() - t0
+        stats = json.loads((root / "align" / "alignment" / "train_stats.json")
+                           .read_text())
+        seen = record["stages"]["alignment"]
+        launches = seen["launches"]
+        if record["events"] != [["start", "alignment"],
+                                ["planned", "alignment"],
+                                ["end", "alignment"]]:
+            raise AssertionError(f"stage events {record['events']}")
+        if not 1 <= stats["steps"] <= BOOK_ALIGN_STEPS:
+            raise AssertionError(f"train-align took {stats['steps']} steps")
+        if not seen["moved"]["text_aligner"]["params"]:
+            raise AssertionError("the aligner did not move")
+        priors = read_safetensors(root / "align" / "alignment"
+                                  / "checkpoint_final" / "priors.safetensors")
+        if not priors["priors_initialized"] or not np.all(
+                np.isfinite(priors["log_priors"])):
+            raise AssertionError("the priors were not set at the epoch's end")
+        if not (root / "align" / "alignment_model.safetensors").is_file():
+            raise AssertionError("alignment_model.safetensors not written")
+        values = [e["metrics"]["align_loss"] for e in stats["logs"]] + [
+            v["metrics"][k] for v in stats["validations"]
+            for k in ("align_loss", "confidence")]
+        if not stats["validations"] or not stats["saves"] or not all(
+                np.isfinite(values)):
+            raise AssertionError(f"train-align: validations "
+                                 f"{stats['validations']}, saves "
+                                 f"{stats['saves']}")
+        mel_launches = sum(1 for s in align_shapes if s[3] == hop)
+        if launches["stft_forward"] < stats["steps"] or \
+                mel_launches != launches["stft_forward"]:
+            raise AssertionError(f"train-align: {launches['stft_forward']} "
+                                 f"STFT launches, {stats['steps']} steps")
+        if any(n for k, n in launches.items() if k.startswith("spec_conv")):
+            raise AssertionError(f"train-align launched the MRD: {launches}")
+        record["train_align"] = {"steps": stats["steps"],
+                                 "batches": stats["batches"],
+                                 "launches": launches,
+                                 "validations": stats["validations"],
+                                 "logs": stats["logs"]}
+        print(f"book: train-align {seconds['train_align']:.1f} s, "
+              f"{stats['steps']} steps {stats['batches']}, align_loss "
+              f"{[round(e['metrics']['align_loss'], 3) for e in stats['logs']]}"
+              f", validation "
+              f"{[{k: round(v, 4) for k, v in e['metrics'].items()} for e in stats['validations']]}"
+              f"; launches {launches} [{card}]")
+
+        # alignment
+        shutil.copy(root / "align" / "alignment_model.safetensors", data)
+        n_train_align = len(align_shapes)
+        for k in kernels:
+            k.launches = 0
+        t0 = time.perf_counter()
+        try:
+            cli.main(["align", *config])
+        finally:
+            restore()
+        seconds["align"] = time.perf_counter() - t0
+        align_launches = {k.name: k.launches for k in kernels}
+        batches = len(align_shapes) - n_train_align
+        if not batches or align_launches["stft_forward"] != batches:
+            raise AssertionError(f"align: {align_launches} over {batches} "
+                                 f"batches")
+        records = read_safetensors(data / "alignment.safetensors")
+        if set(records) != set(segments):
+            raise AssertionError(f"alignments for {len(records)} of "
+                                 f"{len(segments)} segments")
+        for name, rec in records.items():
+            frames = segments[name] // hop
+            if rec.shape[0] != 3 or int(rec[0].sum()) != frames:
+                raise AssertionError(f"{name}: durations sum to "
+                                     f"{rec[0].sum()}, {frames} frames")
+            if not np.all((rec[1:] >= 0) & (rec[1:] <= 1)):
+                raise AssertionError(f"{name}: boundary probabilities out "
+                                     f"of [0, 1]")
+        for split, fields in lists.items():
+            scored = (data / f"scores_{split}.txt").read_text().splitlines()
+            if [s.split()[1] for s in scored] != [f[0] for f in fields]:
+                raise AssertionError(f"scores_{split}.txt lines")
+            if not all(0 <= float(s.split()[0]) <= 1 for s in scored):
+                raise AssertionError(f"scores_{split}.txt values")
+        record["align"] = {"batches": batches, "launches": align_launches}
+        print(f"book: align {seconds['align']:.1f} s, {len(records)} "
+              f"segments in {batches} batches "
+              f"{sorted(set(s[:2] for s in align_shapes[n_train_align:]))}; "
+              f"launches {align_launches} [{card}]")
+
+        # the STFT at every shape train-align and align gave it
+        t0 = time.perf_counter()
+        worst = 0.0
+        for b, t, n_fft, hop_length, win in sorted(set(align_shapes)):
+            gen = torch.Generator(device="cuda").manual_seed(b * t)
+            x = torch.randn(b, t, generator=gen, device="cuda")
+            worst = max(worst, stft_error(x, n_fft, hop_length, win)[2])
+        record["stft_shapes"] = sorted(set(align_shapes))
+        record["stft_max_abs_err"] = worst
+        print(f"book: stft at the {len(set(align_shapes))} shapes of "
+              f"train-align and align within {KERNEL_TOL} x the largest "
+              f"plain value (max err {worst:.2e}), "
+              f"{time.perf_counter() - t0:.2f} s [{card}]")
+
+        # a voice: one acoustic step on the dataset's new caches
+        t0 = time.perf_counter()
+        cli.main(["train", *config, "--out", str(root / "voice"),
+                  "--max-steps", "1"])
+        seconds["train_step"] = time.perf_counter() - t0
+        stats = json.loads((root / "voice" / "acoustic" / "train_stats.json")
+                           .read_text())
+        if stats["steps"] != 1 or not all(
+                np.isfinite(list(stats["logs"][0]["metrics"].values()))):
+            raise AssertionError(f"train on the book: {stats['logs']}")
+        print(f"book: train --max-steps 1 {seconds['train_step']:.1f} s, "
+              f"batch {stats['batches']}, loss "
+              f"{stats['logs'][0]['loss']:.3f} [{card}]")
+
+        # speak --text on the chain's artifact
+        (root / "speak.txt").write_text(SPEAK_TEXT)
+        t0 = time.perf_counter()
+        cli.main(["speak", "--artifact", str(chain_artifact), "--text",
+                  str(root / "speak.txt"), "--out", str(root / "speak.wav")])
+        seconds["speak_text"] = time.perf_counter() - t0
+        (ref,), sentences = longform_reference(chain_artifact, [SPEAK_TEXT],
+                                               120.0, device)
+        pcm = read_pcm(root / "speak.wav")
+        if len(sentences) != 3 or pcm.shape != ref.shape or \
+                not np.abs(pcm).max():
+            raise AssertionError(f"speak --text: {pcm.shape} samples, the "
+                                 f"synthesizer gives {ref.shape}")
+        record["speak_text"] = {"samples": int(pcm.shape[0]),
+                                "sentences": sentences}
+        print(f"book: speak --text {seconds['speak_text']:.1f} s, "
+              f"{pcm.shape[0] / mc.sample_rate:.2f} s of audio from 3 "
+              f"sentences on the chain's artifact [{card}]")
+    torch.cuda.empty_cache()
+    seconds["phase"] = time.perf_counter() - t_phase
+    print(f"book phase: {seconds['phase']:.1f} s [{card}]")
+    return record
 
 
 # --------------------------------------------------------------------------- #
@@ -1355,6 +1824,7 @@ def main() -> int:
         print("chip_smoke: CUDA is not available", file=sys.stderr)
         return 1
     import copy
+    import tempfile
 
     from stylish_tts_tpu_torch.config import ModelConfig
     from stylish_tts_tpu_torch.device import resolve_device
@@ -1610,10 +2080,14 @@ def main() -> int:
     record["runtime"] = runtime_path(mc, device, card, kernels,
                                      train["median_s"] * 1e3)
 
-    # 7. the training chain through CLI train, then convert and speak
-    record["chain"] = chain_path(device, card, kernels)
+    # 7. the training chain through CLI train, then convert and speak; 8.
+    # from a book's text to a voice, speak --text on the chain's artifact
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_artifact_") as keep:
+        artifact = Path(keep) / "chain_artifact"
+        record["chain"] = chain_path(device, card, kernels, artifact)
+        record["book"] = book_path(device, card, kernels, artifact)
 
-    # 8. results: each kernel's own numbers and its launches on the path
+    # 9. results: each kernel's own numbers and its launches on the path
     # that runs it: per train step, or per probe run
     out_dir = Path("chiprun_out")
     out_dir.mkdir(exist_ok=True)

@@ -14,8 +14,9 @@ changes:
 * WeightNorm ``WeightNorm_k/<conv>/kernel/scale`` -> ``<conv>.scale``
 * SpectralNorm batch stats ``SpectralNorm_0/<conv>/kernel/{u,sigma}`` ->
   the buffers ``u`` and ``sigma`` of the spectral-norm module
-* every other leaf (``bias``, ``gamma``, ``beta``, the SLM's own params) as
-  it is, under its own name
+* every other leaf (``bias``, ``gamma``, ``beta``, the SLM's own params,
+  the text aligner's batch-norm stats ``bn_i/{mean,var}``) as it is, under
+  its own name
 
 Batch stats are passed in the same flat dict as the params.
 ``export_flax_params`` is the inverse: a module's ``state_dict`` back to

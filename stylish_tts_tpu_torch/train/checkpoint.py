@@ -10,6 +10,8 @@ A checkpoint is a directory of safetensors files and one JSON file:
   artifact is a check and a copy;
 * ``optim/<model>.safetensors``: the model's AdamW state by parameter
   name, ``<name>/exp_avg``, ``<name>/exp_avg_sq`` and ``<name>/step``;
+* ``priors.safetensors``: the CTC label priors and their epoch
+  accumulators (``TrainState.priors``);
 * ``meta.json``: the manifest, the normalisation stats, the run and model
   configs, the train state's step and discriminator EMA, each optimizer's
   hyper-parameters and the run's ``torch.Generator`` state.
@@ -163,6 +165,9 @@ def save_checkpoint(
                                module)
         write_safetensors(tmp / "optim" / f"{key}.safetensors",
                           _optimizer_tensors(module, state.optimizers[key]))
+    write_safetensors(tmp / "priors.safetensors",
+                      {k: v.detach().cpu().numpy()
+                       for k, v in state.priors.items()})
     meta = {
         "manifest": manifest.state_dict(),
         "normalization": asdict(normalization),
@@ -192,8 +197,9 @@ def load_checkpoint(
 ) -> Tuple[TrainState, Manifest, NormalizationStats, dict]:
     """Fill ``state`` (built for the checkpoint's models, on any device)
     and ``generator`` in place from the checkpoint at ``path``; returns
-    (state, manifest, normalization, meta).  Raises on a model, tensor or
-    EMA that the checkpoint lacks or that the state does not hold."""
+    (state, manifest, normalization, meta).  Raises on a model, tensor,
+    EMA or prior that the checkpoint lacks or that the state does not
+    hold."""
     path = Path(path)
     meta = json.loads((path / "meta.json").read_text())
     saved = {p.stem for p in (path / "models").glob("*.safetensors")}
@@ -213,6 +219,13 @@ def load_checkpoint(
     for key, value in train["disc_ema"].items():
         state.disc_ema[key] = torch.tensor(
             value, dtype=torch.float32, device=state.disc_ema[key].device)
+    priors = read_safetensors(path / "priors.safetensors")
+    if set(priors) != set(state.priors):
+        raise KeyError(f"checkpoint priors {sorted(priors)} differ from the "
+                       f"state's {sorted(state.priors)}")
+    for key, value in priors.items():
+        state.priors[key] = torch.from_numpy(value).to(
+            state.priors[key].device)
     state.step = int(train["step"])
     if generator is not None:
         if "rng" not in meta:

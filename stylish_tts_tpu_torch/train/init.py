@@ -21,8 +21,9 @@ from ..models.discriminator import MultiResolutionDiscriminator
 from ..models.slm import SLMFeatureExtractor
 from ..models.speech_predictor import SpeechPredictor
 from ..models.style_encoders import MelStyleEncoder
+from ..models.text_aligner import build_text_aligner
 from .optim import make_optimizer
-from .state import TrainState
+from .state import TrainState, init_priors
 
 # heads flax initialises to zero (kernel and bias)
 ZERO_INIT = ("proj_mean", "proj_logstd", "prenet.proj")
@@ -32,8 +33,9 @@ _TRUNC_STD = 0.87962566103423978
 
 def build_training_models(mc: ModelConfig) -> Dict[str, nn.Module]:
     """The inference models plus the training-only ones: the speech
-    predictor with its posterior encoder, the mel style encoder and the
-    MRD.  Eval mode (dropout off) until a step runs them."""
+    predictor with its posterior encoder, the mel style encoder, the MRD
+    and the CTC text aligner.  Eval mode (dropout off, the aligner's batch
+    norms on their running stats) until a step runs them."""
     models = build_models(mc)
     models["speech_predictor"] = SpeechPredictor(mc, posterior=True).eval()
     models["pe_mel_style_encoder"] = MelStyleEncoder(
@@ -41,6 +43,7 @@ def build_training_models(mc: ModelConfig) -> Dict[str, nn.Module]:
         max_conv_dim=mc.mel_style_encoder.max_channels,
         skip_last_downsample=mc.mel_style_encoder.skip_downsample).eval()
     models["mrd"] = MultiResolutionDiscriminator(3).eval()
+    models["text_aligner"] = build_text_aligner(mc)
     return models
 
 
@@ -80,8 +83,10 @@ def init_params(module: nn.Module, generator: torch.Generator) -> nn.Module:
         leaf = name.rsplit(".", 1)[-1]
         if leaf == "u":
             b.normal_(0.0, 1.0, generator=generator)
-        elif leaf == "sigma":
+        elif leaf in ("sigma", "var"):  # the aligner's batch norms: var 1
             b.fill_(1.0)
+        elif leaf == "mean":
+            b.zero_()
     return module
 
 
@@ -116,5 +121,6 @@ def build_train_state(
         optimizers={k: make_optimizer(m) for k, m in models.items()},
         disc_ema={"mrd": torch.tensor(1.5, dtype=torch.float32,
                                       device=device)},
+        priors=init_priors(mc.text_encoder.tokens + 1, device),
         step=0,
     )

@@ -1,5 +1,6 @@
 """Training driver: the four-stage chain acoustic -> textual -> style ->
-duration, advancing on its own (reference train/train.py:76-449).
+duration, advancing on its own, and the alignment stage, which trains the
+CTC aligner alone (reference train/train.py:76-449).
 
 ``train_model`` reads the dataset on disk, bootstraps the normalisation
 stats, and for each stage plans its batch sizes (measured on the card,
@@ -13,6 +14,13 @@ from one stage to the next and every checkpoint packages into an
 artifact.  Metrics stay on the device as tensors until the log interval,
 then one stack and one copy reach the host: the loop adds no host sync of
 its own to a step.
+
+The alignment stage's run holds the aligner alone.  At each validation
+interval it first trains on the val set (alignment is fitted to the data,
+not generalised), at each epoch's end it sets the CTC label priors
+(``end_alignment_epoch``), and at its end it writes the aligner's
+parameters to ``<out>/alignment_model.safetensors``, the file that
+``dataprep/align_text.py`` reads; the chain stops there.
 
 Each stage writes ``<out>/<stage>/train_stats.json``: the memory probe's
 fit and seconds, each step's bin, rows and samples, each log window's wall
@@ -43,14 +51,24 @@ from .checkpoint import (Manifest, NormalizationStats, checkpoint_name,
                          load_checkpoint, save_checkpoint)
 from .init import build_train_state, init_slm
 from .loss_log import combine_metrics, format_metrics
-from .stages import (StageContext, chain_models, check_stage, make_eval_step,
-                     make_train_step)
+from ..models.text_aligner import aligner_params
+from ..utils.tensorfile import write_safetensors
+from .stages import (StageContext, chain_models, check_stage,
+                     end_alignment_epoch, make_eval_step, make_train_step)
 from .state import TrainState, restore_state, snapshot_state
 
 logger = logging.getLogger(__name__)
 
 # every model of the chain: the state the loop trains and checkpoints
 STATE_MODELS = chain_models("acoustic")
+
+
+def state_models(stage_name: str) -> list:
+    """The models of a run's state: the aligner alone for the alignment
+    stage (its chain ends with it), else every model of the four-stage
+    chain."""
+    return (chain_models("alignment") if stage_name == "alignment"
+            else STATE_MODELS)
 
 
 class TrainContext:
@@ -265,16 +283,20 @@ def train_model(
     if model_config.slm.weights_path:
         raise NotImplementedError(
             "loading converted WavLM weights into the SLM is not ported yet "
-            "(Queue 1 item 7); unset slm.weights_path")
+            "(Queue 1 item 3); unset slm.weights_path")
     ctx = TrainContext(stage_name=stage_name, out_dir=out_dir, config=config,
                        model_config=model_config)
     ctx.writer = _summary_writer(ctx.out_dir)
-    state = build_train_state(model_config, STATE_MODELS, device=device,
+    state = build_train_state(model_config, state_models(stage_name),
+                              device=device,
                               generator=torch.Generator().manual_seed(seed))
-    slm = init_slm(model_config,
-                   torch.Generator().manual_seed(seed + 7)).to(device)
-    logger.warning("the SLM perceptual loss runs on random WavLM features "
-                   "drawn from the seed; pretrained ones are not ported")
+    slm = None
+    if stage_name != "alignment":
+        slm = init_slm(model_config,
+                       torch.Generator().manual_seed(seed + 7)).to(device)
+        logger.warning("the SLM perceptual loss runs on random WavLM "
+                       "features drawn from the seed; pretrained ones are "
+                       "not ported")
     generator = torch.Generator(device=device).manual_seed(seed)
     if checkpoint:
         _, ctx.manifest, ctx.normalization, _ = load_checkpoint(
@@ -371,6 +393,9 @@ def train_model(
                     _log_window(ctx, stats, window, state, combined, current,
                                 step, stage.discriminators)
                 if step % config.training.val_interval == 0:
+                    if current == "alignment":
+                        _train_on_val(state, step_fn, val_manager, current,
+                                      epoch, generator, device)
                     _validate(ctx, state, eval_fn, val_manager, current,
                               val_samples, device, stats)
                     window["t"] = time.perf_counter()
@@ -381,9 +406,14 @@ def train_model(
                     done = True
                     break
             iterator.close()
+            if stage.uses_priors:
+                end_alignment_epoch(state)
             if done:
                 break
 
+        if current == "alignment":
+            write_safetensors(ctx.base_out_dir / "alignment_model.safetensors",
+                              aligner_params(state.models["text_aligner"]))
         _save(ctx, state, config, model_config, generator, stats, final=True)
         stats["first_visits"] = len(validated)
         stats["seconds"] = time.perf_counter() - started
@@ -400,6 +430,16 @@ def train_model(
         ctx.manifest.current_step = 0
         ctx.manifest.current_epoch = 0
     return ctx.manifest
+
+
+def _train_on_val(state: TrainState, step_fn, val_manager: BatchManager,
+                  stage: str, epoch: int, generator, device) -> None:
+    """One train step on each val batch, in order and without jitter (the
+    alignment stage's validation interval, reference train.py:397-403);
+    the manifest's counters do not move."""
+    for batch in val_manager.epoch_iterator(stage=stage, epoch=epoch + 1,
+                                            shuffle=False, jitter=False):
+        step_fn(state, _device_batch(batch, device), generator)
 
 
 def _plan_memory(bm: BatchManager, stage_ctx: StageContext,

@@ -1,5 +1,7 @@
 """Stage steps of the four-stage chain, acoustic -> textual -> style ->
-duration: each stage's losses, the generic train step and the eval step.
+duration, and of the alignment stage that trains the CTC aligner on its
+own: each stage's losses, the generic train step, the eval step and the
+alignment stage's epoch end.
 
 ``make_train_step(stage, ctx, base_lr)`` returns
 ``step(state, batch, generator) -> (state, metrics)``, with the JAX
@@ -21,7 +23,9 @@ Mixed precision follows the JAX package's casts, not ``torch.autocast``:
 with ``mixed_precision == "bf16"`` each module runs on bf16 copies of its
 f32 master parameters and on bf16 inputs, and its outputs return to f32;
 the STFT chains, the losses and the optimizer stay f32; the MRD always
-runs in bf16; the frozen SLM runs in bf16.
+runs in bf16; the frozen SLM runs in bf16; the text aligner always runs in
+f32 (``MIXED_PRECISION_EXEMPT``: the CTC chain needs full-precision
+log-probs).
 """
 
 from __future__ import annotations
@@ -40,12 +44,17 @@ from .. import losses as L
 from ..config import Config, ModelConfig
 from ..duration import DurationProcessor
 from ..models.norms import set_dropout_generator
+from ..ops import ctc as ctc_ops
 from ..ops.mel import MelSpectrogram, calculate_mel, log_norm_energy
 from ..ops.multi_spectrogram import MultiSpectrogram
 from ..ops.resample import resample
 from .loss_log import backwards_loss, weighted_total
 from .optim import apply_updates, cosine_logical_lr
 from .state import TrainState
+
+# modules that stay f32 under mixed precision
+MIXED_PRECISION_EXEMPT = frozenset({"text_aligner"})
+
 
 def cast_floats(tree, dtype: torch.dtype):
     """Cast every floating tensor of a nest of tuples, lists, dicts and
@@ -96,6 +105,10 @@ class StageContext:
         self.to_mel = MelSpectrogram(
             n_mels=mc.n_mels, n_fft=mc.n_fft, win_length=mc.win_length,
             hop_length=mc.hop_length, sample_rate=mc.sample_rate)
+        # the aligner's input: 80 bins whatever n_mels is
+        self.to_align_mel = MelSpectrogram(
+            n_mels=80, n_fft=mc.n_fft, win_length=mc.win_length,
+            hop_length=mc.hop_length, sample_rate=mc.sample_rate)
         self.multi_spectrogram = MultiSpectrogram(mc.sample_rate)
         self.duration_processor = DurationProcessor(
             mc.duration_predictor.duration_classes,
@@ -108,9 +121,11 @@ class StageContext:
             self.slm = self.slm.to(torch.bfloat16)
 
     def apply(self, state: TrainState, key: str, *args, **kwargs):
-        """Run model ``key`` in the compute type of the config."""
+        """Run model ``key`` in the compute type of the config (f32 for
+        the exempt modules)."""
         module = state.models[key]
-        if self.compute_dtype == torch.bfloat16:
+        if (self.compute_dtype == torch.bfloat16
+                and key not in MIXED_PRECISION_EXEMPT):
             return run_cast(module, torch.bfloat16, *args, **kwargs)
         return module(*args, **kwargs)
 
@@ -157,6 +172,8 @@ class StageType:
     # models whose dropout is on in the stage's losses (the JAX package's
     # ``train=True``); the trained models unless named
     dropout_models: Optional[List[str]] = None
+    # the step accumulates the CTC label priors (``end_alignment_epoch``)
+    uses_priors: bool = False
 
     def __post_init__(self):
         if self.dropout_models is None:
@@ -277,6 +294,36 @@ def _duration_losses(ctx: StageContext, state: TrainState, batch, **hooks):
     return {"duration_ce": ce, "duration": cdw}, None
 
 
+def _alignment_losses(ctx: StageContext, state: TrainState, batch, **hooks):
+    """CTC loss of the aligner on the 80-bin mel, less 0.3 x the label
+    priors once an epoch's end has set them.  The batch's emission sums
+    and frame count are added to the state's prior accumulators in
+    place."""
+    mel, mel_length = calculate_mel(batch["audio_gt"], ctx.to_align_mel,
+                                    ctx.mel_mean, ctx.mel_std)
+    log_probs, _ = ctx.apply(state, "text_aligner", mel, mel_length)
+    priors = state.priors
+    log_priors = torch.where(priors["priors_initialized"],
+                             priors["log_priors"],
+                             torch.zeros_like(priors["log_priors"]))
+    loss, prior_sum, n_frames = ctc_ops.ctc_loss_with_priors(
+        log_probs, batch["text"], mel_length, batch["text_length"],
+        ctx.model_config.text_encoder.tokens, log_priors=log_priors,
+        prior_scale=0.3)
+    priors["prior_sum"] = torch.logaddexp(priors["prior_sum"], prior_sum)
+    priors["prior_frames"] = priors["prior_frames"] + n_frames
+    return {"align_loss": loss}, None
+
+
+STAGES["alignment"] = StageType(
+    next_stage=None,
+    compute_losses=_alignment_losses,
+    train_models=["text_aligner"],
+    eval_models=[],
+    discriminators=[],
+    inputs=["text", "text_length", "audio_gt"],
+    uses_priors=True,
+)
 STAGES["acoustic"] = StageType(
     next_stage="textual",
     compute_losses=_acoustic_losses,
@@ -319,8 +366,7 @@ STAGES["duration"] = StageType(
 # the stages of the JAX package that the port does not run yet, and the
 # queue item that ports each
 NOT_PORTED = {
-    "alignment": "Queue 1 item 6 (alignment and dataprep)",
-    "joint": "Queue 1 item 5 (the joint stage)",
+    "joint": "Queue 1 item 3 (the joint stage)",
     "hubert_acoustic": "Queue 1 item 7 (experimental stages)",
     "cfm_hubert_mel": "Queue 1 item 7 (experimental stages)",
     "cfm_hubert_pitch": "Queue 1 item 7 (experimental stages)",
@@ -437,8 +483,10 @@ def make_eval_step(stage_name: str, ctx: StageContext):
 
     The stage's validation on its inference composition, under
     ``no_grad`` with every model in eval mode; nothing in the state
-    changes.  ``acoustic`` synthesizes from the ground-truth pitch and
-    energy, ``textual`` and ``style`` from the predicted ones (``style``
+    changes.  ``alignment`` gives the aligner's CTC loss (no priors) and
+    ``confidence``, the mean probability of the forced alignment's states
+    over the valid frames, and no audio.  ``acoustic`` synthesizes from the
+    ground-truth pitch and energy, ``textual`` and ``style`` from the predicted ones (``style``
     with the text style vector); ``duration`` runs the whole inference
     path: predicted durations -> alignment at the batch's frame count ->
     pitch and energy -> speech.  The speech predictor's noise comes from
@@ -451,7 +499,22 @@ def make_eval_step(stage_name: str, ctx: StageContext):
         for module in state.models.values():
             module.eval()
         text, lengths = batch["text"], batch["text_length"]
-        if stage_name == "duration":
+        if stage_name == "alignment":
+            mel, mel_length = calculate_mel(
+                batch["audio_gt"], ctx.to_align_mel, ctx.mel_mean,
+                ctx.mel_std)
+            log_probs, _ = ctx.apply(state, "text_aligner", mel, mel_length)
+            blank = ctx.model_config.text_encoder.tokens
+            loss = ctc_ops.ctc_loss(log_probs, text, mel_length, lengths,
+                                    blank)
+            _, scores = ctc_ops.forced_align(log_probs, text, mel_length,
+                                             lengths, blank)
+            valid = (torch.arange(scores.shape[1], device=scores.device)
+                     [None] < mel_length[:, None])
+            confidence = (torch.exp(scores) * valid).sum() / valid.sum()
+            metrics = {"align_loss": loss, "confidence": confidence}
+            audio = None
+        elif stage_name == "duration":
             targets = ctx.duration_processor.align_to_class(
                 batch["alignment"])
             pred = ctx.apply(state, "duration_predictor", text, lengths)
@@ -502,3 +565,20 @@ def make_eval_step(stage_name: str, ctx: StageContext):
         return metrics, audio
 
     return step
+
+
+@torch.no_grad()
+def end_alignment_epoch(state: TrainState) -> TrainState:
+    """Epoch-end CTC prior update, in place: the priors become the
+    epoch's mean emission probabilities (log, clamped at -12), the
+    accumulators restart and ``priors_initialized`` turns true.  One
+    process: the JAX package's psum over the data axis comes with the
+    mesh (Queue 1 item 6)."""
+    priors = state.priors
+    priors["log_priors"] = ctc_ops.update_log_priors(
+        priors["prior_sum"], torch.log(priors["prior_frames"] + 1e-9))
+    priors["prior_sum"] = torch.full_like(priors["prior_sum"], -1e30)
+    priors["prior_frames"] = torch.zeros_like(priors["prior_frames"])
+    priors["priors_initialized"] = torch.ones_like(
+        priors["priors_initialized"])
+    return state

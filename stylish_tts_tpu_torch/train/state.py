@@ -1,6 +1,7 @@
 """The train state: the models (f32 master parameters, and the batch
 stats as their buffers), one optimizer per module, the discriminator-loss
-EMA and the step within the stage.
+EMA, the CTC label priors of the alignment stage and the step within the
+stage.
 
 The step updates the state in place: parameters, optimizer moments and
 batch stats are overwritten rather than copied, which keeps one copy of
@@ -11,7 +12,7 @@ and written back, tensor by tensor, with ``restore_state``.
 
 from __future__ import annotations
 
-from dataclasses import dataclass
+from dataclasses import dataclass, field
 from typing import Dict, Optional
 
 import torch
@@ -23,7 +24,22 @@ class TrainState:
     models: Dict[str, nn.Module]
     optimizers: Dict[str, torch.optim.AdamW]
     disc_ema: Dict[str, torch.Tensor]  # per-discriminator plain-loss EMA
+    # the CTC label priors [C] (C = tokens + 1) and this epoch's
+    # accumulators: the log-sum of the emissions [C] and the frame count
+    priors: Dict[str, torch.Tensor] = field(default_factory=dict)
     step: int = 0
+
+
+def init_priors(n_classes: int, device=None) -> Dict[str, torch.Tensor]:
+    """The prior state before the first epoch's end: flat priors, empty
+    accumulators, ``priors_initialized`` false."""
+    return {
+        "log_priors": torch.zeros(n_classes, device=device),
+        "prior_sum": torch.full((n_classes,), -1e30, device=device),
+        "prior_frames": torch.zeros((), device=device),
+        "priors_initialized": torch.zeros((), dtype=torch.bool,
+                                          device=device),
+    }
 
 
 def _params(optimizer: torch.optim.Optimizer):
@@ -34,8 +50,8 @@ def snapshot_state(state: TrainState,
                    generator: Optional[torch.Generator] = None) -> dict:
     """Host copies of every parameter, buffer, optimizer moment
     (by the parameter's place in its optimizer; a parameter without
-    moments is recorded as such), the EMA, the step and the generator's
-    state."""
+    moments is recorded as such), the EMA, the priors, the step and the
+    generator's state."""
     def copy(t):
         return t.detach().to("cpu", copy=True)
 
@@ -50,6 +66,7 @@ def snapshot_state(state: TrainState,
                 for p in _params(o)]
             for k, o in state.optimizers.items()},
         "disc_ema": {k: copy(v) for k, v in state.disc_ema.items()},
+        "priors": {k: copy(v) for k, v in state.priors.items()},
         "step": state.step,
         "generator": None if generator is None else generator.get_state(),
     }
@@ -84,6 +101,8 @@ def restore_state(state: TrainState, snapshot: dict,
                     else v for n, v in saved.items()}
     for key, value in snapshot["disc_ema"].items():
         state.disc_ema[key] = value.to(state.disc_ema[key].device, copy=True)
+    for key, value in snapshot["priors"].items():
+        state.priors[key] = value.to(state.priors[key].device, copy=True)
     state.step = snapshot["step"]
     if generator is not None and snapshot["generator"] is not None:
         generator.set_state(snapshot["generator"])

@@ -41,3 +41,13 @@ def test_the_check_sees_a_forbidden_import(tmp_path):
                      "import jax.numpy as jnp\n")
     assert imported_top_names(probe) == {
         "os", "stylish_tts_tpu_torch", "stylish_tts_tpu", "jax"}
+
+
+def test_the_check_covers_every_subpackage():
+    packages = {p.parent for p in (ROOT / "stylish_tts_tpu_torch")
+                .rglob("__init__.py")}
+    covered = {p.parent for p in SOURCES}
+    assert packages <= covered
+    names = {p.relative_to(ROOT / "stylish_tts_tpu_torch").parts[0]
+             for p in SOURCES if p.parent != ROOT}
+    assert {"textfrontend", "dataprep", "models", "ops", "train"} <= names

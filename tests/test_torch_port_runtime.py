@@ -422,6 +422,9 @@ def _assert_states_equal(got, want):
     assert got.disc_ema.keys() == want.disc_ema.keys()
     for key in want.disc_ema:
         assert torch.equal(got.disc_ema[key], want.disc_ema[key])
+    assert got.priors.keys() == want.priors.keys()
+    for key in want.priors:
+        assert torch.equal(got.priors[key], want.priors[key]), key
     assert got.step == want.step
 
 
@@ -441,7 +444,7 @@ def test_checkpoint_round_trip_is_exact(run):
     assert run["meta"]["config"] == json.loads(dump_json(Config()))
     layout = sorted(str(p.relative_to(run["ckpt"]))
                     for p in run["ckpt"].rglob("*") if p.is_file())
-    assert layout == sorted(["meta.json"] + [
+    assert layout == sorted(["meta.json", "priors.safetensors"] + [
         f"{d}/{k}.safetensors" for d in ("models", "optim") for k in KEYS])
 
 
@@ -470,11 +473,13 @@ def _corrupt(path, what: str):
         meta = json.loads((path / "meta.json").read_text())
         meta["train_state"]["disc_ema"]["mpd"] = 1.0
         (path / "meta.json").write_text(json.dumps(meta))
+    elif what == "prior missing":
+        edit(path / "priors.safetensors", lambda t: t.pop("log_priors"))
 
 
 @pytest.mark.parametrize("what", [
     "model tensor missing", "model tensor unused", "moment missing",
-    "moment unused", "model file missing", "EMA unused"])
+    "moment unused", "model file missing", "EMA unused", "prior missing"])
 def test_checkpoint_load_raises_on_missing_or_unused(run, tmp_path, what):
     path = tmp_path / "ckpt"
     shutil.copytree(run["ckpt"], path)
