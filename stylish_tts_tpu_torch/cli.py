@@ -209,8 +209,6 @@ def build_parser() -> argparse.ArgumentParser:
     _add_configs(pp)
     pp.add_argument("--method", default="yin", choices=("yin", "rmvpe"),
                     help="rmvpe is not ported yet")
-    pp.add_argument("--rmvpe-weights", default=None,
-                    help="converted RMVPE weights (for --method rmvpe)")
     _add_device(pp)
     ap = sub.add_parser("train-align", help="train the CTC aligner")
     _add_configs(ap)
@@ -278,7 +276,6 @@ def main(argv: Optional[List[str]] = None) -> None:
 
         config, model_config = _configs(args)
         out = calculate_pitch(config, model_config, method=args.method,
-                              rmvpe_weights=args.rmvpe_weights,
                               device=args.device)
         print(f"wrote {config.dataset.pitch_path} ({len(out)} segments)")
     elif args.command == "align":

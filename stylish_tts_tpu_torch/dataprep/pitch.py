@@ -227,10 +227,8 @@ def extract_pitch_batch(waves, sample_rate: int, hop_length: int,
     return results
 
 
-def calculate_pitch(
-    config, model_config, method: str = "yin",
-    rmvpe_weights: str | None = None, device=None,
-) -> Dict[str, np.ndarray]:
+def calculate_pitch(config, model_config, method: str = "yin",
+                    device=None) -> Dict[str, np.ndarray]:
     """Precache F0 for the val and train splits into ``pitch.safetensors``
     (written by ``utils/tensorfile.py``); returns what it wrote.  YIN runs
     on ``device`` (the card unless named).  ``rmvpe`` is not ported."""

@@ -45,14 +45,14 @@ from ..config import Config, ModelConfig, dump_json
 from ..data.batch_manager import BatchManager, step_memory
 from ..data.dataset import FilePathDataset, get_data_path_list
 from ..device import resolve_device
+from ..models.text_aligner import aligner_params
 from ..ops.mel import MelSpectrogram
 from ..text import TextCleaner
+from ..utils.tensorfile import write_safetensors
 from .checkpoint import (Manifest, NormalizationStats, checkpoint_name,
                          load_checkpoint, save_checkpoint)
 from .init import build_train_state, init_slm
 from .loss_log import combine_metrics, format_metrics
-from ..models.text_aligner import aligner_params
-from ..utils.tensorfile import write_safetensors
 from .stages import (StageContext, chain_models, check_stage,
                      end_alignment_epoch, make_eval_step, make_train_step)
 from .state import TrainState, restore_state, snapshot_state

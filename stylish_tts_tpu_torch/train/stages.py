@@ -295,10 +295,9 @@ def _duration_losses(ctx: StageContext, state: TrainState, batch, **hooks):
 
 
 def _alignment_losses(ctx: StageContext, state: TrainState, batch, **hooks):
-    """CTC loss of the aligner on the 80-bin mel, less 0.3 x the label
-    priors once an epoch's end has set them.  The batch's emission sums
-    and frame count are added to the state's prior accumulators in
-    place."""
+    """(metrics, (the batch's emission log-sums [C], its frame count)):
+    CTC loss of the aligner on the 80-bin mel, less 0.3 x the label
+    priors once an epoch's end has set them."""
     mel, mel_length = calculate_mel(batch["audio_gt"], ctx.to_align_mel,
                                     ctx.mel_mean, ctx.mel_std)
     log_probs, _ = ctx.apply(state, "text_aligner", mel, mel_length)
@@ -310,9 +309,7 @@ def _alignment_losses(ctx: StageContext, state: TrainState, batch, **hooks):
         log_probs, batch["text"], mel_length, batch["text_length"],
         ctx.model_config.text_encoder.tokens, log_priors=log_priors,
         prior_scale=0.3)
-    priors["prior_sum"] = torch.logaddexp(priors["prior_sum"], prior_sum)
-    priors["prior_frames"] = priors["prior_frames"] + n_frames
-    return {"align_loss": loss}, None
+    return {"align_loss": loss}, (prior_sum, n_frames)
 
 
 STAGES["alignment"] = StageType(
@@ -445,13 +442,15 @@ def make_train_step(stage_name: str, ctx: StageContext, base_lr: float):
             state.optimizers[key].zero_grad(set_to_none=True)
         batch_size = batch["text"].shape[0]
         try:
-            metrics, disc_inputs = stage.compute_losses(
+            # the second value: the MRD's inputs for the GAN stages, the
+            # batch's prior accumulators where the stage uses priors
+            metrics, extra = stage.compute_losses(
                 ctx, state, batch, generator=generator, **hooks)
         finally:
             for key in stage.dropout_models:
                 state.models[key].eval()
         if has_disc:
-            t_fft, p_fft = disc_inputs
+            t_fft, p_fft = extra
             gen_loss, d_total, d_plain = gan_losses(
                 state.models["mrd"], t_fft, p_fft)
             metrics["generator"] = gen_loss
@@ -469,6 +468,12 @@ def make_train_step(stage_name: str, ctx: StageContext, base_lr: float):
             apply_updates(state.optimizers["mrd"], lr * multiplier)
             state.disc_ema["mrd"] = ema * 0.95 + d_plain.detach() * 0.05
             metrics["discriminator"] = d_total
+        if stage.uses_priors:
+            prior_sum, n_frames = extra
+            priors = state.priors
+            priors["prior_sum"] = torch.logaddexp(priors["prior_sum"],
+                                                  prior_sum)
+            priors["prior_frames"] = priors["prior_frames"] + n_frames
         state.step += 1
         metrics = {k: v.detach() for k, v in metrics.items()}
         metrics["loss"] = weighted_total(metrics, ctx.weights)
