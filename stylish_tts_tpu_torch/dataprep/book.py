@@ -414,7 +414,7 @@ def write_dataset(
 
 
 # --------------------------------------------------------------------- #
-# 5. Driver
+# 5. The whole pipeline
 # --------------------------------------------------------------------- #
 
 

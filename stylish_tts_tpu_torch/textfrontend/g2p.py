@@ -368,7 +368,7 @@ LTS_RULES = [
     ("", "otion", "", "oʊʃən"),
     ("", "ution", "", "uːʃən"),
     ("", "ature", "#", "eɪtʃɚ"),
-    ("", "ssion", "", "ʃən"),   # session, mission
+    ("", "ssion", "", "ʃən"),   # mission, passion
     ("", "tion", "", "ʃən"),
     ("", "sion", "", "ʒən"),
     ("", "ture", "#", "tʃɚ"),
