@@ -756,6 +756,36 @@ def test_states_to_durations_sum_to_the_frames(aligned):
         assert int(record[0].sum()) == frames, name
 
 
+def test_aligner_scorer_matches_jax(aligned, configs):
+    """The transcript-free scorer over one aligner file: the mean
+    per-frame forced-alignment log-probability of a phrase and a text,
+    and -inf where the text cannot be embedded or the audio is too
+    short."""
+    from stylish_tts_tpu.dataprep.book import AlignerScorer as JaxScorer
+    from stylish_tts_tpu.textfrontend import G2P as JaxG2P
+    from stylish_tts_tpu_torch.dataprep.book import AlignerScorer
+    from stylish_tts_tpu_torch.textfrontend import G2P
+
+    _, root = aligned
+    mc, mc_jax = configs
+    path = str(root / "jax" / "alignment_model.safetensors")
+    rng = np.random.default_rng(12)
+    t = np.arange(2 * SR) / SR
+    audio = (0.3 * np.sin(2 * np.pi * 150 * t) * (1 + np.sin(3 * t))
+             + 0.01 * rng.standard_normal(t.shape)).astype(np.float32)
+    port = AlignerScorer(mc, path, device="cpu")
+    jax_scorer = JaxScorer(mc_jax, path)
+    cases = [(audio, "The quick brown fox."), (audio, "Hi!!"),
+             (audio, ""), (audio[: 3 * HOP], "a long sentence here")]
+    got = [port.score(a, text, G2P(use_espeak=False)) for a, text in cases]
+    want = [jax_scorer.score(a, text, JaxG2P(use_espeak=False))
+            for a, text in cases]
+    assert np.isfinite(got[:2]).all()
+    assert got[2] == want[2] == got[3] == want[3] == float("-inf")
+    for g, w in zip(got[:2], want[:2]):
+        assert abs(g - w) <= ALIGN_SCORE_REL * abs(w), (g, w)
+
+
 # --------------------------------------------------------------------------- #
 # the CLI on the CPU
 
