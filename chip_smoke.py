@@ -90,14 +90,17 @@ Phases, in order; any failure raises and the exit code is non-zero:
    phonemes from the artifact checked as in phase 4.  Per stage: the
    probe's seconds and fit, each step's wall ms (first visit of its
    shape in the stage, or warm), validation and save seconds;
-8. from a book to a voice, at the full-width default ModelConfig, every
-   step through the CLI's ``main``: a two-chapter markdown book of 40
-   sentences (numbers, abbreviations, homographs) is read by ``speak
-   --book`` on phase 4's seeded models (their duration head at a speech
-   rate, their magnitude a 180 Hz comb) with 0.5 s between sentences, each chapter's WAV held to what the
-   synthesizer gives (every sentence its predicted frames x hop samples);
-   ``prepare-book`` (no transcripts) cuts them into a dataset whose
-   lines have 4 fields and phonemes in the symbol set; ``pitch`` (YIN)
+8. from a book to a voice, at the full-width default ModelConfig, each
+   step through the CLI's ``main`` but the first two, which call the
+   CLI's functions with an argument the CLI leaves at its default: a
+   two-chapter markdown book of 40 sentences (numbers, abbreviations,
+   homographs) is read by ``speak --book``'s ``speak_book`` on phase 4's
+   seeded models (their duration head at a speech rate, their magnitude a
+   180 Hz comb) with 0.5 s between sentences, each chapter's WAV exactly
+   the synthesizer's long-form result (every sentence its predicted
+   frames x hop samples); ``prepare-book``'s ``prepare_book`` (no
+   transcripts, a fifth of the segments for val) cuts them into a dataset
+   whose lines have 4 fields and phonemes in the symbol set; ``pitch`` (YIN)
    writes a finite track of samples // hop + 1 frames a segment, some
    voiced; ``train-align`` takes a few steps (at most one epoch) with a
    validation after a pass over the val set and a save: the aligner
@@ -122,6 +125,7 @@ Numbers beyond the end of the output go to ``chiprun_out/chip_smoke.json``.
 
 from __future__ import annotations
 
+import contextlib
 import json
 import subprocess
 import sys
@@ -1333,37 +1337,46 @@ def read_pcm(path: Path) -> np.ndarray:
         return np.frombuffer(f.readframes(f.getnframes()), "<i2")
 
 
-def longform_reference(artifact: Path, texts, pause_ms: float, device):
-    """What CLI ``speak`` must have written for ``texts`` (one long-form
-    utterance each, in order, from one synthesizer): each as int16 PCM,
-    with every sentence's untrimmed audio checked to be its predicted
-    frames x hop samples, finite and not silent."""
-    from stylish_tts_tpu_torch.cli import text_to_phonemes
+@contextlib.contextmanager
+def watch_longform():
+    """While the block runs, every sentence a ``Synthesizer`` synthesizes
+    is checked to be its predicted frames x hop samples, finite and not
+    silent (before the long-form trim), and each long-form result is kept
+    as the int16 PCM that ``speak`` writes of it; yields (those PCMs, the
+    sentences' sample counts)."""
     from stylish_tts_tpu_torch.export.infer import Synthesizer
-    from stylish_tts_tpu_torch.export.package import load_inference_models
-    from stylish_tts_tpu_torch.textfrontend import G2P
 
-    mc, models = load_inference_models(artifact, device)
-    synth = Synthesizer(mc, models, device=device)
-    single = synth.synthesize
-    sentences = []
+    single, longform = Synthesizer.synthesize, Synthesizer.synthesize_longform
+    pcms, sentences = [], []
 
-    def synthesize(phonemes, **kwargs):
-        audio = single(phonemes, **kwargs)
-        frames = int(synth.predict_durations(phonemes).sum())
+    def synthesize(self, phonemes, *args, **kwargs):
+        audio = single(self, phonemes, *args, **kwargs)
+        frames = int(self.predict_durations(phonemes).sum())
+        check_audio(audio, frames, 1, self.mc.hop_length, "a sentence")
         sentences.append(audio.shape[0])
-        check_audio(audio, frames, 1, mc.hop_length, "a sentence")
         return audio
 
-    synth.synthesize = synthesize
-    g2p, out = G2P(), []
-    for text in texts:
-        audio = synth.synthesize_longform(text_to_phonemes(text, g2p),
-                                          silence_ms=pause_ms)
-        if not np.all(np.isfinite(audio)) or not np.abs(audio).max() > 0:
-            raise AssertionError("long-form audio non-finite or silent")
-        out.append((np.clip(audio, -1, 1) * 32767).astype("<i2"))
-    return out, sentences
+    def synthesize_longform(self, *args, **kwargs):
+        audio = longform(self, *args, **kwargs)
+        pcms.append((np.clip(audio, -1, 1) * 32767).astype("<i2"))
+        return audio
+
+    Synthesizer.synthesize = synthesize
+    Synthesizer.synthesize_longform = synthesize_longform
+    try:
+        yield pcms, sentences
+    finally:
+        Synthesizer.synthesize = single
+        Synthesizer.synthesize_longform = longform
+
+
+def check_written(path: Path, pcm: np.ndarray, what: str) -> None:
+    """The WAV at ``path`` holds exactly ``pcm``, which is not silent."""
+    written = read_pcm(path)
+    if not np.array_equal(written, pcm) or not np.abs(pcm).max():
+        raise AssertionError(f"{what}: {written.shape} samples written, the "
+                             f"synthesizer gave {pcm.shape} (max "
+                             f"{np.abs(pcm).max() if pcm.size else 0})")
 
 
 def _record_stft_shapes(shapes: list):
@@ -1381,9 +1394,9 @@ def _record_stft_shapes(shapes: list):
     return lambda: setattr(stft_forward, "launch", launch)
 
 
-def book_path(device, card: str, kernels, chain_artifact: Path) -> dict:
-    """From a book's text to a voice through the CLI's ``main``, at the
-    full-width default ModelConfig; see the module docstring, phase 8."""
+def book_path(card: str, kernels, chain_artifact: Path) -> dict:
+    """From a book's text to a voice through the CLI, at the full-width
+    default ModelConfig; see the module docstring, phase 8."""
     import functools
     import shutil
     import tempfile
@@ -1391,7 +1404,8 @@ def book_path(device, card: str, kernels, chain_artifact: Path) -> dict:
     from stylish_tts_tpu_torch import cli
     from stylish_tts_tpu_torch.config import Config, ModelConfig, dump_json
     from stylish_tts_tpu_torch.data.audio import wav_info
-    from stylish_tts_tpu_torch.dataprep.book import split_markdown_chapters
+    from stylish_tts_tpu_torch.dataprep.book import (prepare_book,
+                                                     split_markdown_chapters)
     from stylish_tts_tpu_torch.text import TextCleaner
     from stylish_tts_tpu_torch.textfrontend import G2P
     from stylish_tts_tpu_torch.train import loop
@@ -1424,46 +1438,42 @@ def book_path(device, card: str, kernels, chain_artifact: Path) -> dict:
         chapters = split_markdown_chapters(md)
         (root / "book.txt").write_text("\n\n".join(b for _, b in chapters))
 
-        # the book: one WAV a chapter, each what the synthesizer gives
+        # the book: one WAV a chapter, each what the synthesizer gives.
+        # ``speak --book``'s function, for its pause: the CLI's 120 ms
+        # between sentences is too short a silence for prepare-book's
+        # phrase detection, where a reader's pauses are longer
         t0 = time.perf_counter()
-        cli.main(["speak", "--artifact", str(artifact), "--book",
-                  str(root / "book.md"), "--out", str(root / "chapters"),
-                  "--pause-ms", str(BOOK_PAUSE_MS)])
+        with watch_longform() as (want, sentences):
+            cli.speak_book(str(artifact), str(root / "book.md"),
+                           str(root / "chapters"), pause_ms=BOOK_PAUSE_MS)
         seconds["speak_book"] = time.perf_counter() - t0
         wavs = sorted((root / "chapters").glob("chapter-*.wav"))
-        if len(wavs) != len(BOOK_CHAPTERS):
-            raise AssertionError(f"speak --book wrote {len(wavs)} WAVs")
-        want, sentences = longform_reference(
-            artifact, [b for _, b in chapters], BOOK_PAUSE_MS, device)
+        if len(wavs) != len(BOOK_CHAPTERS) or len(want) != len(wavs):
+            raise AssertionError(f"speak --book wrote {len(wavs)} WAVs of "
+                                 f"{len(want)} chapters")
         if len(sentences) != n_sentences:
             raise AssertionError(f"{len(sentences)} sentences synthesized")
-        record["chapters"] = []
-        for path, ref in zip(wavs, want):
-            pcm = read_pcm(path)
-            if pcm.shape != ref.shape or not np.abs(pcm).max():
-                raise AssertionError(f"{path.name}: {pcm.shape} samples, "
-                                     f"the synthesizer gives {ref.shape}")
-            record["chapters"].append({
-                "samples": int(pcm.shape[0]),
-                "max_abs_diff": int(np.abs(pcm.astype(np.int32)
-                                           - ref).max())})
-        audio_s = sum(c["samples"] for c in record["chapters"]) / \
-            mc.sample_rate
+        for path, pcm in zip(wavs, want):
+            check_written(path, pcm, path.name)
+        record["chapters"] = [int(pcm.shape[0]) for pcm in want]
+        audio_s = sum(record["chapters"]) / mc.sample_rate
         print(f"book: speak --book {seconds['speak_book']:.1f} s for "
-              f"{audio_s:.1f} s of audio in {len(wavs)} chapters "
-              f"{record['chapters']} (each sentence its predicted frames x "
-              f"{hop} samples: {sum(sentences)} samples in "
-              f"{n_sentences}) [{card}]")
+              f"{audio_s:.1f} s of audio in {len(wavs)} chapters of "
+              f"{record['chapters']} samples, each as synthesized (each "
+              f"sentence its predicted frames x {hop} samples: "
+              f"{sum(sentences)} samples in {n_sentences}) [{card}]")
 
-        # the dataset
+        # the dataset.  ``prepare-book``'s function, for its val share:
+        # the CLI's 3% gives a 40-sentence book no val segment to
+        # validate the aligner on
         data = root / "data"
         t0 = time.perf_counter()
-        cli.main(["prepare-book", *sum((["--audio", str(p)] for p in wavs),
-                                       []),
-                  "--text", str(root / "book.txt"), "--out", str(data),
-                  "--sample-rate", str(mc.sample_rate),
-                  "--val-fraction", str(BOOK_VAL_FRACTION)])
+        made = prepare_book(
+            audio_files=[str(p) for p in wavs],
+            book_text_file=str(root / "book.txt"), out_dir=str(data),
+            sample_rate=mc.sample_rate, val_fraction=BOOK_VAL_FRACTION)
         seconds["prepare_book"] = time.perf_counter() - t0
+        print(f"book: prepare-book {json.dumps(made)}")
         cleaner = TextCleaner(mc.symbol)
         lists = {}
         for split in ("train", "val"):
@@ -1651,16 +1661,16 @@ def book_path(device, card: str, kernels, chain_artifact: Path) -> dict:
         # speak --text on the chain's artifact
         (root / "speak.txt").write_text(SPEAK_TEXT)
         t0 = time.perf_counter()
-        cli.main(["speak", "--artifact", str(chain_artifact), "--text",
-                  str(root / "speak.txt"), "--out", str(root / "speak.wav")])
+        with watch_longform() as (want, sentences):
+            cli.main(["speak", "--artifact", str(chain_artifact), "--text",
+                      str(root / "speak.txt"), "--out",
+                      str(root / "speak.wav")])
         seconds["speak_text"] = time.perf_counter() - t0
-        (ref,), sentences = longform_reference(chain_artifact, [SPEAK_TEXT],
-                                               120.0, device)
-        pcm = read_pcm(root / "speak.wav")
-        if len(sentences) != 3 or pcm.shape != ref.shape or \
-                not np.abs(pcm).max():
-            raise AssertionError(f"speak --text: {pcm.shape} samples, the "
-                                 f"synthesizer gives {ref.shape}")
+        if len(want) != 1 or len(sentences) != 3:
+            raise AssertionError(f"speak --text: {len(want)} long-form "
+                                 f"results of {len(sentences)} sentences")
+        (pcm,) = want
+        check_written(root / "speak.wav", pcm, "speak --text")
         record["speak_text"] = {"samples": int(pcm.shape[0]),
                                 "sentences": sentences}
         print(f"book: speak --text {seconds['speak_text']:.1f} s, "
@@ -2085,7 +2095,7 @@ def main() -> int:
     with tempfile.TemporaryDirectory(prefix="chip_smoke_artifact_") as keep:
         artifact = Path(keep) / "chain_artifact"
         record["chain"] = chain_path(device, card, kernels, artifact)
-        record["book"] = book_path(device, card, kernels, artifact)
+        record["book"] = book_path(card, kernels, artifact)
 
     # 9. results: each kernel's own numbers and its launches on the path
     # that runs it: per train step, or per probe run

@@ -2,8 +2,7 @@
 
     python -m stylish_tts_tpu_torch.cli prepare-book --audio CH1.wav \\
         [--audio CH2.wav ...] --text BOOK.txt --out DATA \\
-        [--transcript CH1.txt ...] [--sample-rate 24000] [--seed 0] \\
-        [--val-fraction 0.03]
+        [--transcript CH1.txt ...] [--sample-rate 24000] [--seed 0]
 
     python -m stylish_tts_tpu_torch.cli pitch --config CONFIG.json \\
         [--model-config MODEL.json] [--method yin] [--device cpu]
@@ -24,7 +23,7 @@
 
     python -m stylish_tts_tpu_torch.cli speak --artifact DIR \\
         (--text FILE | --book FILE.md | --phonemes "ðɪs ɪz ə tˈɛst") \\
-        --out OUT [--pause-ms 120] [--device cpu]
+        --out OUT [--device cpu]
 
 The workflow from a book's audio and text to a voice: ``prepare-book``
 cuts the chapters' WAVs into segments at their silences and matches each
@@ -98,17 +97,14 @@ def text_to_phonemes(text: str, g2p) -> List[str]:
 
 
 def speak_text(artifact: str, text_path: str, out: str,
-               device: Optional[str] = None, pause_ms: float = 120.0
-               ) -> float:
-    """Synthesize a text file's sentences as one long-form utterance, with
-    ``pause_ms`` of silence between sentences, into ``out``; returns the
-    audio seconds."""
+               device: Optional[str] = None) -> float:
+    """Synthesize a text file's sentences as one long-form utterance into
+    ``out``; returns the audio seconds."""
     from .textfrontend import G2P
 
     synth = _synthesizer(artifact, device)
     text = Path(text_path).read_text(encoding="utf-8")
-    audio = synth.synthesize_longform(text_to_phonemes(text, G2P()),
-                                      silence_ms=pause_ms)
+    audio = synth.synthesize_longform(text_to_phonemes(text, G2P()))
     write_wav(out, audio, synth.mc.sample_rate)
     return audio.shape[0] / synth.mc.sample_rate
 
@@ -203,8 +199,6 @@ def build_parser() -> argparse.ArgumentParser:
                          "(phrase|start|end|text), one per --audio")
     bp.add_argument("--sample-rate", type=int, default=24000)
     bp.add_argument("--seed", type=int, default=0)
-    bp.add_argument("--val-fraction", type=float, default=0.03,
-                    help="share of the segments drawn into the val list")
     pp = sub.add_parser("pitch", help="cache the dataset's F0 (YIN)")
     _add_configs(pp)
     pp.add_argument("--method", default="yin", choices=("yin", "rmvpe"),
@@ -241,8 +235,6 @@ def build_parser() -> argparse.ArgumentParser:
     given.add_argument("--phonemes", help="IPA phoneme input")
     sp.add_argument("--out", required=True,
                     help="output WAV path (a directory with --book)")
-    sp.add_argument("--pause-ms", type=float, default=120.0,
-                    help="silence between sentences of --text and --book")
     _add_device(sp)
     return parser
 
@@ -268,8 +260,7 @@ def main(argv: Optional[List[str]] = None) -> None:
         stats = prepare_book(
             audio_files=args.audio, book_text_file=args.text,
             out_dir=args.out, sample_rate=args.sample_rate,
-            transcripts=args.transcript or None, seed=args.seed,
-            val_fraction=args.val_fraction)
+            transcripts=args.transcript or None, seed=args.seed)
         print(json.dumps(stats))
     elif args.command == "pitch":
         from .dataprep.pitch import calculate_pitch
@@ -286,14 +277,13 @@ def main(argv: Optional[List[str]] = None) -> None:
         print(f"wrote {config.dataset.alignment_path} ({len(out)} segments)")
     elif args.book:
         for path, seconds, title in speak_book(args.artifact, args.book,
-                                               args.out, args.device,
-                                               args.pause_ms):
+                                               args.out, args.device):
             print(f"{path} ({seconds:.2f}s) {title}")
     else:
         seconds = (speak(args.artifact, args.phonemes, args.out, args.device)
                    if args.phonemes is not None else
                    speak_text(args.artifact, args.text, args.out,
-                              args.device, args.pause_ms))
+                              args.device))
         print(f"wrote {args.out} ({seconds:.2f}s)")
 
 

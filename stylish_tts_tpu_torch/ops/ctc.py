@@ -15,11 +15,13 @@ label priors are subtracted after the ``log_softmax``.
 
 from __future__ import annotations
 
-from typing import Optional, Tuple
+from typing import Tuple
 
 import torch
 
 NEG_INF = -1e30
+PRIOR_SCALE = 0.3  # weight of the label priors subtracted from the emissions
+PRIOR_FLOOR = -12.0  # least log prior an epoch's end sets
 
 
 def _extend_targets(targets: torch.Tensor, blank: int) -> torch.Tensor:
@@ -63,16 +65,8 @@ def _final(alpha: torch.Tensor, target_lengths: torch.Tensor):
     return last, a_last, a_prev
 
 
-def ctc_loss(
-    log_probs: torch.Tensor,       # [B, T, C] log-softmaxed emissions
-    targets: torch.Tensor,         # [B, L] label ids (padded)
-    input_lengths: torch.Tensor,   # [B]
-    target_lengths: torch.Tensor,  # [B]
-    blank: int,
-    reduction: str = "mean",
-) -> torch.Tensor:
-    """Negative log-likelihood of the CTC lattice; ``mean`` divides each
-    sequence's by its target length and averages over the batch."""
+def _nll(log_probs, targets, input_lengths, target_lengths, blank):
+    """Each sequence's negative log-likelihood of its CTC lattice [B]."""
     _, emit, allow2 = _lattice(log_probs, targets, blank)
     alpha = _alpha0(emit)
     for t in range(1, emit.shape[1]):
@@ -81,12 +75,20 @@ def ctc_loss(
                               dim=0) + emit[:, t]
         alpha = torch.where((t < input_lengths)[:, None], new, alpha)
     _, a_last, a_prev = _final(alpha, target_lengths)
-    nll = -torch.logaddexp(a_last, a_prev)
-    if reduction == "mean":
-        return torch.mean(nll / torch.clamp(target_lengths, min=1))
-    if reduction == "sum":
-        return nll.sum()
-    return nll
+    return -torch.logaddexp(a_last, a_prev)
+
+
+def ctc_loss(
+    log_probs: torch.Tensor,       # [B, T, C] log-softmaxed emissions
+    targets: torch.Tensor,         # [B, L] label ids (padded)
+    input_lengths: torch.Tensor,   # [B]
+    target_lengths: torch.Tensor,  # [B]
+    blank: int,
+) -> torch.Tensor:
+    """Negative log-likelihood of the CTC lattice, each sequence's divided
+    by its target length, averaged over the batch."""
+    nll = _nll(log_probs, targets, input_lengths, target_lengths, blank)
+    return torch.mean(nll / torch.clamp(target_lengths, min=1))
 
 
 def ctc_loss_with_priors(
@@ -95,10 +97,9 @@ def ctc_loss_with_priors(
     input_lengths: torch.Tensor,
     target_lengths: torch.Tensor,
     blank: int,
-    log_priors: Optional[torch.Tensor] = None,
-    prior_scale: float = 0.3,
+    log_priors: torch.Tensor,      # [C]
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """CTC loss of ``log_probs - prior_scale * log_priors``; returns
+    """CTC loss of ``log_probs - PRIOR_SCALE * log_priors``; returns
     (loss, this batch's log-sum of the emissions over its valid frames
     [C], its frame count), the last two detached: they accumulate the
     epoch's label priors."""
@@ -110,17 +111,15 @@ def ctc_loss_with_priors(
         batch_prior_sum = torch.logsumexp(masked.reshape(-1, masked.shape[-1]),
                                           dim=0)
         n_frames = input_lengths.sum()
-    if log_priors is not None:
-        log_probs = log_probs - log_priors[None, None, :] * prior_scale
+    log_probs = log_probs - log_priors[None, None, :] * PRIOR_SCALE
     loss = ctc_loss(log_probs, targets, input_lengths, target_lengths, blank)
     return loss, batch_prior_sum, n_frames
 
 
 def update_log_priors(log_prior_sum: torch.Tensor,
-                      log_n_frames: torch.Tensor,
-                      threshold: float = -12.0) -> torch.Tensor:
-    """Epoch-end prior update: normalise and clamp."""
-    return torch.clamp(log_prior_sum - log_n_frames, min=threshold)
+                      log_n_frames: torch.Tensor) -> torch.Tensor:
+    """Epoch-end prior update: normalise and clamp at PRIOR_FLOOR."""
+    return torch.clamp(log_prior_sum - log_n_frames, min=PRIOR_FLOOR)
 
 
 @torch.no_grad()

@@ -199,7 +199,8 @@ def load_checkpoint(
     and ``generator`` in place from the checkpoint at ``path``; returns
     (state, manifest, normalization, meta).  Raises on a model, tensor,
     EMA or prior that the checkpoint lacks or that the state does not
-    hold."""
+    hold; a checkpoint without ``priors.safetensors`` (written before the
+    port saved them) loads only into a state without the aligner."""
     path = Path(path)
     meta = json.loads((path / "meta.json").read_text())
     saved = {p.stem for p in (path / "models").glob("*.safetensors")}
@@ -219,11 +220,16 @@ def load_checkpoint(
     for key, value in train["disc_ema"].items():
         state.disc_ema[key] = torch.tensor(
             value, dtype=torch.float32, device=state.disc_ema[key].device)
-    priors = read_safetensors(path / "priors.safetensors")
-    if set(priors) != set(state.priors):
+    # a checkpoint written before the label priors were saved: a stage
+    # without the aligner keeps the state's initial priors, which it
+    # does not use; the alignment stage cannot resume exactly
+    priors = (read_safetensors(path / "priors.safetensors")
+              if (path / "priors.safetensors").is_file()
+              else None if "text_aligner" not in state.models else {})
+    if priors is not None and set(priors) != set(state.priors):
         raise KeyError(f"checkpoint priors {sorted(priors)} differ from the "
                        f"state's {sorted(state.priors)}")
-    for key, value in priors.items():
+    for key, value in (priors or {}).items():
         state.priors[key] = torch.from_numpy(value).to(
             state.priors[key].device)
     state.step = int(train["step"])

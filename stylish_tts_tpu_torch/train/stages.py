@@ -307,8 +307,7 @@ def _alignment_losses(ctx: StageContext, state: TrainState, batch, **hooks):
                              torch.zeros_like(priors["log_priors"]))
     loss, prior_sum, n_frames = ctc_ops.ctc_loss_with_priors(
         log_probs, batch["text"], mel_length, batch["text_length"],
-        ctx.model_config.text_encoder.tokens, log_priors=log_priors,
-        prior_scale=0.3)
+        ctx.model_config.text_encoder.tokens, log_priors)
     return {"align_loss": loss}, (prior_sum, n_frames)
 
 

@@ -54,6 +54,7 @@ from stylish_tts_tpu_torch.ops.stft_kernel import stft_forward
 from stylish_tts_tpu_torch.train import stages as pstages
 from stylish_tts_tpu_torch.train.checkpoint import load_checkpoint
 from stylish_tts_tpu_torch.train.init import build_train_state, init_params
+from stylish_tts_tpu_torch.train.optim import BETAS
 from stylish_tts_tpu_torch.utils.synthetic import (make_synthetic_dataset,
                                                    tiny_model_config)
 from stylish_tts_tpu_torch.utils.tensorfile import (read_safetensors,
@@ -65,10 +66,17 @@ from test_torch_port_helpers import assert_close, flatten, seeded_params
 # the gradients of the CTC recursion (a softmax of path scores) likewise
 REL, ABS = 1e-4, 1e-5
 GRAD_REL, GRAD_ABS = 1e-4, 1e-6
-# AdamW's first steps move each parameter by about lr * sign(grad), so
-# a near-zero gradient may flip: the parameters within 2 lr a step; the
-# first moments (gradients' running means) at the gradients' bounds
+# AdamW's first steps move each parameter by about lr * m / sqrt(v), the
+# gradients' running mean over their RMS, so the update's error is about
+# the gradient's over its RMS.  Where the RMS gradient is at least
+# GRAD_FLOOR (1e3 x Adam's eps) the parameters agree within UPDATE_TOL (1%
+# of a step; 0.24% measured).  A gradient below it is float noise (a bias
+# ahead of a batch norm, the first conv's taps on mel bins that the test's
+# tones leave constant): its sign may flip, so those parameters are within
+# 2 lr a step, and they are at most LOOSE_SHARE of all (15.4% and 14.0%
+# measured).  The first moments at the gradients' bounds.
 LR = 1e-3
+GRAD_FLOOR, UPDATE_TOL, LOOSE_SHARE = 1e-6, 1e-2 * LR, 0.2
 # align_text: the boundary probabilities and the per-segment confidence,
 # from log-probs that agree to REL
 ALIGN_PROB_ABS, ALIGN_SCORE_REL = 1e-4, 1e-4
@@ -251,9 +259,11 @@ def test_ctc_loss_and_gradient_match_jax(priors):
     (loss, (prior_sum, frames)), grad = jax.jit(jax.value_and_grad(
         jax_loss, has_aux=True))(jnp.asarray(c["x"]))
     x = torch.from_numpy(c["x"]).requires_grad_(True)
+    # the stage passes zero priors until an epoch's end has set them
     got, got_sum, got_frames = pctc.ctc_loss_with_priors(
         x, *map(torch.from_numpy, args), c["blank"],
-        log_priors=torch.from_numpy(c["priors"]) if priors else None)
+        torch.from_numpy(c["priors"] if priors
+                         else np.zeros_like(c["priors"])))
     got.backward()
     assert_close(got, np.asarray(loss), rel=1e-5, abs_=0, what="loss")
     assert_close(x.grad, np.asarray(grad), rel=GRAD_REL, abs_=GRAD_ABS,
@@ -261,14 +271,15 @@ def test_ctc_loss_and_gradient_match_jax(priors):
     assert_close(got_sum, np.asarray(prior_sum), rel=1e-5, abs_=1e-5,
                  what="prior sum")
     assert int(got_frames) == int(frames) == 47
-    # the per-sequence and summed reductions
+    # each sequence's NLL, and their sum, before the mean over target
+    # lengths
     lp = torch.log_softmax(torch.from_numpy(c["x"]), -1)
-    for reduction in ("none", "sum"):
+    nll = pctc._nll(lp, *map(torch.from_numpy, args), c["blank"])
+    for reduction, value in (("none", nll), ("sum", nll.sum())):
         want = jctc.ctc_loss(jnp.asarray(lp.numpy()), *map(jnp.asarray, args),
                              c["blank"], reduction=reduction)
-        assert_close(pctc.ctc_loss(lp, *map(torch.from_numpy, args),
-                                   c["blank"], reduction=reduction),
-                     np.asarray(want), rel=1e-5, abs_=1e-5, what=reduction)
+        assert_close(value, np.asarray(want), rel=1e-5, abs_=1e-5,
+                     what=reduction)
 
 
 # both cases' inputs share one shape and blank: one trace
@@ -399,9 +410,18 @@ def test_alignment_step_matches_jax(stage_runs, i):
     want = flatten(js.params["text_aligner"])
     stats = flatten(js.batch_stats["text_aligner"])
     assert params.keys() == want.keys() | stats.keys()
+    adam = js.opt_states["text_aligner"].inner_state[0]
+    nu, t = flatten(adam.nu), i // 2 + 1
+    loose = total = 0
     for name, value in want.items():
-        err = float(np.max(np.abs(params[name] - value)))
-        assert err <= 2 * LR * (1 + 1e-3), (name, err)
+        err = np.abs(params[name] - np.asarray(value))
+        rms_grad = np.sqrt(np.asarray(nu[name]) / (1 - BETAS[1] ** t))
+        tight = rms_grad >= GRAD_FLOOR
+        assert np.all(err[tight] <= UPDATE_TOL), (name, float(err.max()))
+        assert np.all(err <= 2 * LR * (1 + 1e-3)), (name, float(err.max()))
+        loose += int((~tight).sum())
+        total += err.size
+    assert loose <= LOOSE_SHARE * total, (loose, total)
     for name, value in stats.items():
         assert_close(params[name], value, rel=REL, abs_=ABS, what=name)
     mu = flatten(js.opt_states["text_aligner"].inner_state[0].mu)

@@ -488,6 +488,36 @@ def test_checkpoint_load_raises_on_missing_or_unused(run, tmp_path, what):
         load_checkpoint(path, _state(run["mc"], 3))
 
 
+@pytest.mark.parametrize("stage", ["acoustic", "alignment"])
+def test_checkpoint_without_priors_file(run, tmp_path, stage):
+    """A checkpoint written before the priors were saved: a stage without
+    the aligner loads it and keeps its initial priors; the alignment
+    stage, which needs them, raises."""
+    from stylish_tts_tpu_torch.train.init import build_train_state
+    from stylish_tts_tpu_torch.train.state import init_priors
+
+    path = tmp_path / "ckpt"
+    if stage == "acoustic":
+        shutil.copytree(run["ckpt"], path)
+        state = _state(run["mc"], 3)
+    else:
+        state = build_train_state(run["mc"], ["text_aligner"], device="cpu",
+                                  generator=torch.Generator().manual_seed(4))
+        save_checkpoint(tmp_path, "ckpt", state, Manifest(stage=stage),
+                        NormalizationStats(), dump_json(Config()),
+                        dump_json(run["mc"]))
+    (path / "priors.safetensors").unlink()
+    if stage == "alignment":
+        with pytest.raises(KeyError, match="checkpoint priors"):
+            load_checkpoint(path, state)
+        return
+    load_checkpoint(path, state)
+    _assert_states_equal(state, run["saved"])
+    initial = init_priors(run["mc"].text_encoder.tokens + 1, "cpu")
+    for key, value in initial.items():
+        assert torch.equal(state.priors[key], value), key
+
+
 def test_resume_replays_uninterrupted_run(run):
     """4 steps straight == 2 steps, save, load into a state drawn from
     another seed, 2 steps on ``skip_batches=2``: every parameter, buffer,
