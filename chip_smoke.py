@@ -112,9 +112,39 @@ Phases, in order; any failure raises and the exit code is non-zero:
    those two gave it; one acoustic step of ``train`` reads the new caches;
    last ``speak --text`` reads three sentences on phase 7's artifact.
    Each step's seconds, launches and segment counts printed;
-9. one JSON line of every kernel's numbers, with its launches on the path
-   that runs it (per train step, synthesis request or probe run), then the
-   result line.
+9. interop and the joint stage, at the full-width default ModelConfig:
+   a torch reference checkpoint of the chain's models and the aligner,
+   drawn from a seed (``utils/synthetic.py:write_reference_checkpoint``,
+   the speech predictor, the MRD and the mel style encoder as
+   ``model_N.safetensors``, the rest as ``pytorch_model_N.bin``);
+   ``import-torch`` through the CLI's ``main``, every tensor of the
+   artifact equal to the in-process conversion of the same state dicts and
+   its config's ``reference_band_mask`` on, then ``speak --phonemes`` of 80
+   phonemes from it checked as in phase 4, and ``import-torch --model
+   text_aligner`` on the aligner's file loaded into the port's aligner
+   (every tensor equal to its source); a 12-layer SLM weights file from a
+   seed under the flax names; ``train --stage joint --init-torch`` with
+   ``slm.weights_path`` on phase 7's dataset for JOINT_STEPS steps (the
+   heuristic plan, batches of up to JOINT_BATCH), a validation and a save
+   every JOINT_INTERVAL, where a hook at the stage's start holds the
+   state's models equal to the converted reference and the loop's SLM to
+   the file, tensor for tensor; after it the four joint models and the MRD
+   moved, the mel style encoder (``u``/``sigma`` too) and the duration
+   predictor are bit-equal, the metrics and validation losses finite, and
+   every step launched the STFT and the spec-conv kernels as often as its
+   spectrograms and the MRD's 12 layers give (STFT_PER_STEP,
+   ``LAUNCHES_PER_LAYER``; the acoustic step's counts of phase 5), every
+   eval batch the STFT as its spectrograms give and no spec-conv kernel;
+   at every batch shape the stage took the STFT and the spec-conv kernels
+   are held against their plain versions as in phase 7; last CLI ``test``
+   at its defaults: every row of its parameter table the count of the
+   joint state's module (the aligner's of the imported one), and its
+   timed forward launched the STFT once a call.  Each command's seconds,
+   the artifact's bytes, each joint step's wall ms (first visit of its
+   shape, or warm) and ``test``'s ms/batch and x real time printed;
+10. one JSON line of every kernel's numbers, with its launches on the path
+   that runs it (per train step, acoustic and joint, synthesis request or
+   probe run), then the result line.
 
 ``--profile`` adds torch.profiler breakdowns of one batch request and of
 one train step: device time by kernel, the port's own kernels' totals,
@@ -191,6 +221,17 @@ CHAIN = ("acoustic", "textual", "style", "duration")
 CHAIN_SEGMENTS, CHAIN_VAL, CHAIN_SECONDS, CHAIN_SPREAD = \
     104, 8, 5.875, 0.0625
 CHAIN_INTERVAL, CHAIN_BUDGET_SHARE = 3, 0.85
+# the interop phase: the reference checkpoint's models written as
+# safetensors (the rest as torch pickles), and the joint stage of CLI train
+# on phase 7's dataset: JOINT_STEPS steps of batches of up to JOINT_BATCH
+# (the heuristic plan), a validation and a save every JOINT_INTERVAL
+REFERENCE_SAFETENSORS = ("speech_predictor", "mrd", "pe_mel_style_encoder")
+JOINT_STEPS, JOINT_INTERVAL, JOINT_BATCH = 6, 3, 8
+# STFT launches of a GAN stage's train step: the mel, the multi-resolution
+# spectrograms of target and prediction (3 each), the magphase target, the
+# posterior encoder's input and the generator's prior; of its eval step:
+# the mel, the 6 spectrograms and the prior
+STFT_PER_STEP = {"train": 1 + 2 * 3 + 1 + 1 + 1, "eval": 1 + 2 * 3 + 1}
 
 
 def card_line() -> str:
@@ -1018,11 +1059,13 @@ def _stage_hook(kernels, record: dict):
     return hook
 
 
-def chain_path(device, card: str, kernels, keep_artifact: Path) -> dict:
+def chain_path(device, card: str, kernels, keep_artifact: Path,
+               data: Path) -> dict:
     """CLI ``train`` through acoustic -> textual -> style -> duration at
-    full width on a synthetic dataset on disk, with the measured memory
-    plan; then ``convert`` and ``speak`` through the CLI, the artifact
-    copied to ``keep_artifact``; see the module docstring, phase 7."""
+    full width on a synthetic dataset written to ``data``, with the
+    measured memory plan; then ``convert`` and ``speak`` through the CLI,
+    the artifact copied to ``keep_artifact``; see the module docstring,
+    phase 7."""
     import functools
     import shutil
     import tempfile
@@ -1052,7 +1095,7 @@ def chain_path(device, card: str, kernels, keep_artifact: Path) -> dict:
                     "memory_budget_mib": budget}
     with tempfile.TemporaryDirectory(prefix="chip_smoke_chain_") as tmp:
         root = Path(tmp)
-        data, out = root / "data", root / "out"
+        out = root / "out"
         make_synthetic_dataset(data, n_segments=CHAIN_SEGMENTS,
                                seconds=CHAIN_SECONDS, spread=CHAIN_SPREAD,
                                n_val=CHAIN_VAL)
@@ -1683,6 +1726,382 @@ def book_path(card: str, kernels, chain_artifact: Path) -> dict:
 
 
 # --------------------------------------------------------------------------- #
+# interop and the joint stage: a torch reference checkpoint through
+# import-torch and speak, train --stage joint --init-torch with converted
+# SLM weights, and CLI test
+
+
+def _launch_counts(kernels) -> dict:
+    return {k.name: k.launches for k in kernels}
+
+
+def _counting(make, record: list, kernels):
+    """``make`` (``make_train_step`` or ``make_eval_step``) whose steps
+    append each call's launches of every kernel to ``record``; the counts
+    themselves are not touched."""
+    def wrapped(*args, **kwargs):
+        fn = make(*args, **kwargs)
+
+        def step(*a, **k):
+            before = _launch_counts(kernels)
+            out = fn(*a, **k)
+            record.append({name: n - before[name] for name, n in
+                           _launch_counts(kernels).items()})
+            return out
+
+        return step
+
+    return wrapped
+
+
+def _interop_hook(kernels, record: dict, converted: dict, slm_file: dict):
+    """The joint run's ``on_stage``: at the start the state's models must
+    equal the converted reference (every tensor) and the loop's SLM the
+    SLM file, and the state is copied to the host; at the end each model's
+    moved tensors are counted against that copy and its parameters
+    counted."""
+    from stylish_tts_tpu_torch.convert import load_flax_params
+    from stylish_tts_tpu_torch.utils.harness import count_params
+
+    def hook(event: str, stage: str, state) -> None:
+        torch.cuda.synchronize()
+        record["events"].append([event, stage])
+        if event == "start":
+            n = 0
+            for name, (params, stats) in converted.items():
+                if name not in state.models:
+                    continue
+                module = state.models[name]
+                want = load_flax_params(name, {**params, **stats}, module)
+                for key, t in module.state_dict().items():
+                    if not torch.equal(t.cpu(), want[key]):
+                        raise AssertionError(f"init-torch: {name}.{key} is "
+                                             f"not the converted reference")
+                    n += 1
+            slm = record["slm"].state_dict()
+            if set(slm) != set(slm_file):
+                raise AssertionError("the loop's SLM holds other tensors")
+            for key, t in slm.items():
+                if not torch.equal(t.cpu(), slm_file[key]):
+                    raise AssertionError(f"the loop's SLM {key} is not the "
+                                         f"file's")
+            record["start_equal_tensors"] = n
+            record["slm_equal_tensors"] = len(slm)
+            record["start"] = {k: {n: t.cpu().clone() for n, t in
+                                   m.state_dict().items()}
+                               for k, m in state.models.items()}
+            return
+        if event != "end":
+            return
+        start = record.pop("start")
+        moved = {}
+        for key, module in state.models.items():
+            params = {n for n, _ in module.named_parameters()}
+            now = module.state_dict()
+            names = [n for n in now if not torch.equal(now[n].cpu(),
+                                                       start[key][n])]
+            moved[key] = {"params": sum(n in params for n in names),
+                          "buffers": sum(n not in params for n in names)}
+        record["moved"] = moved
+        record["params"] = {k: count_params(m)
+                            for k, m in state.models.items()}
+
+    return hook
+
+
+def interop_path(device, card: str, kernels, data: Path,
+                 acoustic_per_step: dict) -> dict:
+    """A reference checkpoint through ``import-torch`` and ``speak``, the
+    joint stage of CLI ``train`` from it on phase 7's dataset ``data``, and
+    CLI ``test``, at the full-width default ModelConfig; see the module
+    docstring, phase 9."""
+    import functools
+    import io
+    import tempfile
+    import wave
+
+    from stylish_tts_tpu_torch import cli
+    from stylish_tts_tpu_torch.config import Config, ModelConfig, dump_json
+    from stylish_tts_tpu_torch.convert import export_flax_params
+    from stylish_tts_tpu_torch.export.import_torch import (
+        BATCH_STATS_PREFIX, INFERENCE_MODELS, load_converted_module,
+        load_reference_state_dicts)
+    from stylish_tts_tpu_torch.export.infer import Synthesizer
+    from stylish_tts_tpu_torch.export.package import load_inference_models
+    from stylish_tts_tpu_torch.models.torch_convert import (CONVERTERS,
+                                                            convert_module)
+    from stylish_tts_tpu_torch.scripts.spec_conv_times import \
+        LAUNCHES_PER_LAYER
+    from stylish_tts_tpu_torch.train import loop
+    from stylish_tts_tpu_torch.train.init import (build_training_models,
+                                                  init_params, init_slm)
+    from stylish_tts_tpu_torch.train.stages import STAGES
+    from stylish_tts_tpu_torch.utils.harness import count_params
+    from stylish_tts_tpu_torch.utils.synthetic import \
+        write_reference_checkpoint
+    from stylish_tts_tpu_torch.utils.tensorfile import (read_safetensors,
+                                                        write_safetensors)
+
+    t_phase = time.perf_counter()
+    mc = ModelConfig()
+    hop = mc.hop_length
+    record: dict = {"card": card, "seconds": {}, "events": []}
+    seconds = record["seconds"]
+    # what a joint step launches: its spectrograms, and the MRD's layers
+    per_step = {"stft_forward": STFT_PER_STEP["train"],
+                **{f"spec_conv_{name}": n * len(mrd_layers())
+                   for name, n in LAUNCHES_PER_LAYER.items()}}
+    per_eval = {"stft_forward": STFT_PER_STEP["eval"],
+                **{f"spec_conv_{name}": 0 for name in LAUNCHES_PER_LAYER}}
+    if per_step != acoustic_per_step:
+        raise AssertionError(f"the acoustic step launched "
+                             f"{acoustic_per_step}, the derivation gives "
+                             f"{per_step}")
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_interop_") as tmp:
+        root = Path(tmp)
+        # 1. the reference checkpoint: the chain's models and the aligner
+        # from a seed, at the levels synthesis needs
+        t0 = time.perf_counter()
+        built = build_training_models(mc)
+        generator = torch.Generator().manual_seed(40)
+        reference = {k: init_params(built[k], generator) for k in CONVERTERS}
+        speech_levels(reference)
+        ckpt = root / "reference"
+        files = write_reference_checkpoint(ckpt, reference,
+                                           safetensors=REFERENCE_SAFETENSORS)
+        converted = {k: convert_module(k, sd) for k, sd in
+                     load_reference_state_dicts(ckpt).items()}
+        seconds["reference"] = time.perf_counter() - t0
+        record["reference_bytes"] = {k: p.stat().st_size
+                                     for k, p in files.items()}
+        print(f"interop: reference checkpoint of {len(files)} models "
+              f"({', '.join(f'{k} {p.name}' for k, p in files.items())}), "
+              f"{sum(record['reference_bytes'].values()):,} bytes, "
+              f"{seconds['reference']:.1f} s [{card}]")
+
+        # 2. import-torch, the artifact against the in-process conversion
+        art = root / "artifact"
+        t0 = time.perf_counter()
+        cli.main(["import-torch", "--checkpoint", str(ckpt), "--out",
+                  str(art)])
+        seconds["import_torch"] = time.perf_counter() - t0
+        tensors = 0
+        for name in (*INFERENCE_MODELS, "text_aligner"):
+            params, stats = converted[name]
+            want = {**params, **{BATCH_STATS_PREFIX + k: np.atleast_1d(v)
+                                 for k, v in stats.items()}}
+            got = read_safetensors(art / f"{name}.safetensors")
+            if set(got) != set(want) or any(
+                    got[k].dtype != want[k].dtype
+                    or not np.array_equal(got[k], want[k]) for k in want):
+                raise AssertionError(f"import-torch: {name} differs from "
+                                     f"the in-process conversion")
+            tensors += len(got)
+        amc = json.loads((art / "model_config.json").read_text())
+        if amc["pitch_energy_predictor"]["reference_band_mask"] is not True:
+            raise AssertionError("the artifact's config lacks the "
+                                 "reference band mask")
+        record["artifact_bytes"] = sum(p.stat().st_size
+                                       for p in art.iterdir())
+        record["artifact_tensors"] = tensors
+        # speak from the artifact, checked as in phase 4
+        text = phoneme_strings(mc.symbol, [80], seed=7)[0]
+        wav = root / "speech.wav"
+        for k in kernels:
+            k.launches = 0
+        t0 = time.perf_counter()
+        cli.main(["speak", "--artifact", str(art), "--phonemes", text,
+                  "--out", str(wav)])
+        seconds["speak"] = time.perf_counter() - t0
+        record["speak_launches"] = _launch_counts(kernels)
+        if record["speak_launches"]["stft_forward"] == 0:
+            raise AssertionError("speak from the imported artifact never "
+                                 "launched the STFT")
+        with wave.open(str(wav), "rb") as f:
+            frames = f.getnframes()
+            pcm = np.frombuffer(f.readframes(frames), "<i2")
+        if frames == 0 or frames % hop or not np.abs(pcm).max():
+            raise AssertionError(f"speak wrote {frames} samples, max "
+                                 f"{np.abs(pcm).max() if frames else 0}")
+        smc, models = load_inference_models(art, device)
+        audio = Synthesizer(smc, models, device=device,
+                            sample_seed=0).synthesize(text, fixed_duration=8)
+        check_audio(audio, 80 + 2, 8, hop, "synthesize from the imported "
+                                           "artifact")
+        del models
+        # import-torch --model on the aligner's file
+        t0 = time.perf_counter()
+        cli.main(["import-torch", "--checkpoint", str(files["text_aligner"]),
+                  "--out", str(root / "aligner"), "--model", "text_aligner"])
+        seconds["import_torch_model"] = time.perf_counter() - t0
+        aligner = load_converted_module(
+            root / "aligner" / "text_aligner.safetensors", "text_aligner",
+            build_training_models(mc)["text_aligner"])
+        want = reference["text_aligner"].state_dict()
+        for key, t in aligner.state_dict().items():
+            if not torch.equal(t, want[key]):
+                raise AssertionError(f"import-torch --model text_aligner: "
+                                     f"{key} differs")
+        print(f"interop: import-torch {seconds['import_torch']:.1f} s, "
+              f"{record['artifact_bytes']:,} bytes, {tensors} tensors equal "
+              f"to the in-process conversion, reference band mask on; speak "
+              f"80 phonemes {seconds['speak']:.1f} s "
+              f"({frames / mc.sample_rate:.2f} s of audio), launches {record['speak_launches']}; import-torch "
+              f"--model text_aligner {seconds['import_torch_model']:.1f} s, "
+              f"the aligner equal to its source [{card}]")
+
+        # 3. the SLM's weights file at 12 layers, under the flax names
+        slm_path = root / "wavlm.safetensors"
+        source = init_slm(mc, torch.Generator().manual_seed(41))
+        write_safetensors(slm_path, export_flax_params("slm", source))
+        slm_file = {k: t.clone() for k, t in source.state_dict().items()}
+        del source
+
+        # 4. train --stage joint from the reference, on phase 7's dataset
+        cfg = Config()
+        cfg.dataset.path = str(data)
+        plan = cfg.training_plan.joint
+        plan.epochs, plan.probe_batch_max = 1, JOINT_BATCH
+        cfg.training.log_interval = 1
+        cfg.training.val_interval = cfg.training.save_interval = \
+            JOINT_INTERVAL
+        cfg.training.aot_memory_plan = False
+        jmc = ModelConfig()
+        jmc.slm.weights_path = str(slm_path)
+        (root / "config.json").write_text(dump_json(cfg))
+        (root / "model.json").write_text(dump_json(jmc))
+        steps, evals = [], []
+        originals = (loop.train_model, loop.make_train_step,
+                     loop.make_eval_step, loop.init_slm)
+
+        def capture_slm(*args, **kwargs):
+            record["slm"] = originals[3](*args, **kwargs)
+            return record["slm"]
+
+        loop.train_model = functools.partial(
+            originals[0], on_stage=_interop_hook(kernels, record, converted,
+                                                 slm_file))
+        loop.make_train_step = _counting(originals[1], steps, kernels)
+        loop.make_eval_step = _counting(originals[2], evals, kernels)
+        loop.init_slm = capture_slm
+        out = root / "out"
+        t0 = time.perf_counter()
+        try:
+            cli.main(["train", "--config", str(root / "config.json"),
+                      "--model-config", str(root / "model.json"), "--out",
+                      str(out), "--stage", "joint", "--init-torch",
+                      str(ckpt), "--max-steps", str(JOINT_STEPS)])
+        finally:
+            (loop.train_model, loop.make_train_step, loop.make_eval_step,
+             loop.init_slm) = originals
+        seconds["train_joint"] = time.perf_counter() - t0
+        del record["slm"]
+        if record["events"] != [["start", "joint"], ["planned", "joint"],
+                                ["end", "joint"]]:
+            raise AssertionError(f"joint events {record['events']}")
+        stage = STAGES["joint"]
+        trained = stage.train_models + stage.discriminators
+        for key, moved in record["moved"].items():
+            if key in trained and not moved["params"]:
+                raise AssertionError(f"joint: {key} did not move")
+            if key not in trained and (moved["params"] or moved["buffers"]):
+                raise AssertionError(f"joint: {key} changed: {moved}")
+        if not {"pe_mel_style_encoder", "duration_predictor"} <= set(
+                record["moved"]):
+            raise AssertionError("the joint state lacks a model")
+        stats = json.loads((out / "joint" / "train_stats.json").read_text())
+        man = json.loads((out / "joint" / "checkpoint_final" / "meta.json")
+                         .read_text())["manifest"]
+        if (man["stage"], man["current_total_step"], stats["steps"]) != (
+                "joint", JOINT_STEPS, JOINT_STEPS):
+            raise AssertionError(f"joint manifest {man}, {stats['steps']} "
+                                 f"steps")
+        names = {"mel", "slm", "mag", "phase", "style", "pitch", "energy",
+                 "generator", "discriminator"}
+        values = [e["loss"] for e in stats["logs"]] + [
+            v["loss"] for v in stats["validations"]] + [
+            m for v in stats["validations"] for m in v["metrics"].values()]
+        for entry in stats["logs"]:
+            if set(entry["metrics"]) != names:
+                raise AssertionError(f"joint metrics {entry['metrics']}")
+            values += list(entry["metrics"].values())
+        if not stats["validations"] or not all(np.isfinite(values)):
+            raise AssertionError("joint: non-finite metrics or no "
+                                 "validation")
+        if stats["guard"]["oom"] or len(steps) != JOINT_STEPS:
+            raise AssertionError(f"joint: {len(steps)} steps, "
+                                 f"{stats['guard']['oom']} OOM")
+        for i, got in enumerate(steps):
+            if got != per_step:
+                raise AssertionError(f"joint step {i} launched {got}, its "
+                                     f"spectrograms and the MRD give "
+                                     f"{per_step}")
+        for i, got in enumerate(evals):
+            if got != per_eval:
+                raise AssertionError(f"joint eval batch {i} launched {got}, "
+                                     f"want {per_eval}")
+        record["launches_per_step"] = per_step
+        record["eval_batches"] = len(evals)
+        shapes, first, warm = set(), [], []
+        for entry, (_, *shape) in zip(stats["logs"], stats["batches"]):
+            (warm if tuple(shape) in shapes else first).append(
+                round(entry["seconds"] * 1e3))
+            shapes.add(tuple(shape))
+        record["step_ms"] = {"first_visit": first, "warm": warm}
+        record["stats"] = stats
+        print(f"interop: train --stage joint --init-torch "
+              f"{seconds['train_joint']:.1f} s for {stats['steps']} steps "
+              f"{stats['batches']}, wall ms first visit {first}, warm "
+              f"{warm or 'none'}; {record['start_equal_tensors']} tensors "
+              f"equal to the converted reference and the SLM's "
+              f"{record['slm_equal_tensors']} to its file at the start; "
+              f"validation "
+              f"{[round(v['seconds'], 2) for v in stats['validations']]} s "
+              f"({len(evals)} eval batches, each {per_eval}), saves "
+              f"{[round(v['seconds'], 2) for v in stats['saves']]} s; every "
+              f"step launched {per_step} [{card}]")
+        batch_shapes = sorted({(rows, samples) for _, rows, _, samples in
+                               stats["batches"]})
+    torch.cuda.empty_cache()
+    record["batch_shape_checks"] = batch_shape_checks(batch_shapes, card)
+
+    # 5. CLI test at its defaults
+    for k in kernels:
+        k.launches = 0
+    buf = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        cli.main(["test"])
+    seconds["test"] = time.perf_counter() - t0
+    lines = buf.getvalue().splitlines()
+    rows = {}
+    for line in lines[1:-1]:
+        name, count = line.split()
+        rows[name] = int(count.replace(",", ""))
+    counts = dict(record["params"], text_aligner=count_params(aligner))
+    total = rows.pop("TOTAL")
+    if total != sum(rows.values()) or any(
+            n != counts[name] for name, n in rows.items()):
+        raise AssertionError(f"test's table {rows}, the state's {counts}")
+    stft_launches = _launch_counts(kernels)["stft_forward"]
+    if stft_launches != 10 + 1:  # --iters 10 and the warm-up
+        raise AssertionError(f"test's forward launched the STFT "
+                             f"{stft_launches} times in 11 calls")
+    forward = lines[-1]
+    ms = float(forward.split(": ")[1].split(" ms")[0])
+    rtf = float(forward.split("(")[1].split("x")[0])
+    record["test"] = {"rows": rows, "ms_per_batch": ms, "x_real_time": rtf,
+                      "stft_launches": stft_launches}
+    print(f"interop: CLI test {seconds['test']:.1f} s, {len(rows)} rows "
+          f"equal to the state's modules ({total:,} parameters); "
+          f"{forward}; the STFT launched {stft_launches} times in 11 "
+          f"forwards [{card}]")
+    seconds["phase"] = time.perf_counter() - t_phase
+    print(f"interop phase: {seconds['phase']:.1f} s [{card}]")
+    return record
+
+
+# --------------------------------------------------------------------------- #
 # the main path
 
 
@@ -2093,12 +2512,17 @@ def main() -> int:
     # 7. the training chain through CLI train, then convert and speak; 8.
     # from a book's text to a voice, speak --text on the chain's artifact
     with tempfile.TemporaryDirectory(prefix="chip_smoke_artifact_") as keep:
-        artifact = Path(keep) / "chain_artifact"
-        record["chain"] = chain_path(device, card, kernels, artifact)
+        artifact, data = Path(keep) / "chain_artifact", Path(keep) / "data"
+        record["chain"] = chain_path(device, card, kernels, artifact, data)
         record["book"] = book_path(card, kernels, artifact)
+        # 9. interop and the joint stage: import-torch, train --stage joint
+        # --init-torch on phase 7's dataset, CLI test
+        record["interop"] = interop_path(device, card, kernels, data,
+                                         train["launches_per_step"])
 
-    # 9. results: each kernel's own numbers and its launches on the path
-    # that runs it: per train step, or per probe run
+    # 10. results: each kernel's own numbers and its launches on the path
+    # that runs it: per train step (acoustic, and joint beside it), or per
+    # probe run
     out_dir = Path("chiprun_out")
     out_dir.mkdir(exist_ok=True)
     (out_dir / "chip_smoke.json").write_text(json.dumps(record, indent=1))
@@ -2107,6 +2531,7 @@ def main() -> int:
         numbers[f"spec_conv_{name}"] = record["spec_conv"]["res0 conv_1"][name]
     launches = {k: (n, "train step")
                 for k, n in train["launches_per_step"].items()}
+    joint = record["interop"]["launches_per_step"]
     launches.update({k: (n, "probe run")
                      for k, n in record["probe_run"]["launches"].items()})
     entries = []
@@ -2116,6 +2541,7 @@ def main() -> int:
         entries.append({
             "name": k.name, "route": k.route, "source": k.source,
             "replaces": k.replaces, "launches": count, "per": per,
+            "joint_launches": joint.get(k.name),  # per joint train step
             "max_abs_err": n["max_abs_err"], "ms": n["ms"],
             "plain_ms": n["plain_ms"], "bound_ms": n["bound_ms"],
             "bound_by": n["bound_by"], "library_ms": n["library_ms"],

@@ -16,10 +16,16 @@
 
     python -m stylish_tts_tpu_torch.cli train --config CONFIG.json \\
         --out DIR [--model-config MODEL.json] [--stage acoustic] \\
-        [--checkpoint DIR] [--max-steps N] [--reset-stage] [--workers 8] \\
-        [--device cpu]
+        [--checkpoint DIR] [--init-torch DIR] [--max-steps N] \\
+        [--reset-stage] [--workers 8] [--device cpu]
 
     python -m stylish_tts_tpu_torch.cli convert --checkpoint DIR --out DIR
+
+    python -m stylish_tts_tpu_torch.cli import-torch --checkpoint DIR \\
+        --out DIR [--model-config MODEL.json] [--model NAME] [--device cpu]
+
+    python -m stylish_tts_tpu_torch.cli test [--model-config MODEL.json] \\
+        [--frames 200] [--tokens 100] [--iters 10] [--device cpu]
 
     python -m stylish_tts_tpu_torch.cli speak --artifact DIR \\
         (--text FILE | --book FILE.md | --phonemes "ðɪs ɪz ə tˈɛst") \\
@@ -34,15 +40,25 @@ train and val lists; ``pitch`` caches each segment's F0 (YIN,
 which ``align`` expects in the dataset's directory
 (``dataset.alignment_model_path``) to cache each segment's durations
 (``dataprep/align_text.py``); ``train`` runs the four-stage chain acoustic
--> textual -> style -> duration from ``--stage`` (``train/loop.py``),
-each stage's checkpoints in ``DIR/<stage>/``; ``convert`` packages the
+-> textual -> style -> duration from ``--stage`` (``train/loop.py``), or the
+``joint`` stage alone, each stage's checkpoints in ``DIR/<stage>/``;
+``--init-torch`` starts it from a torch reference checkpoint (an
+``accelerator.save_state`` directory, ``train/torch_seed.py``) and
+``slm.weights_path`` in the model config gives the SLM converted WavLM
+weights; ``convert`` packages the
 inference artifact of a training checkpoint (``train/checkpoint.py``),
 reading both configs from its ``meta.json``; ``speak`` synthesizes into a
 16-bit mono WAV file: ``--text`` normalises a text file, splits it into
 sentences and reads them through the G2P front end (``textfrontend/``)
 as one long-form utterance, ``--book`` writes one
 ``chapter-NNN.wav`` a markdown chapter into the directory ``OUT``, and
-``--phonemes`` takes IPA as it is.
+``--phonemes`` takes IPA as it is.  ``import-torch`` converts a torch
+reference checkpoint into an artifact ``speak`` reads
+(``export/import_torch.py``), or with ``--model`` one module's state-dict
+file into ``DIR/<model>.safetensors``, and loads what it wrote into the
+port's models on ``--device``; ``test`` prints the parameter table of the
+models the port builds and times a speech-predictor forward on random
+inputs.
 
 Every command but ``prepare-book`` and ``convert`` runs on the card unless
 ``--device`` names another; configs are JSON (YAML where PyYAML imports),
@@ -134,13 +150,16 @@ def speak_book(artifact: str, book_path: str, out_dir: str,
     return written
 
 
-def _configs(args: argparse.Namespace):
+def _model_config(path: Optional[str]):
     from .config import ModelConfig, load_config_file
 
-    config = load_config_file(args.config)
-    model_config = (load_config_file(args.model_config, ModelConfig)
-                    if args.model_config else ModelConfig())
-    return config, model_config
+    return load_config_file(path, ModelConfig) if path else ModelConfig()
+
+
+def _configs(args: argparse.Namespace):
+    from .config import load_config_file
+
+    return load_config_file(args.config), _model_config(args.model_config)
 
 
 def train(args: argparse.Namespace, stage: Optional[str] = None) -> None:
@@ -153,12 +172,72 @@ def train(args: argparse.Namespace, stage: Optional[str] = None) -> None:
     manifest = train_model(
         config=config, model_config=model_config, out_dir=args.out,
         stage_name=stage, checkpoint=args.checkpoint,
+        init_torch=getattr(args, "init_torch", None),
         max_steps=args.max_steps,
         reset_stage=getattr(args, "reset_stage", False),
         workers=args.workers, device=args.device)
     print(f"trained to {manifest.stage} step {manifest.current_total_step} "
           f"({manifest.total_trained_audio_seconds:.1f} s of audio); "
           f"checkpoints in {args.out}")
+
+
+def import_torch(args: argparse.Namespace) -> Path:
+    """Convert the reference checkpoint, then load what was written into
+    the port's models on ``args.device``."""
+    from .export.import_torch import (import_torch_checkpoint,
+                                      load_converted_module)
+    from .train.init import build_training_models
+
+    mc = _model_config(args.model_config)
+    out = import_torch_checkpoint(args.checkpoint, args.out, mc,
+                                  single_model=args.model)
+    if args.model is None:
+        load_inference_models(out, args.device)
+    else:
+        from .device import resolve_device
+
+        module = build_training_models(mc)[args.model]
+        load_converted_module(out / f"{args.model}.safetensors", args.model,
+                              module).to(resolve_device(args.device))
+    return out
+
+
+def time_models(args: argparse.Namespace) -> tuple:
+    """The parameter table of the models the port builds (drawn from seed
+    0), then the mean wall seconds of a speech-predictor inference forward
+    at batch 2 on ``args.tokens`` zero tokens and ``args.frames`` frames;
+    returns (table, seconds, audio seconds of one batch)."""
+    import torch
+
+    from .device import resolve_device
+    from .export.import_torch import REFERENCE_SAVE_ORDER
+    from .train.init import build_training_models, init_params
+    from .utils.harness import param_table, time_forward
+
+    device = resolve_device(args.device)
+    mc = _model_config(args.model_config)
+    built = build_training_models(mc)
+    generator = torch.Generator().manual_seed(0)
+    models = {k: init_params(built[k], generator)
+              for k in REFERENCE_SAVE_ORDER if k in built}
+    table = param_table(models)
+    sp = models["speech_predictor"].to(device).eval()
+    b, tokens, frames = 2, args.tokens, args.frames
+    tok = torch.zeros(b, tokens, dtype=torch.long, device=device)
+    lengths = torch.full((b,), tokens, dtype=torch.long, device=device)
+    align = torch.zeros(b, tokens, frames, device=device)
+    align[:, 0] = 1.0
+    pitch = torch.full((b, frames), 120.0, device=device)
+    energy = torch.ones(b, frames, device=device)
+    sample = torch.Generator(device=device).manual_seed(1)
+
+    @torch.no_grad()
+    def forward():
+        return sp(tok, lengths, align, pitch, energy, None,
+                  generator=sample).audio
+
+    seconds = time_forward(forward, (), args.iters, device)
+    return table, seconds, b * frames * mc.hop_length / mc.sample_rate
 
 
 def _add_device(p: argparse.ArgumentParser) -> None:
@@ -186,7 +265,7 @@ def build_parser() -> argparse.ArgumentParser:
     parser = argparse.ArgumentParser(
         prog="stylish_tts_tpu_torch.cli",
         description="prepare-book -> pitch -> train-align -> align -> "
-                    "train -> convert -> speak")
+                    "train -> convert -> speak; import-torch, test")
     sub = parser.add_subparsers(dest="command", required=True)
     bp = sub.add_parser("prepare-book",
                         help="a book's chapter WAVs and text -> a dataset")
@@ -211,20 +290,43 @@ def build_parser() -> argparse.ArgumentParser:
     lp = sub.add_parser("align", help="cache the dataset's alignments")
     _add_configs(lp)
     _add_device(lp)
-    tp = sub.add_parser("train", help="train the four-stage chain")
+    tp = sub.add_parser("train", help="train the four-stage chain, or "
+                                      "the joint stage")
     _add_configs(tp)
     _add_run(tp)
     tp.add_argument("--stage", default="acoustic",
-                    help="first stage of the chain (default: acoustic)")
+                    help="first stage of the chain (default: acoustic), "
+                         "or joint")
     tp.add_argument("--reset-stage", action="store_true",
                     help="restart the stage's step and epoch counters "
                          "after loading the checkpoint")
+    tp.add_argument("--init-torch", default=None,
+                    help="seed the models from a torch reference "
+                         "checkpoint directory before training")
     _add_device(tp)
     cp = sub.add_parser("convert",
                         help="package a checkpoint as an inference artifact")
     cp.add_argument("--checkpoint", required=True,
                     help="training checkpoint directory")
     cp.add_argument("--out", required=True, help="artifact directory")
+    ip = sub.add_parser("import-torch",
+                        help="a torch reference checkpoint -> an artifact")
+    ip.add_argument("--checkpoint", required=True,
+                    help="reference accelerator save_state directory (or "
+                         "one state-dict file with --model)")
+    ip.add_argument("--model-config", default=None,
+                    help="model config (JSON; default: the full-width one)")
+    ip.add_argument("--out", required=True, help="artifact directory")
+    ip.add_argument("--model", default=None,
+                    help="convert just this module from one state-dict file")
+    _add_device(ip)
+    xp = sub.add_parser("test", help="parameter table and a timed forward")
+    xp.add_argument("--model-config", default=None,
+                    help="model config (JSON; default: the full-width one)")
+    xp.add_argument("--frames", type=int, default=200)
+    xp.add_argument("--tokens", type=int, default=100)
+    xp.add_argument("--iters", type=int, default=10)
+    _add_device(xp)
     sp = sub.add_parser("speak", help="synthesize text, a book or phonemes")
     sp.add_argument("--artifact", required=True,
                     help="inference artifact directory")
@@ -252,6 +354,13 @@ def main(argv: Optional[List[str]] = None) -> None:
     elif args.command == "convert":
         out = package_inference_artifact(args.checkpoint, args.out)
         print(f"wrote {out}")
+    elif args.command == "import-torch":
+        print(f"wrote {import_torch(args)}")
+    elif args.command == "test":
+        table, seconds, audio_s = time_models(args)
+        print(table)
+        print(f"speech_predictor forward: {seconds * 1000:.1f} ms/batch "
+              f"({audio_s / seconds:.1f}x realtime)")
     elif args.command == "prepare-book":
         from .dataprep.book import prepare_book
 

@@ -15,6 +15,7 @@ import torch
 from torch import nn
 
 from ..config import ModelConfig
+from ..convert import load_flax_params
 from ..device import resolve_device
 from ..models import build_models
 from ..models.discriminator import MultiResolutionDiscriminator
@@ -22,6 +23,7 @@ from ..models.slm import SLMFeatureExtractor
 from ..models.speech_predictor import SpeechPredictor
 from ..models.style_encoders import MelStyleEncoder
 from ..models.text_aligner import build_text_aligner
+from ..utils.tensorfile import read_safetensors
 from .optim import make_optimizer
 from .state import TrainState, init_priors
 
@@ -92,8 +94,17 @@ def init_params(module: nn.Module, generator: torch.Generator) -> nn.Module:
 
 def init_slm(mc: ModelConfig, generator: torch.Generator
              ) -> SLMFeatureExtractor:
-    """The frozen SLM feature net, drawn from ``generator``."""
-    slm = init_params(SLMFeatureExtractor(n_layers=mc.slm.layers), generator)
+    """The frozen SLM feature net: converted WavLM weights from
+    ``mc.slm.weights_path`` where it is set (the flat safetensors of flax
+    names that the JAX package's ``save_model_safetensors`` writes; a name
+    left unused or a parameter left unfilled raises), else drawn from
+    ``generator``."""
+    slm = SLMFeatureExtractor(n_layers=mc.slm.layers)
+    if mc.slm.weights_path:
+        slm.load_state_dict(load_flax_params(
+            "slm", read_safetensors(mc.slm.weights_path), slm))
+    else:
+        init_params(slm, generator)
     slm.requires_grad_(False)
     return slm.eval()
 

@@ -1,6 +1,8 @@
 """Training driver: the four-stage chain acoustic -> textual -> style ->
-duration, advancing on its own, and the alignment stage, which trains the
-CTC aligner alone (reference train/train.py:76-449).
+duration, advancing on its own, the joint stage, which fine-tunes the
+chain's text-to-speech path end to end and ends there, and the alignment
+stage, which trains the CTC aligner alone (reference
+train/train.py:76-449).
 
 ``train_model`` reads the dataset on disk, bootstraps the normalisation
 stats, and for each stage plans its batch sizes (measured on the card,
@@ -11,7 +13,10 @@ OOM guard, validates every ``val_interval`` steps, saves every
 One train state holds every model of the chain on the device (71.97 M
 parameters at the default config), so a module's Adam moments carry over
 from one stage to the next and every checkpoint packages into an
-artifact.  Metrics stay on the device as tensors until the log interval,
+artifact.  ``init_torch`` seeds the fresh state from a torch reference
+checkpoint (``train/torch_seed.py``) before a ``checkpoint`` is loaded;
+``slm.weights_path`` gives the frozen SLM converted WavLM weights.
+Metrics stay on the device as tensors until the log interval,
 then one stack and one copy reach the host: the loop adds no host sync of
 its own to a step.
 
@@ -48,6 +53,7 @@ from ..device import resolve_device
 from ..models.text_aligner import aligner_params
 from ..ops.mel import MelSpectrogram
 from ..text import TextCleaner
+from ..utils.profiling import save_git_state
 from ..utils.tensorfile import write_safetensors
 from .checkpoint import (Manifest, NormalizationStats, checkpoint_name,
                          load_checkpoint, save_checkpoint)
@@ -56,6 +62,7 @@ from .loss_log import combine_metrics, format_metrics
 from .stages import (StageContext, chain_models, check_stage,
                      end_alignment_epoch, make_eval_step, make_train_step)
 from .state import TrainState, restore_state, snapshot_state
+from .torch_seed import seed_state_from_torch
 
 logger = logging.getLogger(__name__)
 
@@ -264,6 +271,7 @@ def train_model(
     out_dir: str,
     stage_name: str = "acoustic",
     checkpoint: Optional[str] = None,
+    init_torch: Optional[str] = None,
     max_steps: Optional[int] = None,
     reset_stage: bool = False,
     workers: int = 8,
@@ -276,16 +284,16 @@ def train_model(
     models (a CPU generator, so a run starts from the same weights on any
     device), the frozen SLM and the run's device generator (dropout,
     latent and harmonic-prior noise), which checkpoints carry.
+    ``init_torch`` names a torch reference checkpoint directory
+    (``accelerator.save_state``) whose converted weights replace the drawn
+    ones of every model it holds and the state runs.
     ``on_stage(event, stage, state)`` is called at each stage's "start",
     after its memory plan ("planned") and after its final save ("end")."""
     device = resolve_device(device)
     check_stage(stage_name)
-    if model_config.slm.weights_path:
-        raise NotImplementedError(
-            "loading converted WavLM weights into the SLM is not ported yet "
-            "(Queue 1 item 3); unset slm.weights_path")
     ctx = TrainContext(stage_name=stage_name, out_dir=out_dir, config=config,
                        model_config=model_config)
+    save_git_state(ctx.base_out_dir)
     ctx.writer = _summary_writer(ctx.out_dir)
     state = build_train_state(model_config, state_models(stage_name),
                               device=device,
@@ -294,9 +302,13 @@ def train_model(
     if stage_name != "alignment":
         slm = init_slm(model_config,
                        torch.Generator().manual_seed(seed + 7)).to(device)
-        logger.warning("the SLM perceptual loss runs on random WavLM "
-                       "features drawn from the seed; pretrained ones are "
-                       "not ported")
+        if not model_config.slm.weights_path:
+            logger.warning(
+                "slm.weights_path is unset: the SLM perceptual loss runs on "
+                "random WavLM features drawn from the seed; set it to a "
+                "converted WavLM file for the reference's quality")
+    if init_torch:
+        seed_state_from_torch(state, init_torch)
     generator = torch.Generator(device=device).manual_seed(seed)
     if checkpoint:
         _, ctx.manifest, ctx.normalization, _ = load_checkpoint(

@@ -1,12 +1,13 @@
 """Stage steps of the four-stage chain, acoustic -> textual -> style ->
-duration, and of the alignment stage that trains the CTC aligner on its
+duration, of the joint stage that fine-tunes the text-to-speech path end
+to end, and of the alignment stage that trains the CTC aligner on its
 own: each stage's losses, the generic train step, the eval step and the
 alignment stage's epoch end.
 
 ``make_train_step(stage, ctx, base_lr)`` returns
 ``step(state, batch, generator) -> (state, metrics)``, with the JAX
 package's metric names.  One step runs the stage's losses, for the stages
-with the MRD discriminator (acoustic, textual) also the two GAN views of
+with the MRD discriminator (acoustic, textual, joint) also the two GAN views of
 the MRD, one backward of the total, and one AdamW update per trained
 module: at the cosine LR, the MRD at that LR times the gap-aware
 multiplier of its loss EMA.  The models a stage only evaluates pass
@@ -294,6 +295,37 @@ def _duration_losses(ctx: StageContext, state: TrainState, batch, **hooks):
     return {"duration_ce": ce, "duration": cdw}, None
 
 
+def _joint_losses(ctx: StageContext, state: TrainState, batch, **hooks):
+    """The text-to-speech path trained end to end: the text style vector
+    drives the predicted pitch and energy, which drive the speech
+    predictor (on the ground-truth alignment, with its posterior), so the
+    spectral, SLM and GAN terms reach the pitch/energy branch and the text
+    encoder through them.  The mel style encoder only reads its stored
+    spectral-norm vectors and gives the style term its target."""
+    mel, _, energy = ctx.mel_and_energy(batch["audio_gt"])
+    pe_mel_style = ctx.apply(state, "pe_mel_style_encoder", mel)
+    pe_enc, _, _ = ctx.apply(state, "pe_text_encoder", batch["text"],
+                             batch["text_length"])
+    pe_text_style = ctx.apply(state, "pe_text_style_encoder", pe_enc,
+                              batch["text_length"])
+    pred_pitch, pred_energy = ctx.apply(
+        state, "pitch_energy_predictor", pe_enc, batch["text_length"],
+        batch["alignment"], pe_text_style)
+    pred = _speech(ctx, state, batch, batch["alignment"], pred_pitch,
+                   pred_energy, batch["audio_gt"], **hooks)
+    spectral, images = _spectral_losses(ctx, batch, pred)
+    metrics = {
+        "mel": spectral["mel"],
+        "slm": ctx.slm_loss(batch["audio_gt"], pred.audio),
+        "mag": spectral["mag"],
+        "phase": spectral["phase"],
+        "style": L.smooth_l1_loss(pe_text_style, pe_mel_style) * 10.0,
+        "pitch": L.smooth_l1_loss(pred_pitch, batch["pitch"]),
+        "energy": L.smooth_l1_loss(pred_energy, energy),
+    }
+    return metrics, images
+
+
 def _alignment_losses(ctx: StageContext, state: TrainState, batch, **hooks):
     """(metrics, (the batch's emission log-sums [C], its frame count)):
     CTC loss of the aligner on the 80-bin mel, less 0.3 x the label
@@ -358,11 +390,19 @@ STAGES["duration"] = StageType(
     discriminators=[],
     inputs=["text", "text_length", "alignment", "audio_gt"],
 )
+STAGES["joint"] = StageType(
+    next_stage=None,
+    compute_losses=_joint_losses,
+    train_models=["pe_text_style_encoder", "pitch_energy_predictor",
+                  "pe_text_encoder", "speech_predictor"],
+    eval_models=["pe_mel_style_encoder"],
+    discriminators=["mrd"],
+    inputs=INPUTS,
+)
 
 # the stages of the JAX package that the port does not run yet, and the
 # queue item that ports each
 NOT_PORTED = {
-    "joint": "Queue 1 item 3 (the joint stage)",
     "hubert_acoustic": "Queue 1 item 7 (experimental stages)",
     "cfm_hubert_mel": "Queue 1 item 7 (experimental stages)",
     "cfm_hubert_pitch": "Queue 1 item 7 (experimental stages)",
@@ -490,8 +530,9 @@ def make_eval_step(stage_name: str, ctx: StageContext):
     changes.  ``alignment`` gives the aligner's CTC loss (no priors) and
     ``confidence``, the mean probability of the forced alignment's states
     over the valid frames, and no audio.  ``acoustic`` synthesizes from the
-    ground-truth pitch and energy, ``textual`` and ``style`` from the predicted ones (``style``
-    with the text style vector); ``duration`` runs the whole inference
+    ground-truth pitch and energy, ``textual``, ``style`` and ``joint``
+    from the predicted ones (``style`` and ``joint`` with the text style
+    vector, and a ``style`` metric); ``duration`` runs the whole inference
     path: predicted durations -> alignment at the batch's frame count ->
     pitch and energy -> speech.  The speech predictor's noise comes from
     ``generator`` or the hooks."""
@@ -542,9 +583,10 @@ def make_eval_step(stage_name: str, ctx: StageContext):
             mel, _, energy = ctx.mel_and_energy(batch["audio_gt"])
             pe_enc, _, _ = ctx.apply(state, "pe_text_encoder", text, lengths)
             pe_mel_style = ctx.apply(state, "pe_mel_style_encoder", mel)
+            text_style = stage_name in ("style", "joint")
             style = (ctx.apply(state, "pe_text_style_encoder", pe_enc,
                                lengths)
-                     if stage_name == "style" else pe_mel_style)
+                     if text_style else pe_mel_style)
             pred_pitch, pred_energy = ctx.apply(
                 state, "pitch_energy_predictor", pe_enc, lengths,
                 batch["alignment"], style)
@@ -561,7 +603,7 @@ def make_eval_step(stage_name: str, ctx: StageContext):
                 "pitch": L.smooth_l1_loss(pred_pitch, batch["pitch"]),
                 "energy": L.smooth_l1_loss(pred_energy, energy),
             }
-            if stage_name == "style":
+            if text_style:
                 metrics["style"] = L.smooth_l1_loss(style,
                                                     pe_mel_style) * 10.0
             audio = pred.audio

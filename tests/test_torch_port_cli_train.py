@@ -107,7 +107,8 @@ def test_cli_convert_and_speak_the_last_checkpoint(trained, capsys):
 
 def test_cli_train_names_stages_not_ported(tmp_path):
     (tmp_path / "config.json").write_text(dump_json(Config()))
-    for stage, item in (("joint", "item 3"), ("cfm_hubert_mel", "item 7")):
+    for stage, item in (("hubert_acoustic", "item 7"),
+                        ("cfm_hubert_mel", "item 7")):
         with pytest.raises(NotImplementedError, match=item):
             main(["train", "--config", str(tmp_path / "config.json"),
                   "--out", str(tmp_path / "out"), "--stage", stage,

@@ -135,9 +135,10 @@ def jax_setup(mc_jax, params, stats, batch):
     return state, ctx, jbatch
 
 
-def port_setup(mc, params, stats):
+def port_setup(mc, params, stats, slm=None):
     """The port's state of the chain's models carrying the flax weights,
-    every dropout at 0, and its f32 stage context."""
+    every dropout at 0, and its f32 stage context (with the frozen SLM of
+    the flax params ``slm``, where given)."""
     built = build_training_models(mc)
     for key in CHAIN_KEYS:
         flat = flatten(params[key])
@@ -151,8 +152,14 @@ def port_setup(mc, params, stats):
                               models={k: built[k] for k in CHAIN_KEYS})
     cfg = Config()
     cfg.training.mixed_precision = "no"
+    if slm is not None:
+        from stylish_tts_tpu_torch.models.slm import SLMFeatureExtractor
+
+        module = SLMFeatureExtractor(n_layers=mc.slm.layers).eval()
+        module.load_state_dict(load_flax_params("slm", flatten(slm), module))
+        slm = module
     ctx = StageContext(model_config=mc, config=cfg, mel_mean=MEL_MEAN,
-                       mel_std=MEL_STD, step_limit=STEP_LIMIT,
+                       mel_std=MEL_STD, step_limit=STEP_LIMIT, slm=slm,
                        duration_class_weight=torch.from_numpy(class_weight()))
     return state, ctx
 
