@@ -138,13 +138,40 @@ Phases, in order; any failure raises and the exit code is non-zero:
    at every batch shape the stage took the STFT and the spec-conv kernels
    are held against their plain versions as in phase 7; last CLI ``test``
    at its defaults: every row of its parameter table the count of the
-   joint state's module (the aligner's of the imported one), and its
+   joint state's module (the aligner's of the imported one, the
+   experimental stages' models' of freshly built ones), and its
    timed forward launched the STFT once a call.  Each command's seconds,
    the artifact's bytes, each joint step's wall ms (first visit of its
    shape, or warm) and ``test``'s ms/batch and x real time printed;
-10. one JSON line of every kernel's numbers, with its launches on the path
-   that runs it (per train step, acoustic and joint, synthesis request or
-   probe run), then the result line.
+10. the experimental stages, at the full-width default ModelConfig on
+   phase 7's dataset: a HuBERT-base encoder (6 layers, 768 wide), a
+   SimAM-ResNet34 speaker net (10240-d) and a Vocos written from a seed as
+   flat safetensors of their flax names and passed through
+   ``hubert.weights_path``, ``speaker_embedder.weights_path`` and
+   ``training.vocos_weights``; CLI ``train`` through the CLI's ``main``
+   for ``hubert_acoustic`` (4 steps), ``cfm_hubert_pitch`` (4 steps),
+   ``cfm_hubert_mel`` with the model's mel (4 steps, Griffin-Lim
+   validation) and with Vocos's (2 steps, Vocos validation), each with a
+   validation at its last step, batches of up to EXPERIMENTAL_BATCH (the
+   heuristic plan).  A hook at each run's start holds the frozen nets the
+   loop built equal to their files, tensor for tensor.  Checked after each
+   run: the checkpoint holds the six experimental models; every trained
+   model moved and every other one is bit-equal, but the hubert encoder in
+   ``cfm_hubert_mel``, which moved by exactly AdamW's decay (no loss
+   reaches it); finite metrics and validation losses; the validation
+   audio finite, not silent and of the expected length (none for
+   ``cfm_hubert_pitch``); every train step and eval batch launched the
+   STFT as its spectrograms give (EXPERIMENTAL_STFT) and the spec-conv
+   kernels only in ``hubert_acoustic``, as the MRD's 12 layers give; then
+   the STFT and the spec-conv kernels are held against their plain
+   versions at every batch shape the runs took as in phase 7, the STFT
+   also at Vocos's 1024/256/1024 setting, which is timed; last one f32
+   ``hubert_acoustic`` step at full width on 1 x 64 frames on the CPU and
+   on the card, its metrics within STEP_TOL.  Each run's seconds and each
+   step's wall ms (first visit of its shape, or warm) printed;
+11. one JSON line of every kernel's numbers, with its launches on the path
+   that runs it (per train step, acoustic, joint and each experimental
+   run, synthesis request or probe run), then the result line.
 
 ``--profile`` adds torch.profiler breakdowns of one batch request and of
 one train step: device time by kernel, the port's own kernels' totals,
@@ -227,11 +254,34 @@ CHAIN_INTERVAL, CHAIN_BUDGET_SHARE = 3, 0.85
 # (the heuristic plan), a validation and a save every JOINT_INTERVAL
 REFERENCE_SAFETENSORS = ("speech_predictor", "mrd", "pe_mel_style_encoder")
 JOINT_STEPS, JOINT_INTERVAL, JOINT_BATCH = 6, 3, 8
+# the experimental stages' phase on phase 7's dataset: (run, stage,
+# cfm_mel_features, steps), batches of up to EXPERIMENTAL_BATCH (the
+# heuristic plan), a validation at the last step; the CFM mel runs at an LR
+# where AdamW's decay factor 1 - lr * 1e-4 is not 1 in f32, so the hubert
+# encoder, which no loss reaches, moves by it
+EXPERIMENTAL_RUNS = (
+    ("hubert_acoustic", "hubert_acoustic", "model", 4),
+    ("cfm_hubert_pitch", "cfm_hubert_pitch", "model", 4),
+    ("cfm_hubert_mel", "cfm_hubert_mel", "model", 4),
+    ("cfm_hubert_mel_vocos", "cfm_hubert_mel", "vocos", 2),
+)
+EXPERIMENTAL_BATCH, EXPERIMENTAL_MEL_LR = 8, 1e-3
+VOCOS_STFT = (1024, 256, 1024)  # Vocos's features: n_fft, hop, win
+GRIFFIN_LIM_ITERS = 32  # ops/griffin_lim.py:mel_to_audio's default
 # STFT launches of a GAN stage's train step: the mel, the multi-resolution
 # spectrograms of target and prediction (3 each), the magphase target, the
 # posterior encoder's input and the generator's prior; of its eval step:
 # the mel, the 6 spectrograms and the prior
 STFT_PER_STEP = {"train": 1 + 2 * 3 + 1 + 1 + 1, "eval": 1 + 2 * 3 + 1}
+# ... and of the experimental runs: hubert_acoustic's as a GAN stage's;
+# the CFM stages' train step only its mel; the CFM mel eval batch its mel
+# and Griffin-Lim's iterations (the Vocos run: only its mel)
+EXPERIMENTAL_STFT = {
+    "hubert_acoustic": STFT_PER_STEP,
+    "cfm_hubert_pitch": {"train": 1, "eval": 1},
+    "cfm_hubert_mel": {"train": 1, "eval": 1 + GRIFFIN_LIM_ITERS},
+    "cfm_hubert_mel_vocos": {"train": 1, "eval": 1},
+}
 
 
 def card_line() -> str:
@@ -2079,6 +2129,10 @@ def interop_path(device, card: str, kernels, data: Path,
         name, count = line.split()
         rows[name] = int(count.replace(",", ""))
     counts = dict(record["params"], text_aligner=count_params(aligner))
+    # the experimental stages' models, which the joint state does not hold
+    extra = [name for name in rows if name not in counts and name != "TOTAL"]
+    counts.update({name: count_params(m) for name, m in
+                   build_training_models(mc, extra).items()})
     total = rows.pop("TOTAL")
     if total != sum(rows.values()) or any(
             n != counts[name] for name, n in rows.items()):
@@ -2099,6 +2153,436 @@ def interop_path(device, card: str, kernels, data: Path,
     seconds["phase"] = time.perf_counter() - t_phase
     print(f"interop phase: {seconds['phase']:.1f} s [{card}]")
     return record
+
+
+# --------------------------------------------------------------------------- #
+# the experimental stages: hubert_acoustic, cfm_hubert_pitch and
+# cfm_hubert_mel through CLI train on their frozen nets' weight files
+
+
+def write_frozen_nets(root: Path, seed: int) -> dict:
+    """Seeded full-width frozen nets written as flat safetensors of their
+    flax names, the files ``hubert.weights_path``,
+    ``speaker_embedder.weights_path`` and ``training.vocos_weights`` read:
+    the HuBERT-base encoder (6 layers, 768 wide), the SimAM-ResNet34 (64
+    channels, 10240-d statistics) and Vocos (512 wide, 8 blocks, layer
+    scale 1/8).  Returns {name: (path, {torch key: tensor})}."""
+    from stylish_tts_tpu_torch.convert import export_flax_params
+    from stylish_tts_tpu_torch.models.slm import SLMFeatureExtractor
+    from stylish_tts_tpu_torch.models.vocos import Vocos
+    from stylish_tts_tpu_torch.models.wespeaker import SimAMResNet34ASP
+    from stylish_tts_tpu_torch.train.init import init_params
+    from stylish_tts_tpu_torch.utils.tensorfile import write_safetensors
+
+    gen = torch.Generator().manual_seed(seed)
+    nets = {"hubert": SLMFeatureExtractor(n_layers=6, rel_pos_bias=False),
+            "speaker": SimAMResNet34ASP(), "vocos": Vocos()}
+    files = {}
+    for name, module in nets.items():
+        init_params(module, gen)
+        if name == "vocos":
+            for block in module.modules():
+                if hasattr(block, "gamma"):
+                    block.gamma.data.fill_(1.0 / module.n_layers)
+        path = root / f"{name}.safetensors"
+        write_safetensors(path, export_flax_params(name, module))
+        files[name] = (path, {k: t.clone() for k, t in
+                              module.state_dict().items()})
+    return files
+
+
+def _experimental_hook(kernels, record: dict, files: dict, nets: dict,
+                       device):
+    """The run's ``on_stage``: at the start the frozen nets the loop built
+    (``nets``) must equal their files, tensor for tensor, the launch
+    counts go to 0 and the models are copied to the host; at the end each
+    model's moved tensors are listed against that copy."""
+    def hook(event: str, stage: str, state) -> None:
+        torch.cuda.synchronize()
+        record["events"].append([event, stage])
+        if event == "start":
+            n = 0
+            parts = [("hubert", nets["ssl"][0].encoder),
+                     ("speaker", nets["ssl"][1].xvector)]
+            if nets.get("vocos") is not None:
+                parts.append(("vocos", nets["vocos"]))
+            for name, module in parts:
+                want = files[name][1]
+                got = module.state_dict()
+                if set(got) != set(want):
+                    raise AssertionError(f"{stage}: the {name} net holds "
+                                         f"other tensors than its file")
+                for key, t in got.items():
+                    if t.device.type != torch.device(device).type or \
+                            not torch.equal(t.cpu(), want[key]):
+                        raise AssertionError(f"{stage}: {name}.{key} is not "
+                                             f"its file's on {device}")
+                    n += 1
+            record["frozen_equal_tensors"] = n
+            for k in kernels:
+                k.launches = 0
+            record["start"] = {k: {n: t.cpu().clone() for n, t in
+                                   m.state_dict().items()}
+                               for k, m in state.models.items()}
+            return
+        if event != "end":
+            return
+        record["launches"] = _launch_counts(kernels)
+        start = record["start"]
+        moved = {}
+        for key, module in state.models.items():
+            now = module.state_dict()
+            moved[key] = [n for n in now if not torch.equal(now[n].cpu(),
+                                                            start[key][n])]
+        record["moved"] = moved
+        record["end_state"] = {n: t.cpu().clone() for n, t in
+                               state.models["hubert_encoder"]
+                               .state_dict().items()}
+
+    return hook
+
+
+def _recording(make, record: list, kernels):
+    """``make`` (``make_train_step`` or ``make_eval_step``) whose steps
+    append each call's kernel launches, wall ms, batch shape and, for an
+    eval step's audio, its shape, peak and finiteness to ``record``."""
+    def wrapped(*args, **kwargs):
+        fn = make(*args, **kwargs)
+
+        def step(state, batch, *a, **k):
+            before = _launch_counts(kernels)
+            t0 = time.perf_counter()
+            out = fn(state, batch, *a, **k)
+            torch.cuda.synchronize()
+            entry = {"ms": (time.perf_counter() - t0) * 1e3,
+                     "shape": list(batch["audio_gt"].shape),
+                     "launches": {n: c - before[n] for n, c in
+                                  _launch_counts(kernels).items()}}
+            audio = out[1] if isinstance(out[1], torch.Tensor) else None
+            if audio is not None:
+                entry["audio"] = {"shape": list(audio.shape),
+                                  "max_abs": float(audio.abs().max()),
+                                  "finite": bool(torch.isfinite(audio)
+                                                 .all())}
+            record.append(entry)
+            return out
+
+        return step
+
+    return wrapped
+
+
+def experimental_path(device, card: str, kernels, data: Path) -> dict:
+    """The experimental stages at the full-width default ModelConfig on
+    phase 7's dataset ``data``, each through CLI ``train`` on seeded weight
+    files of its frozen nets; see the module docstring, phase 10."""
+    import functools
+    import tempfile
+
+    from stylish_tts_tpu_torch import cli
+    from stylish_tts_tpu_torch.config import Config, ModelConfig, dump_json
+    from stylish_tts_tpu_torch.models.vocos import VOCOS_HOP, VOCOS_N_FFT
+    from stylish_tts_tpu_torch.train import loop
+    from stylish_tts_tpu_torch.train.optim import (WEIGHT_DECAY,
+                                                   cosine_logical_lr)
+    from stylish_tts_tpu_torch.train.stages import STAGES
+
+    t_phase = time.perf_counter()
+    record: dict = {"card": card, "runs": {}}
+    mc0 = ModelConfig()
+    hop = mc0.hop_length
+    per_layer = {f"spec_conv_{name}": n * len(mrd_layers())
+                 for name, n in LAUNCHES_PER_LAYER.items()}
+    shapes = {run: set() for run, *_ in EXPERIMENTAL_RUNS}
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_experimental_") as tmp:
+        root = Path(tmp)
+        t0 = time.perf_counter()
+        files = write_frozen_nets(root, seed=50)
+        record["weights_s"] = time.perf_counter() - t0
+        record["weight_bytes"] = {k: p.stat().st_size
+                                  for k, (p, _) in files.items()}
+        print(f"experimental: seeded frozen nets written "
+              f"{json.dumps(record['weight_bytes'])} bytes in "
+              f"{record['weights_s']:.1f} s [{card}]")
+        for run, stage, features, steps in EXPERIMENTAL_RUNS:
+            mc = ModelConfig()
+            mc.hubert.weights_path = str(files["hubert"][0])
+            mc.speaker_embedder.weights_path = str(files["speaker"][0])
+            mc.cfm_mel_features = features
+            cfg = Config()
+            cfg.dataset.path = str(data)
+            plan = getattr(cfg.training_plan, stage)
+            plan.epochs, plan.probe_batch_max = 1, EXPERIMENTAL_BATCH
+            if stage == "cfm_hubert_mel":
+                plan.lr = EXPERIMENTAL_MEL_LR
+            cfg.training.log_interval = 1
+            cfg.training.val_interval = steps
+            cfg.training.save_interval = 10 ** 6
+            cfg.training.aot_memory_plan = False
+            if features == "vocos":
+                cfg.training.vocos_weights = str(files["vocos"][0])
+            (root / "config.json").write_text(dump_json(cfg))
+            (root / "model.json").write_text(dump_json(mc))
+            out = root / f"out_{run}"
+            rec: dict = {"events": []}
+            nets: dict = {}
+            train_calls, eval_calls = [], []
+            originals = (loop.train_model, loop.make_train_step,
+                         loop.make_eval_step, loop.init_ssl, loop.init_vocos)
+
+            def capture_ssl(*a, **k):
+                nets["ssl"] = originals[3](*a, **k)
+                return nets["ssl"]
+
+            def capture_vocos(*a, **k):
+                nets["vocos"] = originals[4](*a, **k)
+                return nets["vocos"]
+
+            loop.train_model = functools.partial(
+                originals[0], on_stage=_experimental_hook(
+                    kernels, rec, files, nets, device))
+            loop.make_train_step = _recording(originals[1], train_calls,
+                                              kernels)
+            loop.make_eval_step = _recording(originals[2], eval_calls,
+                                             kernels)
+            loop.init_ssl, loop.init_vocos = capture_ssl, capture_vocos
+            t0 = time.perf_counter()
+            try:
+                cli.main(["train", "--config", str(root / "config.json"),
+                          "--model-config", str(root / "model.json"),
+                          "--out", str(out), "--stage", stage,
+                          "--max-steps", str(steps)])
+            finally:
+                (loop.train_model, loop.make_train_step, loop.make_eval_step,
+                 loop.init_ssl, loop.init_vocos) = originals
+            rec["seconds"] = time.perf_counter() - t0
+            nets.clear()
+
+            # the run's stage, checkpoint, metrics and validation
+            if rec["events"] != [["start", stage], ["planned", stage],
+                                 ["end", stage]]:
+                raise AssertionError(f"{run}: events {rec['events']}")
+            stats = json.loads((out / stage / "train_stats.json")
+                               .read_text())
+            man = json.loads((out / stage / "checkpoint_final" / "meta.json")
+                             .read_text())["manifest"]
+            if (man["stage"], man["current_step"], stats["steps"],
+                    len(train_calls)) != (stage, steps, steps, steps):
+                raise AssertionError(f"{run}: manifest {man}, "
+                                     f"{stats['steps']} steps")
+            saved = sorted(p.stem for p in (out / stage / "checkpoint_final"
+                                            / "models").iterdir())
+            if saved != sorted(loop.EXPERIMENTAL_MODELS):
+                raise AssertionError(f"{run}: checkpoint holds {saved}")
+            values = [e["loss"] for e in stats["logs"]] + [
+                v for e in stats["logs"] for v in e["metrics"].values()] + [
+                v["loss"] for v in stats["validations"]] + [
+                m for v in stats["validations"]
+                for m in v["metrics"].values()]
+            if len(stats["validations"]) != 1 or not all(np.isfinite(values)):
+                raise AssertionError(f"{run}: validations "
+                                     f"{stats['validations']}, non-finite "
+                                     f"metrics or none")
+            # the models: trained ones moved, the hubert encoder by the
+            # decay alone, the rest bit-equal
+            st = STAGES[stage]
+            trained = st.train_models + st.discriminators
+            for key, names in rec["moved"].items():
+                if key == "hubert_encoder" and stage == "cfm_hubert_mel":
+                    continue
+                if key in trained and not names:
+                    raise AssertionError(f"{run}: {key} did not move")
+                if key not in trained and names:
+                    raise AssertionError(f"{run}: {key} changed: "
+                                         f"{names[:4]}")
+            if stage == "cfm_hubert_mel":
+                limit = max(man["steps_per_epoch"] * plan.epochs, 1)
+                start = rec["start"]["hubert_encoder"]
+                decayed = 0
+                for name, t in rec["end_state"].items():
+                    want = start[name].to(device)
+                    for i in range(steps):
+                        want = want.mul(1 - cosine_logical_lr(
+                            plan.lr, i, limit) * WEIGHT_DECAY)
+                    if not torch.equal(t, want.cpu()):
+                        raise AssertionError(f"{run}: hubert_encoder.{name} "
+                                             f"moved by more than the decay")
+                    decayed += not torch.equal(t, start[name])
+                if not decayed:
+                    raise AssertionError(f"{run}: the decay moved nothing")
+                rec["hubert_encoder_decayed"] = decayed
+            # the launches: every train step and eval batch as its
+            # spectrograms (and the MRD's layers) give
+            stft = EXPERIMENTAL_STFT[run]
+            want_train = {"stft_forward": stft["train"], **{
+                k: (n if "mrd" in st.discriminators else 0)
+                for k, n in per_layer.items()}}
+            want_eval = {"stft_forward": stft["eval"],
+                         **{k: 0 for k in per_layer}}
+            for i, call in enumerate(train_calls):
+                if call["launches"] != want_train:
+                    raise AssertionError(f"{run} step {i} launched "
+                                         f"{call['launches']}, want "
+                                         f"{want_train}")
+            if not eval_calls:
+                raise AssertionError(f"{run}: no eval batch")
+            for i, call in enumerate(eval_calls):
+                if call["launches"] != want_eval:
+                    raise AssertionError(f"{run} eval batch {i} launched "
+                                         f"{call['launches']}, want "
+                                         f"{want_eval}")
+                audio = call.get("audio")
+                samples = call["shape"][1]
+                if stage == "cfm_hubert_pitch":
+                    if audio is not None:
+                        raise AssertionError(f"{run}: eval audio")
+                    continue
+                if features == "vocos":
+                    length = samples // VOCOS_HOP * VOCOS_HOP
+                else:
+                    frames = samples // hop + 1
+                    length = (frames - frames % 2) * hop
+                if audio is None or audio["shape"] != [call["shape"][0],
+                                                       length] \
+                        or not audio["finite"] or not audio["max_abs"] > 0:
+                    raise AssertionError(f"{run}: eval audio {audio}, want "
+                                         f"{length} samples")
+            for call in train_calls + eval_calls:
+                shapes[run].add(tuple(call["shape"]))
+            seen, first, warm = set(), [], []
+            for call in train_calls:
+                key = tuple(call["shape"])
+                (warm if key in seen else first).append(round(call["ms"]))
+                seen.add(key)
+            rec.update(stats=stats, per_step=want_train, per_eval=want_eval,
+                       step_ms={"first_visit": first, "warm": warm},
+                       eval_ms=[round(c["ms"]) for c in eval_calls],
+                       eval_audio=[c.get("audio") for c in eval_calls],
+                       batches=stats["batches"])
+            for key in ("start", "end_state", "moved"):
+                rec.pop(key)
+            record["runs"][run] = rec
+            print(f"experimental {run}: CLI train {rec['seconds']:.1f} s for "
+                  f"{steps} steps {stats['batches']}, wall ms first visit "
+                  f"{first}, warm {warm or 'none'}; validation "
+                  f"{rec['eval_ms']} ms over {len(eval_calls)} batches, "
+                  f"save {[round(v['seconds'], 2) for v in stats['saves']]}"
+                  f" s; {rec['frozen_equal_tensors']} frozen-net tensors "
+                  f"equal to their files; every step launched {want_train}, "
+                  f"every eval batch {want_eval}"
+                  + (f"; the hubert encoder moved by the decay alone "
+                     f"({rec['hubert_encoder_decayed']} tensors)"
+                     if stage == "cfm_hubert_mel" else "") + f" [{card}]")
+    torch.cuda.empty_cache()
+    # kernels #1-3 against their plain versions at every batch shape the
+    # runs took: the STFT at its five settings and the spec-conv kernels at
+    # the MRD's layers where hubert_acoustic ran, the STFT at Vocos's
+    # setting where the Vocos run did
+    record["batch_shape_checks"] = batch_shape_checks(
+        sorted(shapes["hubert_acoustic"]), card)
+    others = sorted(set().union(*shapes.values()))
+    record["stft_shape_checks"] = []
+    for s in others:
+        x = torch.randn(*s, device=device, generator=torch.Generator(
+            device=device).manual_seed(s[1]))
+        settings = [(2048, 300, 1200)] + (
+            [VOCOS_STFT] if s in shapes["cfm_hubert_mel_vocos"] else [])
+        record["stft_shape_checks"].append({
+            "shape": list(s), "settings": settings,
+            "max_abs_err": max(stft_error(x, *st)[2] for st in settings)})
+    del x
+    big = max(shapes["cfm_hubert_mel_vocos"])
+    x = torch.randn(*big, device=device,
+                    generator=torch.Generator(device=device).manual_seed(7))
+    flush = torch.empty(64 * 2**20, dtype=torch.uint8, device=device)
+    record["stft_vocos"] = stft_numbers(x, *VOCOS_STFT, flush)
+    del x, flush
+    print(f"experimental: the STFT held at the mel's setting at "
+          f"{len(others)} batch shapes {others} and at Vocos's setting "
+          f"n_fft={VOCOS_N_FFT} hop={VOCOS_HOP} win={VOCOS_N_FFT} at the "
+          f"Vocos run's (max err "
+          f"{max(r['max_abs_err'] for r in record['stft_shape_checks']):.2e})"
+          f", timed there at {record['stft_vocos']['shape']}: "
+          f"{stft_line(record['stft_vocos'])} [{card}]")
+    record["cpu_vs_card"] = cpu_vs_card_hubert_step(card)
+    record["seconds"] = time.perf_counter() - t_phase
+    print(f"experimental phase: {record['seconds']:.1f} s [{card}]")
+    return record
+
+
+def cpu_vs_card_hubert_step(card: str) -> dict:
+    """One f32 ``hubert_acoustic`` step at full width on 1 x 64 frames from
+    the same weights and frozen nets on the CPU (plain versions) and on the
+    card (kernels), dropout off, latent means and the same prior noise;
+    the metrics compared under STEP_TOL as phase 5 does."""
+    import copy
+
+    from stylish_tts_tpu_torch.config import Config, ModelConfig
+    from stylish_tts_tpu_torch.models.norms import Dropout
+    from stylish_tts_tpu_torch.train.init import (build_train_state,
+                                                  init_params, init_slm,
+                                                  init_ssl)
+    from stylish_tts_tpu_torch.train.stages import (STAGES, StageContext,
+                                                    make_train_step)
+
+    mc = ModelConfig()
+    cfg = Config()
+    cfg.training.mixed_precision = "no"
+    stage = STAGES["hubert_acoustic"]
+    keys = stage.train_models + stage.discriminators
+    from stylish_tts_tpu_torch.train.init import build_training_models
+
+    gen = torch.Generator().manual_seed(60)
+    built = build_training_models(mc, keys)
+    models = {k: init_params(built[k], gen) for k in keys}
+    for model in models.values():
+        for m in model.modules():
+            if isinstance(m, Dropout):
+                m.rate = 0.0
+    ssl = init_ssl(mc, torch.Generator().manual_seed(61))
+    slm = init_slm(mc, torch.Generator().manual_seed(62))
+    batch = synthetic_batch(mc, 1, 64, 63)
+    noise = np.random.default_rng(64).standard_normal(
+        (1, 64 * mc.hop_length)).astype(np.float32)
+    # a harmonic prior both devices compute to the ulp: F0 on the
+    # 24000/512 Hz grid (every partial sum of the phase integral exact),
+    # unvoiced for 3 frames with no prior noise and a silent ground truth
+    # under STFT frame 0, which is real, its phase the sign of a rounding
+    # (tests/test_torch_port_helpers.py:well_posed_prior_inputs); the
+    # speaker vector's style moves the generator's spectra further than
+    # the text style of phase 5's step does, and a voiced onset left the
+    # card's mel 2.3e-3 from the CPU's
+    step_hz = mc.sample_rate / 512
+    pitch = np.clip(np.round(batch["pitch"] / step_hz), 2, 6) * step_hz
+    pitch[:, :3] = 0.0
+    batch["pitch"] = pitch.astype(np.float32)
+    noise[:, :(3 * 4 - 2) * (mc.hop_length // 4)] = 0.0
+    batch["audio_gt"][:, :mc.n_fft // 2 + 1] = 0.0
+    results = {}
+    for device in ("cpu", "cuda"):
+        state = build_train_state(mc, keys, models=copy.deepcopy(models),
+                                  device=device)
+        ctx = StageContext(model_config=mc, config=cfg, mel_mean=-4.0,
+                           mel_std=4.0, step_limit=10_000,
+                           slm=copy.deepcopy(slm).to(device),
+                           ssl=tuple(copy.deepcopy(m).to(device)
+                                     for m in ssl))
+        _, metrics = make_train_step("hubert_acoustic", ctx, 1e-4)(
+            state, on_device(batch, device), sample=False,
+            pcph_noise=torch.from_numpy(noise).to(device),
+            pcph_phase=torch.zeros(1, 1, device=device))
+        results[device] = {k: v.item() for k, v in metrics.items()}
+        del state, ctx
+    rel = {}
+    for key, bound in STEP_TOL.items():
+        a, b = results["cpu"][key], results["cuda"][key]
+        rel[key] = abs(a - b) / max(abs(a), 1e-30)
+        if not rel[key] <= bound:
+            raise AssertionError(f"hubert_acoustic step cpu vs card {key}: "
+                                 f"{a} vs {b}")
+    print(f"full-width hubert_acoustic step f32 on 1 x 64 frames, cpu vs "
+          f"card: relative differences {json.dumps(rel)} [{card}]")
+    return {"metrics": results, "relative_difference": rel}
 
 
 # --------------------------------------------------------------------------- #
@@ -2519,10 +3003,14 @@ def main() -> int:
         # --init-torch on phase 7's dataset, CLI test
         record["interop"] = interop_path(device, card, kernels, data,
                                          train["launches_per_step"])
+        # 10. the experimental stages on phase 7's dataset, each through
+        # CLI train on seeded weight files of its frozen nets
+        record["experimental"] = experimental_path(device, card, kernels,
+                                                   data)
 
-    # 10. results: each kernel's own numbers and its launches on the path
-    # that runs it: per train step (acoustic, and joint beside it), or per
-    # probe run
+    # 11. results: each kernel's own numbers and its launches on the path
+    # that runs it: per train step (acoustic, and joint and the
+    # experimental runs beside it), or per probe run
     out_dir = Path("chiprun_out")
     out_dir.mkdir(exist_ok=True)
     (out_dir / "chip_smoke.json").write_text(json.dumps(record, indent=1))
@@ -2532,6 +3020,8 @@ def main() -> int:
     launches = {k: (n, "train step")
                 for k, n in train["launches_per_step"].items()}
     joint = record["interop"]["launches_per_step"]
+    experimental = {run: r["per_step"] for run, r in
+                    record["experimental"]["runs"].items()}
     launches.update({k: (n, "probe run")
                      for k, n in record["probe_run"]["launches"].items()})
     entries = []
@@ -2542,6 +3032,9 @@ def main() -> int:
             "name": k.name, "route": k.route, "source": k.source,
             "replaces": k.replaces, "launches": count, "per": per,
             "joint_launches": joint.get(k.name),  # per joint train step
+            # per train step of each experimental run
+            "experimental_launches": {run: n.get(k.name) for run, n in
+                                      experimental.items()},
             "max_abs_err": n["max_abs_err"], "ms": n["ms"],
             "plain_ms": n["plain_ms"], "bound_ms": n["bound_ms"],
             "bound_by": n["bound_by"], "library_ms": n["library_ms"],

@@ -241,7 +241,7 @@ def calculate_pitch(config, model_config, method: str = "yin",
 
     if method == "rmvpe":
         raise NotImplementedError(
-            "pitch --method rmvpe is not ported yet: Queue 1 item 7 (the "
+            "pitch --method rmvpe is not ported yet: Queue 1 item 6 (the "
             "frozen RMVPE net); use --method yin")
     if method != "yin":
         raise ValueError(f"unknown pitch method {method!r}")

@@ -16,7 +16,7 @@ flax tree through ``convert.load_flax_params``; no WavLM weights ship.
 from __future__ import annotations
 
 import math
-from typing import List
+from typing import List, Optional
 
 import torch
 import torch.nn.functional as F
@@ -47,20 +47,23 @@ def relative_position_buckets(length: int, num_buckets: int = 320,
 
 class _EncoderAttention(nn.Module):
     """softmax(q k^T / sqrt(d) + gate(x) * bias) v with a per-head,
-    per-query gate projected from the layer input."""
+    per-query gate projected from the layer input; without
+    ``rel_pos_bias`` plain wav2vec2/HuBERT attention (no bias, no gate)."""
 
-    def __init__(self, hidden_dim: int, n_heads: int):
+    def __init__(self, hidden_dim: int, n_heads: int,
+                 rel_pos_bias: bool = True):
         super().__init__()
         self.n_heads = n_heads
         self.head_dim = hidden_dim // n_heads
         self.q_proj = nn.Linear(hidden_dim, hidden_dim)
         self.k_proj = nn.Linear(hidden_dim, hidden_dim)
         self.v_proj = nn.Linear(hidden_dim, hidden_dim)
-        self.gru_rel_pos_linear = nn.Linear(self.head_dim, 8)
-        self.gru_rel_pos_const = nn.Parameter(torch.ones(1, 1, n_heads))
+        if rel_pos_bias:
+            self.gru_rel_pos_linear = nn.Linear(self.head_dim, 8)
+            self.gru_rel_pos_const = nn.Parameter(torch.ones(1, 1, n_heads))
         self.out_proj = nn.Linear(hidden_dim, hidden_dim)
 
-    def forward(self, x: torch.Tensor, position_bias: torch.Tensor
+    def forward(self, x: torch.Tensor, position_bias: Optional[torch.Tensor]
                 ) -> torch.Tensor:
         b, t, _ = x.shape
         h, d = self.n_heads, self.head_dim
@@ -68,25 +71,30 @@ class _EncoderAttention(nn.Module):
         k = self.k_proj(x).view(b, t, h, d)
         v = self.v_proj(x).view(b, t, h, d)
         scores = torch.einsum("bqhd,bkhd->bhqk", q, k)
-        proj = self.gru_rel_pos_linear(x.view(b, t, h, d))
-        gates = torch.sigmoid(proj.view(b, t, h, 2, 4).sum(-1))
-        gate = gates[..., 0] * (gates[..., 1] * self.gru_rel_pos_const - 1.0) \
-            + 2.0  # [B, T, h]
-        scores = scores + gate.permute(0, 2, 1)[..., None] \
-            * position_bias[None].to(x.dtype)
+        if position_bias is not None:
+            proj = self.gru_rel_pos_linear(x.view(b, t, h, d))
+            gates = torch.sigmoid(proj.view(b, t, h, 2, 4).sum(-1))
+            gate = gates[..., 0] * (
+                gates[..., 1] * self.gru_rel_pos_const - 1.0) + 2.0  # [B,T,h]
+            scores = scores + gate.permute(0, 2, 1)[..., None] \
+                * position_bias[None].to(x.dtype)
         attn = torch.softmax(scores.float(), dim=-1).to(x.dtype)
         out = torch.einsum("bhqk,bkhd->bqhd", attn, v)
         return self.out_proj(out.reshape(b, t, h * d))
 
 
 class SLMFeatureExtractor(nn.Module):
-    """[B, T] 16 kHz audio -> n_layers + 1 hidden states [B, F, 768]."""
+    """[B, T] 16 kHz audio -> n_layers + 1 hidden states [B, F, 768].
+    ``rel_pos_bias=False`` is the HuBERT-base encoder: the same layers with
+    plain attention, no bias table."""
 
     def __init__(self, hidden_dim: int = 768, n_layers: int = 12,
                  n_heads: int = 12, intermediate_dim: int = 3072,
-                 num_buckets: int = 320, max_distance: int = 800):
+                 num_buckets: int = 320, max_distance: int = 800,
+                 rel_pos_bias: bool = True):
         super().__init__()
         self.n_layers = n_layers
+        self.rel_pos_bias = rel_pos_bias
         self.num_buckets, self.max_distance = num_buckets, max_distance
         c_in = 1
         for i, (c, k, s) in enumerate(zip(CONV_DIMS, CONV_KERNELS,
@@ -100,11 +108,12 @@ class SLMFeatureExtractor(nn.Module):
         self.pos_conv = nn.Conv1d(hidden_dim, hidden_dim, 128, padding=64,
                                   groups=16)
         self.encoder_ln = nn.LayerNorm(hidden_dim, eps=1e-5)
-        self.rel_attn_embed = nn.Parameter(
-            0.02 * torch.randn(num_buckets, n_heads))
+        if rel_pos_bias:
+            self.rel_attn_embed = nn.Parameter(
+                0.02 * torch.randn(num_buckets, n_heads))
         for i in range(n_layers):
             setattr(self, f"layer_{i}_attn",
-                    _EncoderAttention(hidden_dim, n_heads))
+                    _EncoderAttention(hidden_dim, n_heads, rel_pos_bias))
             setattr(self, f"layer_{i}_ln1", nn.LayerNorm(hidden_dim, eps=1e-5))
             setattr(self, f"layer_{i}_fc1",
                     nn.Linear(hidden_dim, intermediate_dim))
@@ -122,9 +131,11 @@ class SLMFeatureExtractor(nn.Module):
         x = self.feature_proj(self.fp_ln(x.transpose(1, 2)))  # [B, F, C]
         pos = self.pos_conv(x.transpose(1, 2))[:, :, : x.shape[1]]
         x = self.encoder_ln(x + F.gelu(pos).transpose(1, 2))
-        buckets = relative_position_buckets(
-            x.shape[1], self.num_buckets, self.max_distance, x.device)
-        position_bias = self.rel_attn_embed[buckets].permute(2, 0, 1)
+        position_bias = None
+        if self.rel_pos_bias:
+            buckets = relative_position_buckets(
+                x.shape[1], self.num_buckets, self.max_distance, x.device)
+            position_bias = self.rel_attn_embed[buckets].permute(2, 0, 1)
         hidden_states = [x]
         for i in range(self.n_layers):
             y = getattr(self, f"layer_{i}_attn")(x, position_bias)

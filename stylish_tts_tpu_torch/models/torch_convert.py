@@ -543,7 +543,7 @@ CONVERTERS = {
     "pe_mel_style_encoder": convert_mel_style_encoder,
 }
 
-#: the JAX package's other converters: models the port does not hold yet
+#: the JAX package's other converters, not ported yet
 NOT_PORTED = ("mpd", "hubert_encoder", "hubert_speech_predictor",
               "hubert_pitch_energy_predictor", "cfm_mel_decoder",
               "cfm_pitch_predictor", "rmvpe", "wespeaker", "vocos")
@@ -556,8 +556,9 @@ def converter(name: str):
         return CONVERTERS[name]
     if name in NOT_PORTED:
         raise NotImplementedError(
-            f"no converter for {name!r}: the port does not hold that model "
-            f"yet (Queue 1 item 7, experimental stages and frozen nets)")
+            f"no converter for {name!r}: not ported yet (ROADMAP Queue 1 "
+            f"item 6, with distribution: the remaining generators, nets "
+            f"and converters)")
     raise ValueError(f"unknown model {name!r}; one of {sorted(CONVERTERS)}")
 
 

@@ -51,21 +51,25 @@ def fbank_on(n_freqs: int, n_mels: int, sample_rate: int,
 
 class MelSpectrogram:
     """Power mel spectrogram with center reflect padding:
-    audio [B, T] -> [B, frames, n_mels]."""
+    audio [B, T] -> [B, frames, n_mels]; ``power`` 1 gives the magnitude
+    mel (Vocos's features)."""
 
     def __init__(self, *, n_mels: int, n_fft: int, win_length: int,
-                 hop_length: int, sample_rate: int):
+                 hop_length: int, sample_rate: int, power: float = 2.0):
         self.n_mels = n_mels
         self.n_fft = n_fft
         self.win_length = win_length
         self.hop_length = hop_length
         self.sample_rate = sample_rate
+        self.power = power
 
     def __call__(self, audio: torch.Tensor) -> torch.Tensor:
         real, imag = stft_forward(audio, n_fft=self.n_fft,
                                   hop_length=self.hop_length,
                                   win_length=self.win_length)
         power_spec = real * real + imag * imag
+        if self.power != 2.0:
+            power_spec = torch.pow(torch.sqrt(power_spec), self.power)
         fbank = fbank_on(self.n_fft // 2 + 1, self.n_mels, self.sample_rate,
                          audio.device)
         return torch.matmul(power_spec, fbank)

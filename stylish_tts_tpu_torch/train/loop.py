@@ -1,7 +1,8 @@
 """Training driver: the four-stage chain acoustic -> textual -> style ->
 duration, advancing on its own, the joint stage, which fine-tunes the
-chain's text-to-speech path end to end and ends there, and the alignment
-stage, which trains the CTC aligner alone (reference
+chain's text-to-speech path end to end and ends there, the alignment
+stage, which trains the CTC aligner alone, and the three experimental
+stages on frozen HuBERT and speaker nets, each alone (reference
 train/train.py:76-449).
 
 ``train_model`` reads the dataset on disk, bootstraps the normalisation
@@ -16,6 +17,13 @@ from one stage to the next and every checkpoint packages into an
 artifact.  ``init_torch`` seeds the fresh state from a torch reference
 checkpoint (``train/torch_seed.py``) before a ``checkpoint`` is loaded;
 ``slm.weights_path`` gives the frozen SLM converted WavLM weights.
+The experimental stages' run holds their six models
+(``EXPERIMENTAL_MODELS``), so one's checkpoint seeds another; their frozen
+HuBERT and speaker nets come from ``hubert.weights_path`` and
+``speaker_embedder.weights_path`` (else from the seed), and
+``cfm_hubert_mel`` validates through Vocos where
+``training.vocos_weights`` names its weights.  The frozen nets are never
+saved.
 Metrics stay on the device as tensors until the log interval,
 then one stack and one copy reach the host: the loop adds no host sync of
 its own to a step.
@@ -57,9 +65,9 @@ from ..utils.profiling import save_git_state
 from ..utils.tensorfile import write_safetensors
 from .checkpoint import (Manifest, NormalizationStats, checkpoint_name,
                          load_checkpoint, save_checkpoint)
-from .init import build_train_state, init_slm
+from .init import build_train_state, init_slm, init_ssl, init_vocos
 from .loss_log import combine_metrics, format_metrics
-from .stages import (StageContext, chain_models, check_stage,
+from .stages import (SSL_STAGES, StageContext, chain_models, check_stage,
                      end_alignment_epoch, make_eval_step, make_train_step)
 from .state import TrainState, restore_state, snapshot_state
 from .torch_seed import seed_state_from_torch
@@ -68,14 +76,20 @@ logger = logging.getLogger(__name__)
 
 # every model of the chain: the state the loop trains and checkpoints
 STATE_MODELS = chain_models("acoustic")
+# every model of the experimental stages
+EXPERIMENTAL_MODELS = list(dict.fromkeys(
+    k for stage in SSL_STAGES for k in chain_models(stage)))
+# the stages without the SLM perceptual loss
+NO_SLM_STAGES = ("alignment", "cfm_hubert_pitch", "cfm_hubert_mel")
 
 
 def state_models(stage_name: str) -> list:
     """The models of a run's state: the aligner alone for the alignment
-    stage (its chain ends with it), else every model of the four-stage
-    chain."""
-    return (chain_models("alignment") if stage_name == "alignment"
-            else STATE_MODELS)
+    stage (its chain ends with it), the experimental stages' models for
+    one of those, else every model of the four-stage chain."""
+    if stage_name == "alignment":
+        return chain_models("alignment")
+    return EXPERIMENTAL_MODELS if stage_name in SSL_STAGES else STATE_MODELS
 
 
 class TrainContext:
@@ -298,8 +312,8 @@ def train_model(
     state = build_train_state(model_config, state_models(stage_name),
                               device=device,
                               generator=torch.Generator().manual_seed(seed))
-    slm = None
-    if stage_name != "alignment":
+    slm = ssl = vocos = None
+    if stage_name not in NO_SLM_STAGES:
         slm = init_slm(model_config,
                        torch.Generator().manual_seed(seed + 7)).to(device)
         if not model_config.slm.weights_path:
@@ -307,6 +321,18 @@ def train_model(
                 "slm.weights_path is unset: the SLM perceptual loss runs on "
                 "random WavLM features drawn from the seed; set it to a "
                 "converted WavLM file for the reference's quality")
+    if stage_name in SSL_STAGES:
+        ssl = tuple(m.to(device) for m in init_ssl(
+            model_config, torch.Generator().manual_seed(seed + 11)))
+        for name, path in (("hubert", model_config.hubert.weights_path),
+                           ("speaker_embedder",
+                            model_config.speaker_embedder.weights_path)):
+            if not path:
+                logger.warning("%s.weights_path is unset: the frozen net "
+                               "is drawn from the seed", name)
+    if stage_name == "cfm_hubert_mel":
+        vocos = init_vocos(config.training.vocos_weights)
+        vocos = vocos.to(device) if vocos is not None else None
     if init_torch:
         seed_state_from_torch(state, init_torch)
     generator = torch.Generator(device=device).manual_seed(seed)
@@ -342,7 +368,10 @@ def train_model(
             mel_std=ctx.normalization.mel_log_std,
             step_limit=max(steps_per_epoch * plan.epochs, 1), slm=slm,
             duration_class_weight=torch.as_tensor(
-                ctx.train_dataset.duration_weights, device=device))
+                ctx.train_dataset.duration_weights, device=device),
+            ssl=ssl, vocos=vocos,
+            f0_log2_mean=ctx.normalization.f0_log2_mean,
+            f0_log2_std=ctx.normalization.f0_log2_std)
         if config.training.aot_memory_plan and bm.freshly_planned:
             stats["probe"] = _plan_memory(bm, stage_ctx, state, plan, current,
                                           config, model_config, device)

@@ -1,8 +1,10 @@
 """Stage steps of the four-stage chain, acoustic -> textual -> style ->
 duration, of the joint stage that fine-tunes the text-to-speech path end
-to end, and of the alignment stage that trains the CTC aligner on its
-own: each stage's losses, the generic train step, the eval step and the
-alignment stage's epoch end.
+to end, of the alignment stage that trains the CTC aligner on its own, and
+of the three experimental stages on frozen HuBERT and speaker features
+(``hubert_acoustic``, ``cfm_hubert_pitch``, ``cfm_hubert_mel``): each
+stage's losses, the generic train step, the eval step and the alignment
+stage's epoch end.
 
 ``make_train_step(stage, ctx, base_lr)`` returns
 ``step(state, batch, generator) -> (state, metrics)``, with the JAX
@@ -24,9 +26,11 @@ Mixed precision follows the JAX package's casts, not ``torch.autocast``:
 with ``mixed_precision == "bf16"`` each module runs on bf16 copies of its
 f32 master parameters and on bf16 inputs, and its outputs return to f32;
 the STFT chains, the losses and the optimizer stay f32; the MRD always
-runs in bf16; the frozen SLM runs in bf16; the text aligner always runs in
-f32 (``MIXED_PRECISION_EXEMPT``: the CTC chain needs full-precision
-log-probs).
+runs in bf16; the frozen SLM runs in bf16; the text aligner and the CFM
+pitch predictor always run in f32 (``MIXED_PRECISION_EXEMPT``).  The
+frozen HuBERT and speaker nets run in f32 under ``no_grad``, and the CFM
+mel decoder always runs in f32 (the JAX package applies both outside its
+casts).
 """
 
 from __future__ import annotations
@@ -34,7 +38,7 @@ from __future__ import annotations
 import dataclasses
 import math
 from dataclasses import dataclass, field
-from typing import Callable, Dict, List, Optional
+from typing import Callable, Dict, List, Optional, Tuple
 
 import torch
 from torch import nn
@@ -44,8 +48,11 @@ from torch.utils.checkpoint import checkpoint
 from .. import losses as L
 from ..config import Config, ModelConfig
 from ..duration import DurationProcessor
+from ..models.cfm_mel_decoder import CfmMelDecoderWrapper
 from ..models.norms import set_dropout_generator
+from ..models.vocos import VOCOS_HOP, VOCOS_N_FFT, vocos_mel
 from ..ops import ctc as ctc_ops
+from ..ops.griffin_lim import mel_to_audio
 from ..ops.mel import MelSpectrogram, calculate_mel, log_norm_energy
 from ..ops.multi_spectrogram import MultiSpectrogram
 from ..ops.resample import resample
@@ -53,8 +60,37 @@ from .loss_log import backwards_loss, weighted_total
 from .optim import apply_updates, cosine_logical_lr
 from .state import TrainState
 
-# modules that stay f32 under mixed precision
-MIXED_PRECISION_EXEMPT = frozenset({"text_aligner"})
+# modules that stay f32 under mixed precision: the aligner's CTC chain
+# needs full-precision log-probs; in the CFM pitch predictor the mel style
+# encoder's f32 vector (its spectral norms divide by f32 buffers) promotes
+# every block after the first AdaLN to f32 in the JAX package, so the port
+# runs the whole model in f32
+MIXED_PRECISION_EXEMPT = frozenset({"text_aligner", "cfm_pitch_predictor"})
+# Euler steps of the CFM mel decoder's validation solve
+CFM_EVAL_STEPS = 16
+
+
+def _interp_frames(x: torch.Tensor, n_out: int) -> torch.Tensor:
+    """Linear resample [B, F_in] -> [B, n_out] along the frame axis."""
+    f_in = x.shape[1]
+    pos = torch.arange(n_out, device=x.device) * (f_in / n_out)
+    lo = torch.clamp(torch.floor(pos).to(torch.int64), 0, f_in - 1)
+    hi = torch.clamp(lo + 1, 0, f_in - 1)
+    w = (pos - lo).to(x.dtype)
+    return x[:, lo] * (1.0 - w) + x[:, hi] * w
+
+
+def norm_f0_zscore(f0, unvoiced, mean: float, std: float) -> torch.Tensor:
+    """log2 z-scored F0, unvoiced frames at 0."""
+    normed = (torch.log2(f0 + 1e-8) - mean) / std
+    return torch.where(unvoiced, torch.zeros_like(normed), normed)
+
+
+def denorm_f0_zscore(normed, unvoiced, mean: float, std: float,
+                     min_hz: float = 50.0, max_hz: float = 1200.0
+                     ) -> torch.Tensor:
+    f0 = torch.clamp(2.0 ** (normed * std + mean), min_hz, max_hz)
+    return torch.where(unvoiced, torch.zeros_like(f0), f0)
 
 
 def cast_floats(tree, dtype: torch.dtype):
@@ -99,6 +135,13 @@ class StageContext:
     slm: Optional[nn.Module] = None  # frozen, for the 'slm' loss
     # per duration class, from the dataset's alignments (duration stage)
     duration_class_weight: Optional[torch.Tensor] = None
+    # frozen (AdaptiveHubert, SpeakerEmbeddingModel) of the hubert/CFM
+    # stages, and the Vocos decoder of the CFM mel validation
+    ssl: Optional[Tuple[nn.Module, nn.Module]] = None
+    vocos: Optional[nn.Module] = None
+    # the dataset's log2-F0 statistics (the CFM pitch target)
+    f0_log2_mean: float = 7.0
+    f0_log2_std: float = 1.0
     weights: Dict[str, float] = field(init=False)
 
     def __post_init__(self):
@@ -141,6 +184,26 @@ class StageContext:
                                         self.mel_std)
         energy = log_norm_energy(mel, self.mel_mean, self.mel_std).detach()
         return mel, mel_length, energy
+
+    def cfm_mel_features(self, audio_gt: torch.Tensor, pitch: torch.Tensor):
+        """(normed mel, energy, pitch at its frames) in the configured CFM
+        feature space: the model's mel, or with ``cfm_mel_features ==
+        "vocos"`` Vocos's 100-bin hop-256 mel normalised by the dataset's
+        stats, the pitch resampled linearly onto its frames."""
+        if self.model_config.cfm_mel_features == "vocos":
+            mel = (vocos_mel(audio_gt) - self.mel_mean) / self.mel_std
+            energy = log_norm_energy(mel, self.mel_mean, self.mel_std)
+            return mel, energy.detach(), _interp_frames(pitch, mel.shape[1])
+        mel, _, energy = self.mel_and_energy(audio_gt)
+        return mel, energy, pitch[:, :mel.shape[1]]
+
+    @torch.no_grad()
+    def ssl_features(self, audio_gt: torch.Tensor, time_dim: int):
+        """The frozen HuBERT features at ``time_dim`` frames and the
+        speaker vector, in f32."""
+        hubert, speaker = self.ssl
+        audio = audio_gt.float()
+        return hubert(audio, time_dim), speaker(audio)
 
     def slm_loss(self, audio_gt: torch.Tensor, audio_pred: torch.Tensor
                  ) -> torch.Tensor:
@@ -343,6 +406,69 @@ def _alignment_losses(ctx: StageContext, state: TrainState, batch, **hooks):
     return {"align_loss": loss}, (prior_sum, n_frames)
 
 
+def _hubert_acoustic_losses(ctx: StageContext, state: TrainState, batch,
+                            **hooks):
+    """The acoustic losses with the frozen HuBERT features in place of the
+    aligned text and the speaker vector in place of the style: the hubert
+    speech predictor (with its posterior and flow terms) on the ground-truth
+    pitch, and the hubert pitch/energy predictor."""
+    mel, mel_length, energy = ctx.mel_and_energy(batch["audio_gt"])
+    phones, spk_emb = ctx.ssl_features(batch["audio_gt"], mel.shape[1])
+    pred = ctx.apply(state, "hubert_speech_predictor", phones, mel_length,
+                     spk_emb, batch["pitch"][:, :mel.shape[1]], energy,
+                     batch["audio_gt"], **hooks)
+    pred_pitch, pred_energy = ctx.apply(
+        state, "hubert_pitch_energy_predictor", phones, mel_length, spk_emb)
+    spectral, images = _spectral_losses(ctx, batch, pred)
+    metrics = {
+        "mel": spectral["mel"],
+        "slm": ctx.slm_loss(batch["audio_gt"], pred.audio),
+        "mag": spectral["mag"],
+        "phase": spectral["phase"],
+        "pitch": L.smooth_l1_loss(
+            pred_pitch, batch["pitch"][:, :pred_pitch.shape[1]]),
+        "energy": L.smooth_l1_loss(pred_energy, energy),
+    }
+    metrics.update(L.normalizing_flow_losses(pred))
+    return metrics, images
+
+
+def _cfm_mel_losses(ctx: StageContext, state: TrainState, batch,
+                    generator: Optional[torch.Generator] = None,
+                    cfm_draws: Optional[dict] = None, **hooks):
+    """The OT-CFM loss of the mel decoder (in f32) on the frozen features:
+    t, z, the condition-drop uniforms, the TREAD route and the sine
+    source's noise from ``generator``, or from ``cfm_draws``."""
+    mel, energy, pitch = ctx.cfm_mel_features(batch["audio_gt"],
+                                              batch["pitch"])
+    phones, spk_emb = ctx.ssl_features(batch["audio_gt"], mel.shape[1])
+    decoder = state.models["cfm_mel_decoder"]
+    conds = dict(asr=phones, f0=pitch, energy=energy, spk_emb=spk_emb)
+    draws = cfm_draws
+    if draws is None:
+        draws = decoder.draw(mel.shape[0], mel.shape[1], mel.device,
+                             generator)
+    sampler = CfmMelDecoderWrapper(decoder, draws).sampler()
+    if cfm_draws is None:
+        draws.update(sampler.draw(mel, conds, generator))
+    pred, target = sampler.compute_pred_target(mel, draws=draws, **conds)
+    return {"mel_l2": torch.mean((pred - target) ** 2)}, None
+
+
+def _cfm_pitch_losses(ctx: StageContext, state: TrainState, batch,
+                      **hooks):
+    """MSE of the CFM pitch predictor against the log2 z-scored F0
+    (unvoiced frames at 0), from the frozen HuBERT features at the pitch
+    track's frames and the model's mel."""
+    mel, _, _ = ctx.mel_and_energy(batch["audio_gt"])
+    phones, _ = ctx.ssl_features(batch["audio_gt"], batch["pitch"].shape[1])
+    f0 = batch["pitch"]
+    normed = norm_f0_zscore(f0, f0 == 0, ctx.f0_log2_mean, ctx.f0_log2_std)
+    pred = ctx.apply(state, "cfm_pitch_predictor", phones, mel)
+    return {"normed_pitch_l2": torch.mean(
+        (pred[:, :normed.shape[1]] - normed) ** 2)}, None
+
+
 STAGES["alignment"] = StageType(
     next_stage=None,
     compute_losses=_alignment_losses,
@@ -400,22 +526,40 @@ STAGES["joint"] = StageType(
     inputs=INPUTS,
 )
 
-# the stages of the JAX package that the port does not run yet, and the
-# queue item that ports each
-NOT_PORTED = {
-    "hubert_acoustic": "Queue 1 item 7 (experimental stages)",
-    "cfm_hubert_mel": "Queue 1 item 7 (experimental stages)",
-    "cfm_hubert_pitch": "Queue 1 item 7 (experimental stages)",
-}
+STAGES["hubert_acoustic"] = StageType(
+    next_stage=None,
+    compute_losses=_hubert_acoustic_losses,
+    train_models=["hubert_speech_predictor", "hubert_pitch_energy_predictor"],
+    eval_models=[],
+    discriminators=["mrd"],
+    inputs=INPUTS,
+)
+# the hubert encoder is listed as trained but no loss applies it: AdamW's
+# decoupled decay alone moves it, as in the JAX package
+STAGES["cfm_hubert_mel"] = StageType(
+    next_stage=None,
+    compute_losses=_cfm_mel_losses,
+    train_models=["cfm_mel_decoder", "hubert_encoder"],
+    eval_models=[],
+    discriminators=[],
+    inputs=INPUTS,
+)
+STAGES["cfm_hubert_pitch"] = StageType(
+    next_stage=None,
+    compute_losses=_cfm_pitch_losses,
+    train_models=["cfm_pitch_predictor"],
+    eval_models=[],
+    discriminators=[],
+    inputs=INPUTS,
+)
+# the stages on the frozen HuBERT and speaker nets
+SSL_STAGES = ("hubert_acoustic", "cfm_hubert_pitch", "cfm_hubert_mel")
 
 
 def check_stage(name: str) -> StageType:
-    """The stage ``name``; raises for a stage the port does not run."""
+    """The stage ``name``; raises for a name that is no stage."""
     if name in STAGES:
         return STAGES[name]
-    if name in NOT_PORTED:
-        raise NotImplementedError(
-            f"stage {name!r} is not ported yet: {NOT_PORTED[name]}")
     raise ValueError(f"invalid stage {name!r}; valid: {list(STAGES)}")
 
 
@@ -534,8 +678,14 @@ def make_eval_step(stage_name: str, ctx: StageContext):
     from the predicted ones (``style`` and ``joint`` with the text style
     vector, and a ``style`` metric); ``duration`` runs the whole inference
     path: predicted durations -> alignment at the batch's frame count ->
-    pitch and energy -> speech.  The speech predictor's noise comes from
-    ``generator`` or the hooks."""
+    pitch and energy -> speech.  ``hubert_acoustic`` synthesizes from the
+    frozen features and the ground-truth pitch, ``cfm_hubert_pitch``
+    predicts the normalised F0, ``cfm_hubert_mel`` solves the CFM ODE in
+    ``CFM_EVAL_STEPS`` Euler steps from noise and auditions the mel through
+    Vocos (Vocos features and weights given) or Griffin-Lim.  The speech
+    predictor's noise comes from ``generator`` or the hooks; the CFM
+    solve's noise, its sine source's noise and Griffin-Lim's phase from
+    ``generator`` or ``cfm_draws`` ({"z", "noise", "phase"})."""
     check_stage(stage_name)
 
     @torch.no_grad()
@@ -544,7 +694,10 @@ def make_eval_step(stage_name: str, ctx: StageContext):
         for module in state.models.values():
             module.eval()
         text, lengths = batch["text"], batch["text_length"]
-        if stage_name == "alignment":
+        if stage_name in SSL_STAGES:
+            metrics, audio = _ssl_eval(stage_name, ctx, state, batch,
+                                       generator, **hooks)
+        elif stage_name == "alignment":
             mel, mel_length = calculate_mel(
                 batch["audio_gt"], ctx.to_align_mel, ctx.mel_mean,
                 ctx.mel_std)
@@ -611,6 +764,71 @@ def make_eval_step(stage_name: str, ctx: StageContext):
         return metrics, audio
 
     return step
+
+
+def _ssl_eval(stage_name: str, ctx: StageContext, state: TrainState,
+              batch, generator: Optional[torch.Generator] = None,
+              cfm_draws: Optional[dict] = None, **hooks):
+    """(metrics, audio or None) of an experimental stage's validation."""
+    audio_gt = batch["audio_gt"]
+    if stage_name == "hubert_acoustic":
+        mel, mel_length, energy = ctx.mel_and_energy(audio_gt)
+        phones, spk_emb = ctx.ssl_features(audio_gt, mel.shape[1])
+        pred = ctx.apply(state, "hubert_speech_predictor", phones,
+                         mel_length, spk_emb,
+                         batch["pitch"][:, :mel.shape[1]], energy, None,
+                         generator=generator, **hooks)
+        pred_pitch, pred_energy = ctx.apply(
+            state, "hubert_pitch_energy_predictor", phones, mel_length,
+            spk_emb)
+        t_mag, p_mag, _, _, _, _ = ctx.multi_spectrogram(target=audio_gt,
+                                                         pred=pred.audio)
+        return {
+            "mel": L.multi_resolution_stft_loss(t_mag, p_mag),
+            "pitch": L.smooth_l1_loss(
+                pred_pitch, batch["pitch"][:, :pred_pitch.shape[1]]),
+            "energy": L.smooth_l1_loss(pred_energy, energy),
+        }, pred.audio
+    if stage_name == "cfm_hubert_pitch":
+        mel, _, _ = ctx.mel_and_energy(audio_gt)
+        phones, _ = ctx.ssl_features(audio_gt, batch["pitch"].shape[1])
+        f0 = batch["pitch"]
+        normed = norm_f0_zscore(f0, f0 == 0, ctx.f0_log2_mean,
+                                ctx.f0_log2_std)
+        pred = ctx.apply(state, "cfm_pitch_predictor", phones, mel)
+        return {"normed_pitch_l2": torch.mean(
+            (pred[:, :normed.shape[1]] - normed) ** 2)}, None
+    # cfm_hubert_mel
+    mc = ctx.model_config
+    mel, energy, pitch = ctx.cfm_mel_features(audio_gt, batch["pitch"])
+    phones, spk_emb = ctx.ssl_features(audio_gt, mel.shape[1])
+    decoder = state.models["cfm_mel_decoder"]
+    draws = cfm_draws or {}
+    z = draws.get("z")
+    if z is None:
+        z = torch.randn(mel.shape, generator=generator, device=mel.device)
+    noise = draws.get("noise")
+    if noise is None:
+        noise = decoder.draw(mel.shape[0], mel.shape[1], mel.device,
+                             generator)["noise"]
+    sampler = CfmMelDecoderWrapper(decoder, {"noise": noise}).sampler()
+    mel_pred = sampler.sample(z, CFM_EVAL_STEPS, asr=phones, f0=pitch,
+                              energy=energy, spk_emb=spk_emb)
+    metrics = {"mel_l2": torch.mean((mel_pred - mel) ** 2),
+               "mel_l1": torch.mean(torch.abs(mel_pred - mel))}
+    vocos_space = mc.cfm_mel_features == "vocos"
+    if vocos_space and ctx.vocos is not None:
+        audio = ctx.vocos(mel_pred * ctx.mel_std + ctx.mel_mean)
+    else:
+        gl = (dict(n_fft=VOCOS_N_FFT, win_length=VOCOS_N_FFT,
+                   hop_length=VOCOS_HOP, power=1.0) if vocos_space else
+              dict(n_fft=mc.n_fft, win_length=mc.win_length,
+                   hop_length=mc.hop_length))
+        audio = mel_to_audio(mel_pred, sample_rate=mc.sample_rate,
+                             mean=ctx.mel_mean, std=ctx.mel_std,
+                             generator=generator, phase=draws.get("phase"),
+                             **gl)
+    return metrics, audio
 
 
 @torch.no_grad()

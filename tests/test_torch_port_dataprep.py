@@ -303,6 +303,6 @@ def test_cli_pitch_matches_jax(tmp_path, tracks, capsys):
         assert both.any()
         assert np.max(np.abs(got[key][both] - want[key][both])
                       / want[key][both]) <= F0_REL
-    with pytest.raises(NotImplementedError, match="item 7"):
+    with pytest.raises(NotImplementedError, match="item 6"):
         main(["pitch", "--config", str(tmp_path / "c.json"), "--method",
               "rmvpe", "--device", "cpu"])
