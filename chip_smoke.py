@@ -169,9 +169,41 @@ Phases, in order; any failure raises and the exit code is non-zero:
    ``hubert_acoustic`` step at full width on 1 x 64 frames on the CPU and
    on the card, its metrics within STEP_TOL.  Each run's seconds and each
    step's wall ms (first visit of its shape, or warm) printed;
-11. one JSON line of every kernel's numbers, with its launches on the path
-   that runs it (per train step, acoustic, joint and each experimental
-   run, synthesis request or probe run), then the result line.
+11. the ringformer head, data parallelism and the MPD, at the full-width
+   default ModelConfig with ``generator: {type: ringformer}`` (decoder
+   512, conformer depth 2, upsampling 4 x 5, iSTFT 60/15) on phase 7's
+   dataset: first the STFT kernel's DFT path at the head's 60/15/60 on
+   [8, 138000], held against its plain version and torch.stft and timed
+   beside them and its bound; then CLI ``train --stage acoustic`` through
+   the CLI's ``main`` for RING_STEPS steps (batches of up to RING_BATCH,
+   the heuristic plan) with a validation at the last, a hook at the
+   stage's start setting the launch counts (the STFT's launches at each
+   n_fft too) to 0.  Checked: every trained model and the MRD moved, the
+   conformers' batch-norm running stats moved, finite metrics and
+   validation losses, the validation audio finite, not silent and F x 300
+   samples long, every step and eval batch launched the STFT (at n_fft 60:
+   its DFT path) and the spec-conv kernels as RING_STFT and the MRD's 12
+   layers give.  The same run again with ``--distributed``, a world of one
+   on NCCL joined from torchrun's environment (a free port), both runs
+   under deterministic algorithms (cuDNN's and torch's deterministic
+   mode; the ops torch warns of printed): the same batches, every step's
+   metrics, every model's weights and its batch stats equal to the first
+   run's (RING_RUN_TOL); the
+   collectives a step counted and one NCCL all-reduce of each trained
+   module's gradient bucket timed.  The head's log-amplitude conv is at a
+   trained model's level in both runs (RING_POST_SCALE).  Then the STFT (both paths) and the
+   spec-conv kernels held against their plain versions at every batch
+   shape the runs took; one f32 ringformer step at full width on 1 x 64
+   frames on the CPU and on the card within STEP_TOL; last the MPD: a
+   seeded reference state dict through CLI ``import-torch --model mpd``
+   (every tensor of the loaded MPD equal to its source), its forward and
+   backward at [8, 138000] f32 on the card timed, and held against the
+   CPU at MPD_CPU_SHAPE within MPD_TOL.  Each run's seconds and each
+   step's wall ms printed;
+12. one JSON line of every kernel's numbers, with its launches on the path
+   that runs it (per train step, acoustic, joint, each experimental run
+   and the ringformer step, synthesis request or probe run; the STFT's DFT
+   path an entry of its own, per ringformer step), then the result line.
 
 ``--profile`` adds torch.profiler breakdowns of one batch request and of
 one train step: device time by kernel, the port's own kernels' totals,
@@ -282,6 +314,38 @@ EXPERIMENTAL_STFT = {
     "cfm_hubert_mel": {"train": 1, "eval": 1 + GRIFFIN_LIM_ITERS},
     "cfm_hubert_mel_vocos": {"train": 1, "eval": 1},
 }
+# the ringformer phase on phase 7's dataset: CLI train of the acoustic
+# stage with the ringformer head for RING_STEPS steps of batches of up to
+# RING_BATCH (the heuristic plan), a validation at the last; the head's
+# iSTFT grid (n_fft = win, hop), served by the STFT's DFT path.  STFT
+# launches of its train step: the mel, the 6 spectrograms and the
+# posterior encoder's input (at hop 300), the source's and the magphase
+# target's at RING_N_FFT; of its eval batch: the mel, the 6 spectrograms
+# and the source
+RING_STEPS, RING_BATCH = 4, 8
+RING_N_FFT, RING_HOP = 60, 15
+RING_STFT = {"train": {"all": 1 + 2 * 3 + 1 + 2, "dft": 2},
+             "eval": {"all": 1 + 2 * 3 + 1, "dft": 1}}
+# the distributed run against the plain one, both under
+# deterministic_algorithms: every step's metrics and the final weights and
+# batch stats (relative to each model's largest) within RING_RUN_TOL, that
+# is equal: a world of one adds only exact operations (a sum over one
+# rank, a division by 1).  Without deterministic algorithms two plain runs
+# of these bf16 steps differ by up to 3.7e-3 at step 4 (mel), as cuDNN's
+# algorithms accumulate in no fixed order
+RING_RUN_TOL = 0.0
+# the leaves of the batch-stats collections: batch norms' running moments
+# and spectral norms' vectors
+BATCH_STATS = ("mean", "var", "u", "sigma")
+# the head's conv_post weights at a trained model's level, as phase 4
+# sets synthesis's heads: drawn at full width, exp(logamp) reaches 1e4 and
+# the GAN losses 1e9-1e12 (measured on an H100)
+RING_POST_SCALE = 0.05
+# the MPD's forward and backward on the card at the train step's audio,
+# and on the CPU and the card at a cut (the CPU's f32 convs at 1024
+# channels would take minutes at the full shape); relative bound between
+# them (f32 convs summed in another order, TF32 off)
+MPD_SHAPE, MPD_CPU_SHAPE, MPD_TOL = (8, 138000), (1, 12000), 1e-3
 
 
 def card_line() -> str:
@@ -375,11 +439,12 @@ def stft_numbers(x: torch.Tensor, n_fft: int, hop: int, win: int,
     kernel_device_ms = device_ms(lambda: stft_forward(x, **kw))
     library_device_ms = device_ms(library)
 
-    # the least the card could take for this function: a real FFT of
-    # n_fft points per frame, about 2.5 * n_fft * log2(n_fft) FLOP (half a
-    # complex radix-2 FFT's 5 N log2 N), plus the window's n_fft products;
-    # bytes are the signal and the window read once and (real, imag)
-    # written once
+    # the least the card could take for this function, whichever path
+    # computes it: a real FFT of n_fft points per frame, about 2.5 * n_fft
+    # * log2(n_fft) FLOP (half a complex radix-2 FFT's 5 N log2 N), plus
+    # the window's n_fft products (the DFT path's 4 n_fft a (frame, bin)
+    # is more work than the function needs); bytes are the signal and the
+    # window read once and (real, imag) written once
     b, t = x.shape
     frames, freq = real.shape[1], real.shape[2]
     flops = b * frames * (2.5 * n_fft * np.log2(n_fft) + n_fft)
@@ -2586,6 +2651,572 @@ def cpu_vs_card_hubert_step(card: str) -> dict:
 
 
 # --------------------------------------------------------------------------- #
+# the ringformer head, data parallelism and the MPD
+
+
+def _ring_counts(kernels) -> dict:
+    """The kernels' launch counts and the STFT's launches at the
+    ringformer's n_fft, which its DFT path serves."""
+    from stylish_tts_tpu_torch.ops.stft_kernel import stft_forward
+
+    return {**_launch_counts(kernels),
+            "stft_dft": stft_forward.launches_by_n_fft.get(RING_N_FFT, 0)}
+
+
+def _ring_recording(make, record: list, kernels):
+    """``make`` whose steps append each call's launches (the STFT's DFT
+    path apart), collectives, wall ms, batch shape and, for an eval step's
+    audio, its shape, peak and finiteness to ``record``."""
+    from stylish_tts_tpu_torch.parallel import mesh
+
+    def wrapped(*args, **kwargs):
+        fn = make(*args, **kwargs)
+
+        def step(state, batch, *a, **k):
+            before, coll = _ring_counts(kernels), dict(mesh.COLLECTIVES)
+            t0 = time.perf_counter()
+            out = fn(state, batch, *a, **k)
+            torch.cuda.synchronize()
+            entry = {"ms": (time.perf_counter() - t0) * 1e3,
+                     "shape": list(batch["audio_gt"].shape),
+                     "launches": {n: c - before[n] for n, c in
+                                  _ring_counts(kernels).items()},
+                     "collectives": {n: c - coll.get(n, 0) for n, c in
+                                     mesh.COLLECTIVES.items()}}
+            audio = out[1] if isinstance(out[1], torch.Tensor) else None
+            if audio is not None:
+                entry["audio"] = {"shape": list(audio.shape),
+                                  "max_abs": float(audio.abs().max()),
+                                  "finite": bool(torch.isfinite(audio)
+                                                 .all())}
+            record.append(entry)
+            return out
+
+        return step
+
+    return wrapped
+
+
+def _ring_hook(kernels, record: dict):
+    """The run's ``on_stage``: at the start the head's log-amplitude conv
+    is brought to a trained model's level (RING_POST_SCALE), the launch
+    counts go to 0, the models (the conformers' running stats with them)
+    are copied to the host and each model's trained parameters counted;
+    at the end each model's moved tensors are listed."""
+    from stylish_tts_tpu_torch.ops.stft_kernel import stft_forward
+
+    def hook(event: str, stage: str, state) -> None:
+        torch.cuda.synchronize()
+        record["events"].append([event, stage])
+        if event == "start":
+            with torch.no_grad():
+                state.models["speech_predictor"].generator.conv_post \
+                    .weight.mul_(RING_POST_SCALE)
+            for k in kernels:
+                k.launches = 0
+            stft_forward.launches_by_n_fft.clear()
+            record["start"] = {k: {n: t.cpu().clone() for n, t in
+                                   m.state_dict().items()}
+                               for k, m in state.models.items()}
+            record["numels"] = {k: sum(p.numel() for p in m.parameters()
+                                       if p.requires_grad)
+                                for k, m in state.models.items()}
+        elif event == "end":
+            record["launches"] = _ring_counts(kernels)
+            record["moved"] = {
+                key: [n for n, t in m.state_dict().items()
+                      if not torch.equal(t.cpu(), record["start"][key][n])]
+                for key, m in state.models.items()}
+
+    return hook
+
+
+@contextlib.contextmanager
+def deterministic_algorithms():
+    """cuDNN's deterministic algorithms and torch's deterministic mode
+    (warn only) while the block runs; yields the sorted list, filled at
+    the end, of the ops torch warned have no deterministic implementation
+    here."""
+    import os
+    import warnings
+
+    saved = (torch.backends.cudnn.deterministic,
+             torch.backends.cudnn.benchmark,
+             torch.are_deterministic_algorithms_enabled(),
+             torch.is_deterministic_algorithms_warn_only_enabled(),
+             os.environ.get("CUBLAS_WORKSPACE_CONFIG"))
+    # cuBLAS is deterministic on one stream; torch asks for this setting
+    # before it says so
+    os.environ["CUBLAS_WORKSPACE_CONFIG"] = ":4096:8"
+    torch.backends.cudnn.deterministic = True
+    torch.backends.cudnn.benchmark = False
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    warned: list = []
+    seen: set = set()
+    try:
+        with warnings.catch_warnings():
+            warnings.simplefilter("always")
+            warnings.showwarning = lambda message, *a, **k: seen.add(
+                str(message).split(" does not have")[0][:200]) \
+                if "deterministic" in str(message) else None
+            yield warned
+    finally:
+        torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark \
+            = saved[:2]
+        torch.use_deterministic_algorithms(saved[2], warn_only=saved[3])
+        if saved[4] is None:
+            os.environ.pop("CUBLAS_WORKSPACE_CONFIG", None)
+        else:
+            os.environ["CUBLAS_WORKSPACE_CONFIG"] = saved[4]
+        warned.extend(sorted(seen))
+
+
+def _ring_run(root: Path, data: Path, name: str, kernels, card: str,
+              extra: list) -> dict:
+    """CLI ``train --stage acoustic`` with the ringformer head at full
+    width on ``data`` for RING_STEPS steps, a validation at the last; the
+    run's record (steps, launches, collectives, moved tensors, stats)."""
+    import functools
+
+    from stylish_tts_tpu_torch import cli
+    from stylish_tts_tpu_torch.config import (Config, ModelConfig,
+                                              RingformerGeneratorConfig,
+                                              dump_json)
+    from stylish_tts_tpu_torch.train import loop
+
+    mc = ModelConfig()
+    mc.generator = RingformerGeneratorConfig()
+    cfg = Config()
+    cfg.dataset.path = str(data)
+    plan = cfg.training_plan.acoustic
+    plan.epochs, plan.probe_batch_max = 1, RING_BATCH
+    cfg.training.log_interval = 1
+    cfg.training.val_interval = RING_STEPS
+    cfg.training.save_interval = 10 ** 6
+    cfg.training.aot_memory_plan = False
+    (root / "config.json").write_text(dump_json(cfg))
+    (root / "model.json").write_text(dump_json(mc))
+    out = root / f"out_{name}"
+    rec: dict = {"events": []}
+    train_calls, eval_calls = [], []
+    originals = (loop.train_model, loop.make_train_step, loop.make_eval_step)
+    loop.train_model = functools.partial(originals[0],
+                                         on_stage=_ring_hook(kernels, rec))
+    loop.make_train_step = _ring_recording(originals[1], train_calls,
+                                           kernels)
+    loop.make_eval_step = _ring_recording(originals[2], eval_calls, kernels)
+    t0 = time.perf_counter()
+    try:
+        cli.main(["train", "--config", str(root / "config.json"),
+                  "--model-config", str(root / "model.json"), "--out",
+                  str(out), "--stage", "acoustic", "--max-steps",
+                  str(RING_STEPS), *extra])
+    finally:
+        loop.train_model, loop.make_train_step, loop.make_eval_step = \
+            originals
+    rec["seconds"] = time.perf_counter() - t0
+    stats = json.loads((out / "acoustic" / "train_stats.json").read_text())
+    if rec["events"] != [["start", "acoustic"], ["planned", "acoustic"],
+                         ["end", "acoustic"]] or stats["steps"] != \
+            RING_STEPS or len(train_calls) != RING_STEPS:
+        raise AssertionError(f"ringformer {name}: events {rec['events']}, "
+                             f"{stats['steps']} steps")
+    rec.update(stats=stats, train_calls=train_calls, eval_calls=eval_calls,
+               out=out)
+    return rec
+
+
+def _check_ring_run(name: str, rec: dict, hop: int) -> dict:
+    """The run's checks (models moved, the conformers' running stats
+    moved, finite metrics, validation audio finite, not silent and F x 300
+    samples long, the launches of every step and eval batch); returns its
+    step and eval launches."""
+    from stylish_tts_tpu_torch.train.stages import STAGES
+
+    stats = rec["stats"]
+    st = STAGES["acoustic"]
+    for key in st.train_models + st.discriminators:
+        if not rec["moved"][key]:
+            raise AssertionError(f"ringformer {name}: {key} did not move")
+    bn = [n for n in rec["moved"]["speech_predictor"]
+          if ".conv.bn." in n and n.endswith((".mean", ".var"))]
+    if not bn:
+        raise AssertionError(f"ringformer {name}: no conformer running "
+                             f"stat moved")
+    values = [e["loss"] for e in stats["logs"]] + [
+        v for e in stats["logs"] for v in e["metrics"].values()] + [
+        v["loss"] for v in stats["validations"]] + [
+        m for v in stats["validations"] for m in v["metrics"].values()]
+    if len(stats["validations"]) != 1 or not all(np.isfinite(values)):
+        raise AssertionError(f"ringformer {name}: validations "
+                             f"{stats['validations']}, non-finite metrics")
+    per_layer = {f"spec_conv_{n}": k * len(mrd_layers())
+                 for n, k in LAUNCHES_PER_LAYER.items()}
+    want_train = {"stft_forward": RING_STFT["train"]["all"],
+                  "stft_dft": RING_STFT["train"]["dft"], **per_layer}
+    want_eval = {"stft_forward": RING_STFT["eval"]["all"],
+                 "stft_dft": RING_STFT["eval"]["dft"],
+                 **{k: 0 for k in per_layer}}
+    for i, call in enumerate(rec["train_calls"]):
+        if call["launches"] != want_train:
+            raise AssertionError(f"ringformer {name} step {i} launched "
+                                 f"{call['launches']}, want {want_train}")
+    if not rec["eval_calls"]:
+        raise AssertionError(f"ringformer {name}: no eval batch")
+    for i, call in enumerate(rec["eval_calls"]):
+        if call["launches"] != want_eval:
+            raise AssertionError(f"ringformer {name} eval batch {i} "
+                                 f"launched {call['launches']}, want "
+                                 f"{want_eval}")
+        frames = call["shape"][1] // hop + 1
+        length = (frames - frames % 2) * hop
+        audio = call["audio"]
+        if audio["shape"] != [call["shape"][0], length] or not \
+                audio["finite"] or not audio["max_abs"] > 0:
+            raise AssertionError(f"ringformer {name}: eval audio {audio}, "
+                                 f"want {length} samples")
+    return {"train": want_train, "eval": want_eval, "bn_moved": len(bn)}
+
+
+def _read_models(ckpt: Path) -> dict:
+    from stylish_tts_tpu_torch.utils.tensorfile import read_safetensors
+
+    return {p.stem: read_safetensors(p)
+            for p in sorted((ckpt / "models").glob("*.safetensors"))}
+
+
+def ring_numbers(device, card: str, flush: torch.Tensor) -> dict:
+    """The STFT's DFT path at the ringformer step's 60/15/60 on [8,
+    138000]: held against the plain version and torch.stft, timed beside
+    them and its bound."""
+    x = torch.from_numpy(np.random.default_rng(80).standard_normal(
+        (TRAIN_BATCH, TRAIN_FRAMES * 300)).astype(np.float32)).to(device)
+    r = stft_numbers(x, RING_N_FFT, RING_HOP, RING_N_FFT, flush)
+    print(f"stft DFT path n_fft={RING_N_FFT} hop={RING_HOP} "
+          f"win={RING_N_FFT} x={r['shape']}: {stft_line(r)} [{card}]")
+    return r
+
+
+def cpu_vs_card_ring_step(card: str) -> dict:
+    """One f32 ringformer acoustic step at full width on 1 x 64 frames from
+    the same weights on the CPU (plain versions) and on the card (kernels),
+    dropout off, latent means and the same source draws; the metrics
+    compared under STEP_TOL; the head's log-amplitude conv at
+    RING_POST_SCALE, as in the runs.  The F0 is on the 24000/512 Hz grid,
+    unvoiced for 3 frames, and the source's draws are 0 under STFT frame
+    0, so the source is 0 there on both devices (the frame is real, its
+    phase 0 or pi by the sign of a rounding otherwise)."""
+    import copy
+
+    from stylish_tts_tpu_torch.config import (Config, ModelConfig,
+                                              RingformerGeneratorConfig)
+    from stylish_tts_tpu_torch.models.norms import Dropout
+    from stylish_tts_tpu_torch.train.init import (build_training_models,
+                                                  init_params)
+
+    mc = ModelConfig()
+    mc.generator = RingformerGeneratorConfig()
+    cfg = Config()
+    cfg.training.mixed_precision = "no"
+    keys = ("speech_predictor", "pitch_energy_predictor", "pe_text_encoder",
+            "pe_mel_style_encoder", "mrd")
+    built = build_training_models(mc, keys)
+    gen = torch.Generator().manual_seed(81)
+    models = {k: init_params(built[k], gen) for k in keys}
+    for model in models.values():
+        for m in model.modules():
+            if isinstance(m, Dropout):
+                m.rate = 0.0
+    with torch.no_grad():
+        models["speech_predictor"].generator.conv_post.weight.mul_(
+            RING_POST_SCALE)
+    frames = 64
+    batch = synthetic_batch(mc, 1, frames, 82)
+    step_hz = mc.sample_rate / 512
+    pitch = np.clip(np.round(batch["pitch"] / step_hz), 2, 6) * step_hz
+    pitch[:, :3] = 0.0
+    batch["pitch"] = pitch.astype(np.float32)
+    batch["audio_gt"][:, :mc.n_fft // 2 + 1] = 0.0
+    rng = np.random.default_rng(83)
+    samples = frames * mc.hop_length
+    draws = {"phase": rng.random((1, 1, 9)).astype(np.float32),
+             "noise": rng.standard_normal((1, samples, 9)).astype(
+                 np.float32),
+             "noise_uv": rng.standard_normal((1, samples, 9)).astype(
+                 np.float32)}
+    for key in ("noise", "noise_uv"):
+        draws[key][:, :2 * RING_N_FFT] = 0.0
+    results = {}
+    for device in ("cpu", "cuda"):
+        state, step = train_setup(mc, cfg, device, seed=84,
+                                  models=copy.deepcopy(models))
+        _, metrics = step(state, on_device(batch, device), sample=False,
+                          nsf_draws=on_device(draws, device))
+        results[device] = {k: v.item() for k, v in metrics.items()}
+        del state, step
+    rel = {}
+    for key, bound in STEP_TOL.items():
+        a, b = results["cpu"][key], results["cuda"][key]
+        rel[key] = abs(a - b) / max(abs(a), 1e-30)
+        if not rel[key] <= bound:
+            raise AssertionError(f"ringformer step cpu vs card {key}: {a} "
+                                 f"vs {b}")
+    print(f"full-width ringformer step f32 on 1 x 64 frames, cpu vs card: "
+          f"relative differences {json.dumps(rel)} [{card}]")
+    return {"metrics": results, "relative_difference": rel}
+
+
+def _free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def allreduce_ms(device, numels: dict) -> dict:
+    """Device ms of one NCCL all-reduce of each trained module's flat
+    gradient bucket (f32, ``numels``), median of 10 by CUDA events."""
+    import torch.distributed as dist
+
+    out = {}
+    for key, n in numels.items():
+        buf = torch.zeros(n, device=device)
+        out[key] = time_ms(lambda: dist.all_reduce(buf))
+    return out
+
+
+def mpd_path(device, card: str, root: Path) -> dict:
+    """The MPD: a seeded reference state dict through CLI ``import-torch
+    --model mpd``, the file loaded into the port's MPD (every tensor equal
+    to its source); forward and backward at [8, 138000] f32 on the card,
+    timed; the same on the CPU and on the card at MPD_CPU_SHAPE, held
+    within MPD_TOL."""
+    import copy
+
+    from stylish_tts_tpu_torch import cli
+    from stylish_tts_tpu_torch.export.import_torch import \
+        load_converted_module
+    from stylish_tts_tpu_torch.models.discriminator import \
+        MultiPeriodDiscriminator
+    from stylish_tts_tpu_torch.train.init import init_params
+    from stylish_tts_tpu_torch.utils.synthetic import reference_state_dict
+
+    t0 = time.perf_counter()
+    source = init_params(MultiPeriodDiscriminator(),
+                         torch.Generator().manual_seed(90))
+    sd = reference_state_dict("mpd", source)
+    path = root / "pytorch_model_5.bin"
+    torch.save({k: torch.from_numpy(np.ascontiguousarray(v))
+                for k, v in sd.items()}, path)
+    cli.main(["import-torch", "--checkpoint", str(path), "--out",
+              str(root / "mpd_out"), "--model", "mpd"])
+    mpd = load_converted_module(root / "mpd_out" / "mpd.safetensors", "mpd",
+                                MultiPeriodDiscriminator())
+    want = source.state_dict()
+    for k, t in mpd.state_dict().items():
+        if not torch.equal(t, want[k]):
+            raise AssertionError(f"mpd: {k} is not its source's")
+    import_s = time.perf_counter() - t0
+
+    def loss_of(model, target, pred):
+        real, gen, fr, fg = model(target, pred)
+        loss = sum(torch.mean((1 - r) ** 2) + torch.mean(g ** 2)
+                   for r, g in zip(real, gen))
+        return loss + sum(torch.mean(torch.abs(a - b))
+                          for x, y in zip(fr, fg) for a, b in zip(x, y))
+
+    def run(model, target, pred):
+        model.zero_grad(set_to_none=True)
+        pred = pred.clone().requires_grad_()
+        loss = loss_of(model, target, pred)
+        loss.backward()
+        return loss.detach(), pred.grad
+
+    rng = np.random.default_rng(91)
+    card_mpd = copy.deepcopy(mpd).to(device)
+    big = [torch.from_numpy((0.3 * rng.standard_normal(MPD_SHAPE))
+                            .astype(np.float32)).to(device)
+           for _ in range(2)]
+    ms = time_ms(lambda: run(card_mpd, *big), iters=3)
+    loss_big, _ = run(card_mpd, *big)
+    if not torch.isfinite(loss_big):
+        raise AssertionError(f"mpd loss at {MPD_SHAPE}: {loss_big}")
+    del big
+    small = [(0.3 * rng.standard_normal(MPD_CPU_SHAPE)).astype(np.float32)
+             for _ in range(2)]
+    got = run(card_mpd, *(torch.from_numpy(a).to(device) for a in small))
+    ref = run(mpd, *(torch.from_numpy(a) for a in small))
+    err = {"loss": abs(float(got[0]) - float(ref[0])) / abs(float(ref[0])),
+           "d_pred": float((got[1].cpu() - ref[1]).abs().max()
+                           / ref[1].abs().max())}
+    w = "period_2.conv_4.weight"
+    gw = dict(card_mpd.named_parameters())[w].grad.cpu()
+    rw = dict(mpd.named_parameters())[w].grad
+    err["d_" + w] = float((gw - rw).abs().max() / rw.abs().max())
+    if not all(v <= MPD_TOL for v in err.values()):
+        raise AssertionError(f"mpd cpu vs card: {err}")
+    del card_mpd
+    torch.cuda.empty_cache()
+    print(f"mpd: import-torch --model mpd and load {import_s:.1f} s "
+          f"({len(want)} tensors equal); forward + backward at {MPD_SHAPE} "
+          f"f32 {ms:.1f} ms; cpu vs card at {MPD_CPU_SHAPE}: relative "
+          f"{json.dumps({k: float(f'{v:.3e}') for k, v in err.items()})} "
+          f"[{card}]")
+    return {"import_s": import_s, "tensors": len(want),
+            "shape": list(MPD_SHAPE), "fwd_bwd_ms": ms,
+            "cpu_vs_card": err, "cpu_shape": list(MPD_CPU_SHAPE)}
+
+
+def ringformer_path(device, card: str, kernels, data: Path,
+                    flush: torch.Tensor) -> dict:
+    """The ringformer head, data-parallel training and the MPD at full
+    width on phase 7's dataset ``data``; see the module docstring, phase
+    11."""
+    import os
+    import tempfile
+
+    import torch.distributed as dist
+
+    from stylish_tts_tpu_torch.parallel import mesh
+    from stylish_tts_tpu_torch.parallel.multihost import (
+        initialize_distributed, shutdown_distributed)
+
+    t_phase = time.perf_counter()
+    hop = 300
+    record: dict = {"card": card, "dft": ring_numbers(device, card, flush)}
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_ring_") as tmp:
+        root = Path(tmp)
+        with deterministic_algorithms() as warned_plain:
+            plain = _ring_run(root, data, "plain", kernels, card, [])
+        record["launches_per_step"] = _check_ring_run("plain", plain, hop)
+        # the same run data-parallel: a world of one on NCCL, joined from
+        # torchrun's environment
+        os.environ.update(RANK="0", WORLD_SIZE="1", LOCAL_RANK="0",
+                          MASTER_ADDR="127.0.0.1",
+                          MASTER_PORT=str(_free_port()))
+        initialize_distributed(device="cuda", timeout_s=300)
+        try:
+            with deterministic_algorithms() as warned_dp:
+                dp = _ring_run(root, data, "distributed", kernels, card,
+                               ["--distributed"])
+            _check_ring_run("distributed", dp, hop)
+            from stylish_tts_tpu_torch.train.stages import STAGES
+
+            st = STAGES["acoustic"]
+            record["allreduce_ms"] = allreduce_ms(
+                device, {k: dp["numels"][k]
+                         for k in st.train_models + st.discriminators})
+        finally:
+            shutdown_distributed()
+            for key in ("RANK", "WORLD_SIZE", "LOCAL_RANK", "MASTER_ADDR",
+                        "MASTER_PORT"):
+                os.environ.pop(key, None)
+        # the two runs: the same batches; every step's metrics, the weights
+        # and the batch stats (running moments, spectral-norm vectors)
+        # within RING_RUN_TOL; checked after the comparison is printed
+        if plain["stats"]["batches"] != dp["stats"]["batches"]:
+            raise AssertionError("ringformer: the distributed run took other "
+                                 "batches")
+        rel, failed = {}, []
+        for i, (a, b) in enumerate(zip(plain["stats"]["logs"],
+                                       dp["stats"]["logs"])):
+            for key in STEP_TOL:
+                x = a["metrics"].get(key, a["loss"] if key == "loss" else None)
+                y = b["metrics"].get(key, b["loss"] if key == "loss" else None)
+                if x is None:
+                    continue
+                r = abs(x - y) / max(abs(x), 1e-30)
+                rel[f"{key}@{i + 1}"] = r
+                if not r <= RING_RUN_TOL:
+                    failed.append(f"step {i + 1} {key}: {x} vs {y}")
+        wa = _read_models(plain["out"] / "acoustic" / "checkpoint_final")
+        wb = _read_models(dp["out"] / "acoustic" / "checkpoint_final")
+        weights, stats_rel = {}, {}
+        for key, tensors in wa.items():
+            for out, names in (
+                    (weights, [n for n in tensors
+                               if n.rsplit("/", 1)[-1] not in BATCH_STATS]),
+                    (stats_rel, [n for n in tensors
+                                 if n.rsplit("/", 1)[-1] in BATCH_STATS])):
+                if not names:
+                    continue
+                scale = max(float(np.abs(tensors[n]).max()) for n in names)
+                worst, name = max((float(np.abs(tensors[n] - wb[key][n])
+                                         .max()), n) for n in names)
+                out[key] = worst / max(scale, 1e-30)
+                out[f"{key} worst"] = name
+                if not out[key] <= RING_RUN_TOL:
+                    failed.append(f"{key}'s {name}: {out[key]:.3e} of its "
+                                  f"largest")
+        coll = [c["collectives"] for c in dp["train_calls"]]
+        for name, rec in (("plain", plain), ("distributed", dp)):
+            seen, first, warm = set(), [], []
+            for call in rec["train_calls"]:
+                key = tuple(call["shape"])
+                (warm if key in seen else first).append(round(call["ms"]))
+                seen.add(key)
+            record[name] = {
+                "seconds": rec["seconds"], "batches": rec["stats"]["batches"],
+                "step_ms": {"first_visit": first, "warm": warm},
+                "eval_ms": [round(c["ms"]) for c in rec["eval_calls"]],
+                "eval_audio": [c["audio"] for c in rec["eval_calls"]],
+                "logs": rec["stats"]["logs"],
+                "validations": rec["stats"]["validations"]}
+            print(f"ringformer {name}: CLI train {rec['seconds']:.1f} s for "
+                  f"{RING_STEPS} steps {rec['stats']['batches']}, wall ms "
+                  f"first visit {first}, warm {warm or 'none'}; validation "
+                  f"{record[name]['eval_ms']} ms; every step launched "
+                  f"{record['launches_per_step']['train']}, every eval "
+                  f"batch {record['launches_per_step']['eval']}; "
+                  f"{record['launches_per_step']['bn_moved']} conformer "
+                  f"running stats moved [{card}]")
+        record["distributed"].update(collectives_per_step=coll,
+                                     metrics_rel=rel, weights_rel=weights,
+                                     batch_stats_rel=stats_rel)
+        record["nondeterministic_ops"] = {"plain": warned_plain,
+                                          "distributed": warned_dp}
+        def short(d: dict) -> str:
+            return json.dumps({k: float(f"{v:.3e}") if isinstance(
+                v, float) else v for k, v in d.items()})
+
+        buckets = record["allreduce_ms"]
+        print(f"ringformer distributed (NCCL, world 1) vs plain: metrics "
+              f"{short(rel)}, weights {short(weights)}, batch stats "
+              f"{short(stats_rel)}; collectives per "
+              f"step {coll[-1]}; one all-reduce of each module's gradient "
+              f"bucket {short(buckets)} ms ({sum(buckets.values()):.3f} ms "
+              f"a step); both runs under deterministic algorithms, ops "
+              f"torch warned of {json.dumps(record['nondeterministic_ops'])}"
+              f" [{card}]")
+        if failed:
+            raise AssertionError(f"ringformer distributed vs plain: "
+                                 f"{failed}")
+        # the DFT path (and the STFT's and spec-conv kernels' other paths)
+        # against their plain versions at every batch shape the runs took
+        shapes = sorted({tuple(c["shape"]) for rec in (plain, dp)
+                         for c in rec["train_calls"] + rec["eval_calls"]})
+        record["batch_shape_checks"] = batch_shape_checks(shapes, card)
+        record["dft_shape_checks"] = checks = []
+        for s in shapes:
+            x = torch.randn(*s, device=device, generator=torch.Generator(
+                device=device).manual_seed(s[1] + 1))
+            err = stft_error(x, RING_N_FFT, RING_HOP, RING_N_FFT)[2]
+            checks.append({"shape": list(s), "max_abs_err": err})
+            del x
+        print(f"ringformer: the STFT's DFT path held at {RING_N_FFT}/"
+              f"{RING_HOP}/{RING_N_FFT} at the runs' batch shapes {shapes} "
+              f"(max err {max(r['max_abs_err'] for r in checks):.2e}) "
+              f"[{card}]")
+        torch.cuda.empty_cache()
+        record["cpu_vs_card"] = cpu_vs_card_ring_step(card)
+        record["mpd"] = mpd_path(device, card, root)
+    record["seconds"] = time.perf_counter() - t_phase
+    print(f"ringformer phase: {record['seconds']:.1f} s [{card}]")
+    return record
+
+
+# --------------------------------------------------------------------------- #
 # the main path
 
 
@@ -3007,10 +3638,15 @@ def main() -> int:
         # CLI train on seeded weight files of its frozen nets
         record["experimental"] = experimental_path(device, card, kernels,
                                                    data)
+        # 11. the ringformer head (the STFT's DFT path), data-parallel
+        # training and the MPD
+        record["ringformer"] = ringformer_path(device, card, kernels, data,
+                                               flush)
 
-    # 11. results: each kernel's own numbers and its launches on the path
-    # that runs it: per train step (acoustic, and joint and the
-    # experimental runs beside it), or per probe run
+    # 12. results: each kernel's own numbers and its launches on the path
+    # that runs it: per train step (acoustic, and joint, the experimental
+    # runs and the ringformer step beside it), or per probe run; the STFT's
+    # DFT path as an entry of its own, at the ringformer step
     out_dir = Path("chiprun_out")
     out_dir.mkdir(exist_ok=True)
     (out_dir / "chip_smoke.json").write_text(json.dumps(record, indent=1))
@@ -3041,6 +3677,21 @@ def main() -> int:
             "device_ms": n["device_ms"],  # torch.profiler
             "library_device_ms": n["library_device_ms"],
         })
+    ring = record["ringformer"]
+    entries[0]["ringformer_launches"] = {
+        "all": ring["launches_per_step"]["train"]["stft_forward"],
+        "dft_path": ring["launches_per_step"]["train"]["stft_dft"]}
+    n = ring["dft"]
+    entries.insert(1, {
+        "name": "stft_forward_dft", "route": stft_forward.route,
+        "source": stft_forward.source, "replaces": stft_forward.replaces,
+        "launches": ring["launches_per_step"]["train"]["stft_dft"],
+        "per": "ringformer train step", "n_fft": RING_N_FFT,
+        "max_abs_err": n["max_abs_err"], "ms": n["ms"],
+        "plain_ms": n["plain_ms"], "bound_ms": n["bound_ms"],
+        "bound_by": n["bound_by"], "library_ms": n["library_ms"],
+        "device_ms": n["device_ms"],
+        "library_device_ms": n["library_device_ms"]})
     print(card)
     print(json.dumps({"kernels": entries}))
     print(json.dumps({"ok": True, "device": {

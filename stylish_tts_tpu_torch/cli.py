@@ -17,7 +17,12 @@
     python -m stylish_tts_tpu_torch.cli train --config CONFIG.json \\
         --out DIR [--model-config MODEL.json] [--stage acoustic] \\
         [--checkpoint DIR] [--init-torch DIR] [--max-steps N] \\
-        [--reset-stage] [--workers 8] [--device cpu]
+        [--reset-stage] [--workers 8] [--device cpu] \
+        [--distributed [--coordinator HOST:PORT --num-processes N \
+                        --process-id I]]
+
+    torchrun --nproc-per-node N -m stylish_tts_tpu_torch.cli train \
+        --distributed ...
 
     python -m stylish_tts_tpu_torch.cli convert --checkpoint DIR --out DIR
 
@@ -45,7 +50,9 @@ which ``align`` expects in the dataset's directory
 ``--init-torch`` starts it from a torch reference checkpoint (an
 ``accelerator.save_state`` directory, ``train/torch_seed.py``) and
 ``slm.weights_path`` in the model config gives the SLM converted WavLM
-weights; ``convert`` packages the
+weights; ``--distributed`` trains data-parallel, one process per card
+(``parallel/``), each loading its block of every global batch, rank 0
+writing the run's files; ``convert`` packages the
 inference artifact of a training checkpoint (``train/checkpoint.py``),
 reading both configs from its ``meta.json``; ``speak`` synthesizes into a
 16-bit mono WAV file: ``--text`` normalises a text file, splits it into
@@ -175,7 +182,11 @@ def train(args: argparse.Namespace, stage: Optional[str] = None) -> None:
         init_torch=getattr(args, "init_torch", None),
         max_steps=args.max_steps,
         reset_stage=getattr(args, "reset_stage", False),
-        workers=args.workers, device=args.device)
+        workers=args.workers, device=args.device,
+        distributed=getattr(args, "distributed", False),
+        coordinator=getattr(args, "coordinator", None),
+        num_processes=getattr(args, "num_processes", None),
+        process_id=getattr(args, "process_id", None))
     print(f"trained to {manifest.stage} step {manifest.current_total_step} "
           f"({manifest.total_trained_audio_seconds:.1f} s of audio); "
           f"checkpoints in {args.out}")
@@ -196,7 +207,7 @@ def import_torch(args: argparse.Namespace) -> Path:
     else:
         from .device import resolve_device
 
-        module = build_training_models(mc)[args.model]
+        module = build_training_models(mc, [args.model])[args.model]
         load_converted_module(out / f"{args.model}.safetensors", args.model,
                               module).to(resolve_device(args.device))
     return out
@@ -303,6 +314,14 @@ def build_parser() -> argparse.ArgumentParser:
     tp.add_argument("--init-torch", default=None,
                     help="seed the models from a torch reference "
                          "checkpoint directory before training")
+    tp.add_argument("--distributed", action="store_true",
+                    help="data-parallel over processes, one per card "
+                         "(NCCL; gloo on the CPU): torchrun's environment, "
+                         "or the next three options")
+    tp.add_argument("--coordinator", default=None,
+                    help="host:port of process 0 for --distributed")
+    tp.add_argument("--num-processes", type=int, default=None)
+    tp.add_argument("--process-id", type=int, default=None)
     _add_device(tp)
     cp = sub.add_parser("convert",
                         help="package a checkpoint as an inference artifact")

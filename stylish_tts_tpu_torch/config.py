@@ -46,7 +46,7 @@ class FreeGANGeneratorConfig:
 
 @dataclass
 class RingformerGeneratorConfig:
-    """Legacy HiFiGAN-style head; parsed so configs load, not yet ported."""
+    """Legacy HiFiGAN-style head (`models/ringformer.py`)."""
 
     type: str = "ringformer"
     resblock_kernel_sizes: List[int] = field(default_factory=lambda: [3, 7, 11])

@@ -69,7 +69,39 @@
 //  * 32-bit index arithmetic (the wrapper checks that the padded signal's
 //    length fits): fewer registers a thread, so more blocks on an SM.
 //
-// n_fft is a power of two from 256 to 4096.
+// n_fft is a power of two from 256 to 4096 on this FFT path.
+//
+// The DFT path (stft_dft_kernel, below) takes any even n_fft up to 128:
+// the ringformer head's 60-point STFT (hop 15, window 60) of its harmonic
+// source and of its magphase target.  At such sizes an FFT saves little
+// and its radix plan would not fit 60 = 2^2 * 3 * 5, so the kernel takes
+// the windowed DFT as the TPU kernel does, by f32 FMAs over the window's
+// taps:
+//
+//  * The windowed basis [n_fft, 2*(n_fft/2+1)] f32 (cos * w, -sin * w;
+//    the plain version's own table, ops/stft.py:forward_basis, made on the
+//    host and uploaded once per device) is staged once per block, its rows
+//    lo..hi-1 only: 14.6 KB at n_fft 60.
+//  * A block of 256 threads owns DFT_FPB = 128 consecutive frames of one
+//    batch row and stages their span of the reflect-padded signal,
+//    (DFT_FPB-1)*hop + (hi-lo) floats, with coalesced loads, reflecting
+//    while it stages, as the FFT path does.
+//  * Each thread computes one bin of DFT_FR = 4 consecutive frames, real
+//    and imaginary parts together, one tap after another: each tap's two
+//    basis words serve four frames, so a tap costs 6 shared-memory reads
+//    for 8 FMAs (3 for 2 with a (frame, bin) pair a thread).  Neighbouring
+//    threads take neighbouring bins of one frame group, so they read one
+//    span word per frame (a broadcast) and neighbouring basis words, and
+//    their stores to (real, imag) are neighbours: [B, frames, bins] is
+//    written once, coalesced.  Each (frame, bin) sums its taps in order,
+//    as a thread of one pair would.
+//
+// Bound at the ringformer step's [8, 138000] (9,201 frames x 31 bins):
+// 4.42 MB in and 18.26 MB out, 6.77 us at 3.35 TB/s.  The function needs a
+// real FFT's 2.5*60*log2(60) + 60 = 946 FLOP a frame, 0.070 GFLOP, 1.0 us
+// at 67 TFLOP/s f32, so the bytes bound it.  This kernel does the windowed
+// DFT's 2*2*60 FLOP a (frame, bin) pair instead, 7.9x that: 0.548 GFLOP,
+// 8.2 us at the f32 peak.
 
 #include <cuda_runtime.h>
 
@@ -288,7 +320,115 @@ int launch(const void* x, const void* window, const void* tw, void* real,
   return (int)cudaGetLastError();
 }
 
+constexpr int DFT_THREADS = 256;
+constexpr int DFT_FPB = 128;  // frames a block
+constexpr int DFT_FR = 4;     // frames a thread; divides DFT_FPB
+constexpr int DFT_MAX_N_FFT = 128;
+static_assert(DFT_FPB % DFT_FR == 0, "a block holds whole frame groups");
+
+__global__ void __launch_bounds__(DFT_THREADS)
+stft_dft_kernel(const float* __restrict__ x,      // [B, T]
+                const float* __restrict__ basis,  // [n_fft, 2F] windowed
+                float* __restrict__ real,         // [B, frames, F]
+                float* __restrict__ imag,         // [B, frames, F]
+                int T, int frames, int pad, int hop, int n_fft, int lo,
+                int hi) {
+  const int F = n_fft / 2 + 1;
+  const int taps = hi - lo;
+  extern __shared__ __align__(16) float dft_smem[];
+  float* bas = dft_smem;              // [taps][2F]: basis rows lo..hi-1
+  float* span = bas + taps * 2 * F;   // (DFT_FPB-1)*hop + taps samples
+
+  const int b = blockIdx.y;
+  const int f0 = blockIdx.x * DFT_FPB;
+  for (int i = threadIdx.x; i < taps * 2 * F; i += DFT_THREADS)
+    bas[i] = __ldg(basis + lo * 2 * F + i);
+
+  // the padded samples f0*hop + lo + i, reflected at both ends of x, zero
+  // past the padded signal's end (frames past `frames`)
+  const float* xb = x + (size_t)b * T;
+  const int p0 = f0 * hop + lo;
+  const int t_padded = T + 2 * pad;
+  const int span_len = (DFT_FPB - 1) * hop + taps;
+  for (int i = threadIdx.x; i < span_len; i += DFT_THREADS) {
+    const int p = p0 + i;
+    float v = 0.f;
+    if (p < t_padded) {
+      int s = p - pad;
+      s = s < 0 ? -s : (s >= T ? 2 * (T - 1) - s : s);
+      v = __ldg(xb + s);
+    }
+    span[i] = v;
+  }
+  __syncthreads();
+
+  // frame group gi: frames g0 .. g0 + DFT_FR - 1 of the block; a group
+  // past the last frame reads staged zeros and stores nothing
+  const int nf = min(DFT_FPB, frames - f0);
+  const int groups = (nf + DFT_FR - 1) / DFT_FR;
+  const size_t row0 = ((size_t)b * frames + f0) * F;
+  for (int idx = threadIdx.x; idx < groups * F; idx += DFT_THREADS) {
+    const int gi = idx / F;
+    const int k = idx - gi * F;
+    const int g0 = gi * DFT_FR;
+    // fs[j * hop + n]: frame g0 + j's sample at tap lo + n
+    const float* fs = span + g0 * hop;
+    const float* col = bas + k;
+    float re[DFT_FR], im[DFT_FR];
+#pragma unroll
+    for (int j = 0; j < DFT_FR; ++j) re[j] = im[j] = 0.f;
+    for (int n = 0; n < taps; ++n) {
+      const float br = col[n * 2 * F], bi = col[n * 2 * F + F];
+#pragma unroll
+      for (int j = 0; j < DFT_FR; ++j) {
+        const float v = fs[j * hop + n];
+        re[j] = fmaf(v, br, re[j]);
+        im[j] = fmaf(v, bi, im[j]);
+      }
+    }
+#pragma unroll
+    for (int j = 0; j < DFT_FR; ++j) {
+      if (g0 + j < nf) {
+        const size_t at = row0 + (size_t)(g0 + j) * F + k;
+        real[at] = re[j];
+        imag[at] = im[j];
+      }
+    }
+  }
+}
+
+bool dft_size(int n_fft) {
+  return n_fft >= 2 && n_fft <= DFT_MAX_N_FFT && n_fft % 2 == 0;
+}
+
 }  // namespace
+
+// Shared memory one block of the DFT path needs: the basis rows of the
+// taps and the span.  -1 for an n_fft the path does not take.
+extern "C" int stft_dft_smem_bytes(int n_fft, int hop, int taps) {
+  if (!dft_size(n_fft)) return -1;
+  const int f = n_fft / 2 + 1;
+  return (int)((taps * 2 * f + (DFT_FPB - 1) * hop + taps) * sizeof(float));
+}
+
+// Launch the DFT path on `stream`; returns cudaGetLastError() of the
+// launch (0 = ok).  Requires T > pad, T + 2*pad + hop < 2^31,
+// 0 <= lo < hi <= n_fft, and n_fft even, at most 128.
+extern "C" int stft_dft_f32(const void* x, const void* basis, void* real,
+                            void* imag, int batch, int T, int frames,
+                            int pad, int hop, int n_fft, int lo, int hi,
+                            void* stream) {
+  const int smem = stft_dft_smem_bytes(n_fft, hop, hi - lo);
+  if (smem < 0) return (int)cudaErrorInvalidValue;
+  cudaError_t err = cudaFuncSetAttribute(
+      stft_dft_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return (int)err;
+  dim3 grid((frames + DFT_FPB - 1) / DFT_FPB, batch);
+  stft_dft_kernel<<<grid, DFT_THREADS, smem, (cudaStream_t)stream>>>(
+      (const float*)x, (const float*)basis, (float*)real, (float*)imag, T,
+      frames, pad, hop, n_fft, lo, hi);
+  return (int)cudaGetLastError();
+}
 
 // The kernel's twiddle table for n_fft, laid out as the note at the top
 // says: entry i is e^{-2πi p_i/n_fft}, made in double and rounded to float

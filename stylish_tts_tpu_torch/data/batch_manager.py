@@ -50,15 +50,20 @@ class BatchManager:
         probe_batch_max: int = 32,
         num_workers: int = 8,
         divisor: int = 1,
+        process_index: int = 0,
+        process_count: int = 1,
     ):
         self.dataset = dataset
         self.out_dir = Path(out_dir)
         self.stage_name = stage_name
         self.probe_batch_max = probe_batch_max
         self.num_workers = num_workers
-        # every batch is a multiple of `divisor` (the data-parallel width),
-        # so its rows split evenly
+        # every (global) batch is a multiple of `divisor` (the
+        # data-parallel width), so its rows split evenly; each process
+        # loads only its contiguous 1/process_count block of it
         self.divisor = max(1, divisor)
+        self.process_index = process_index
+        self.process_count = max(1, process_count)
         self.time_bins, self.seconds_per_bin = dataset.time_bins()
         self.batch_sizes: Dict[str, int] = {}
         # set when no persisted plan existed and the heuristic one was
@@ -80,8 +85,14 @@ class BatchManager:
             self.batch_sizes = json.loads(path.read_text())
 
     def save_batch_sizes(self) -> None:
+        """Persist the plan (process 0 only; a write and a rename, so a
+        process reading it meanwhile finds the old file or the new one)."""
+        if self.process_index != 0:
+            return
         self.out_dir.mkdir(parents=True, exist_ok=True)
-        self.batch_file().write_text(json.dumps(self.batch_sizes))
+        tmp = self.batch_file().with_suffix(".partial")
+        tmp.write_text(json.dumps(self.batch_sizes))
+        tmp.replace(self.batch_file())
 
     def plan_batch_sizes(self, reference_bin: int = 20) -> None:
         """Inverse-linear memory plan: bin `reference_bin` (~7 s audio)
@@ -99,6 +110,7 @@ class BatchManager:
         *,
         budget_bytes: int,
         probe_batch: int = 8,
+        scale: int = 1,
     ) -> dict:
         """Replace the heuristic plan by one solved from measured bytes.
         ``measure(batch, bin)`` gives the peak bytes of a step at that
@@ -112,8 +124,10 @@ class BatchManager:
              measured and shrunk until they fit.
 
         The plan is kept where a probe runs out of memory, the fit is
-        degenerate or the fixed part alone exceeds the budget.  Sizes are
-        at least ``divisor`` and are persisted.  Returns
+        degenerate or the fixed part alone exceeds the budget.  The probe
+        measures one process's (one card's) rows: the stored, global sizes
+        are the solved ones times ``scale``, the data-parallel width.
+        Sizes are at least ``divisor`` and are persisted.  Returns
         ``kept`` (None, or why the plan was kept), the ``measured``
         (batch, bin, bytes) triples and, where solved, the fit's ``fixed``
         and ``per_sample_frame`` bytes."""
@@ -162,7 +176,8 @@ class BatchManager:
             self.batch_sizes[str(bin_num)] = bs
 
         for key in self.batch_sizes:
-            self.batch_sizes[key] = max(self.divisor, self.batch_sizes[key])
+            self.batch_sizes[key] = max(self.divisor,
+                                        self.batch_sizes[key] * scale)
         self.save_batch_sizes()
         logger.info("measured memory plan: fixed %.0f MiB, %.0f B per "
                     "sample-frame, largest-bin batch %s", fixed / 2**20,
@@ -238,7 +253,11 @@ class BatchManager:
                             need = -(-len(idxs) // self.divisor) * self.divisor
                             reps = -(-need // len(idxs))
                             idxs = (list(idxs) * reps)[:need]
-                        items = list(pool.map(self.dataset.load_item, idxs))
+                        # this process's contiguous block of the batch
+                        per = len(idxs) // self.process_count
+                        local = idxs[self.process_index * per:
+                                     (self.process_index + 1) * per]
+                        items = list(pool.map(self.dataset.load_item, local))
                         batch = collate(
                             items, stage=stage,
                             rng=np.random.default_rng(

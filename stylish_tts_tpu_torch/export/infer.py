@@ -42,6 +42,19 @@ def to_pcm16(audio: torch.Tensor) -> torch.Tensor:
     return torch.clamp(audio * 32767.0, -32768.0, 32767.0).to(torch.int16)
 
 
+def check_servable(model_config: ModelConfig) -> None:
+    """Raise for a configuration the reference cannot serve: a ringformer
+    voice.  Its conformers' batch norms need their running stats, and the
+    reference's artifact holds params only (its Synthesizer applies
+    ``{"params": ...}`` and fails on the missing ``batch_stats``), so the
+    port refuses it here rather than serve what the reference cannot."""
+    if model_config.generator.type == "ringformer":
+        raise NotImplementedError(
+            "a ringformer voice cannot be served: the reference's inference "
+            "artifact holds params only, no batch stats for the generator's "
+            "conformer batch norms")
+
+
 class Synthesizer:
     """TTS inference over static buckets on one device."""
 
@@ -53,6 +66,7 @@ class Synthesizer:
         sample_seed: int = 0,
         device: Optional[Union[str, torch.device]] = None,
     ):
+        check_servable(model_config)
         self.device = resolve_device(device)
         self.mc = model_config
         self.models = {k: m.to(self.device).eval() for k, m in models.items()}

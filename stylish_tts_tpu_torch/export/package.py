@@ -26,6 +26,7 @@ from ..models import INFERENCE_MODELS, build_models
 from ..train.init import build_training_models
 # read_safetensors is also read from here by the artifact's callers
 from ..utils.tensorfile import read_safetensors
+from .infer import check_servable
 
 
 def package_inference_artifact(checkpoint_dir: Union[str, Path],
@@ -37,6 +38,7 @@ def package_inference_artifact(checkpoint_dir: Union[str, Path],
     ckpt = Path(checkpoint_dir)
     meta = json.loads((ckpt / "meta.json").read_text())
     mc = load_model_config_json(json.dumps(meta["model_config"]))
+    check_servable(mc)
     models = build_training_models(mc)
     out = Path(out_path)
     out.mkdir(parents=True, exist_ok=True)

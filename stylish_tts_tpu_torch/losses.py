@@ -1,5 +1,9 @@
 """Loss functions of the training stages.
 
+Every reduction over the batch is the global batch's (``parallel/mesh.py``):
+with one process the plain torch reduction, over R ranks the all-reduced
+one, so a data-parallel step computes the losses of the whole batch.
+
   * spectral convergence over the 3 multi-resolution mel spectrograms
   * anti-wrapping differential phase loss and the magnitude/phase loss
   * the VITS KL losses of the normalizing flow
@@ -17,6 +21,7 @@ import torch
 import torch.nn.functional as F
 
 from .ops.stft_kernel import stft_forward
+from .parallel import mesh
 
 # --------------------------------------------------------------------------- #
 # spectral losses
@@ -24,8 +29,8 @@ from .ops.stft_kernel import stft_forward
 
 def spectral_convergence_loss(target: torch.Tensor, pred: torch.Tensor
                               ) -> torch.Tensor:
-    return torch.sum(torch.abs(target - pred)) \
-        / (torch.sum(torch.abs(target)) + 1e-6)
+    return mesh.sum(torch.abs(target - pred)) \
+        / (mesh.sum(torch.abs(target)) + 1e-6)
 
 
 def multi_resolution_stft_loss(target_list: Sequence[torch.Tensor],
@@ -55,13 +60,13 @@ def differential_phase_loss(pred: torch.Tensor, target: torch.Tensor
     weights = torch.pow(
         torch.tensor(base, dtype=torch.float32, device=pred.device),
         torch.arange(freq_size, dtype=torch.float32, device=pred.device))
-    loss = torch.mean(_anti_wrapping(pred - target, weights))
+    loss = mesh.mean(_anti_wrapping(pred - target, weights))
     zf = torch.zeros_like(pred[..., :1])
-    loss = loss + torch.mean(_anti_wrapping(
+    loss = loss + mesh.mean(_anti_wrapping(
         torch.diff(pred, dim=-1, prepend=zf)
         - torch.diff(target, dim=-1, prepend=zf), weights))
     zt = torch.zeros_like(pred[:, :1])
-    loss = loss + torch.mean(_anti_wrapping(
+    loss = loss + mesh.mean(_anti_wrapping(
         torch.diff(pred, dim=1, prepend=zt)
         - torch.diff(target, dim=1, prepend=zt), weights))
     return loss
@@ -84,7 +89,7 @@ def magphase_loss(pred_magnitude: torch.Tensor, pred_phase: torch.Tensor,
     voiced = target_mag > 1e-3
     target_phase = torch.where(voiced, torch.atan2(imag, real), 0.0)
     pred_phase = torch.where(voiced, pred_phase, 0.0)
-    mag_l = torch.mean(torch.abs(pred_magnitude
+    mag_l = mesh.mean(torch.abs(pred_magnitude
                                  - torch.log(target_mag + 1e-9)))
     return mag_l, differential_phase_loss(pred_phase, target_phase)
 
@@ -97,14 +102,14 @@ def magphase_loss(pred_magnitude: torch.Tensor, pred_phase: torch.Tensor,
 def kl_loss(z_p, logs_q, m_p, logs_p) -> torch.Tensor:
     kl = logs_p - logs_q - 0.5
     kl = kl + 0.5 * ((z_p - m_p) ** 2) * torch.exp(-2.0 * logs_p)
-    return torch.mean(torch.sum(kl, dim=-1))
+    return mesh.mean(torch.sum(kl, dim=-1))
 
 
 def kl_loss_normal(m_q, logs_q, m_p, logs_p) -> torch.Tensor:
     kl = logs_p - logs_q - 0.5
     kl = kl + 0.5 * (torch.exp(2.0 * logs_q) + (m_q - m_p) ** 2) \
         * torch.exp(-2.0 * logs_p)
-    return torch.mean(torch.sum(kl, dim=-1))
+    return mesh.mean(torch.sum(kl, dim=-1))
 
 
 def normalizing_flow_losses(pred) -> Dict[str, torch.Tensor]:
@@ -131,11 +136,11 @@ def _masked_mean(values: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
 
 def _tprls(real_score: torch.Tensor, gen_score: torch.Tensor
            ) -> torch.Tensor:
-    """Truncated pointwise relativistic LS term.  The median of an even
-    count is the mean of the two middle values (``torch.median`` would
-    return the lower one)."""
+    """Truncated pointwise relativistic LS term over the global batch's
+    scores.  The median of an even count is the mean of the two middle
+    values (``torch.median`` would return the lower one)."""
     tau = 0.04
-    diff = real_score - gen_score
+    diff = mesh.gather(real_score - gen_score)
     m_dg = torch.quantile(diff.reshape(-1), 0.5)
     mask = (diff < m_dg).to(real_score.dtype)
     l_rel = _masked_mean((diff - m_dg) ** 2, mask)
@@ -149,7 +154,7 @@ def discriminator_loss(real_scores: Sequence[torch.Tensor],
     disc = 0.0
     tprls = 0.0
     for dr, dg in zip(real_scores, gen_scores):
-        disc = disc + torch.mean((1.0 - dr) ** 2) + torch.mean(dg ** 2)
+        disc = disc + mesh.mean((1.0 - dr) ** 2) + mesh.mean(dg ** 2)
         tprls = tprls + _tprls(dr, dg)
     return disc + tprls, disc
 
@@ -160,11 +165,11 @@ def generator_adversarial_loss(real_scores, gen_scores, real_features,
     feature = 0.0
     for fr, fg in zip(real_features, gen_features):
         for rl, gl in zip(fr, fg):
-            feature = feature + torch.mean(torch.abs(rl - gl))
+            feature = feature + mesh.mean(torch.abs(rl - gl))
     feature = feature * 2.0
     gen = 0.0
     for dg in gen_scores:
-        gen = gen + torch.mean((1.0 - dg) ** 2)
+        gen = gen + mesh.mean((1.0 - dg) ** 2)
     tprls = 0.0
     for dr, dg in zip(real_scores, gen_scores):
         tprls = tprls + _tprls(dg, dr)
@@ -214,11 +219,11 @@ def duration_loss(pred: torch.Tensor, target: torch.Tensor,
     cdw_terms = torch.log(1.0 - torch.softmax(pred, dim=-1) + 1e-9) * d
     denom = torch.clamp(text_lengths.to(torch.float32), min=1.0)
     cdw = -torch.sum(cdw_terms.sum(-1) * valid, dim=1) / denom * 100.0
-    return torch.mean(ce), torch.mean(cdw)
+    return mesh.mean(ce), mesh.mean(cdw)
 
 
 def smooth_l1_loss(pred: torch.Tensor, target: torch.Tensor,
                    beta: float = 1.0) -> torch.Tensor:
     diff = torch.abs(pred - target)
-    return torch.mean(torch.where(diff < beta, 0.5 * diff * diff / beta,
+    return mesh.mean(torch.where(diff < beta, 0.5 * diff * diff / beta,
                                   diff - 0.5 * beta))

@@ -105,7 +105,7 @@ class Generator(nn.Module):
         super().__init__()
         gc = mc.generator
         if gc.type != "freegan":
-            raise NotImplementedError(f"generator {gc.type!r} is not ported")
+            raise ValueError(f"Generator is the freegan head, not {gc.type!r}")
         self.sample_rate = mc.sample_rate
         self.hop = mc.hop_length // 4
         self.stft_head = STFTHead(mc.n_fft, self.hop, mc.win_length)

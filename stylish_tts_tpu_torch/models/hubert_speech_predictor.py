@@ -5,14 +5,14 @@ the text style vector; no alignment is needed, the features are at mel
 frame rate already.
 
 ``HubertSpeechPredictor`` repeats the features x4 to the freegan
-generator's frame rate and runs them through ``HubertEncoder``, the
+generator's frame rate (the ringformer head takes the mel rate) and runs them through ``HubertEncoder``, the
 decoder, the flow prior (and, with ``audio_gt``, the posterior) and the
 generator, as ``SpeechPredictor`` does for text.
 """
 
 from __future__ import annotations
 
-from typing import Optional, Tuple
+from typing import Dict, Optional, Tuple
 
 import torch
 from torch import nn
@@ -20,21 +20,18 @@ from torch import nn
 from ..config import ModelConfig
 from .decoder import Decoder
 from .flow import PosteriorEncoder, PriorEncoder, ResidualCouplingBlock
-from .generator import DecoderPrediction, Generator
+from .generator import DecoderPrediction
 from .hubert_encoder import HubertEncoder
 from .norms import AdaptiveDecoderBlock, Conv1x1, Dropout
 from .prosody_encoder import ProsodyEncoder
-from .speech_predictor import upsample_x4_linear
+from .speech_predictor import generator_head, head_draws, upsample_x4_linear
 from .xut import mish
 
 
 class HubertSpeechPredictor(nn.Module):
     def __init__(self, mc: ModelConfig):
         super().__init__()
-        if mc.generator.type != "freegan":
-            raise NotImplementedError(
-                f"generator {mc.generator.type!r} is not ported: ROADMAP "
-                f"Queue 1 item 6 (the ringformer generator)")
+        self.x4 = mc.generator.type == "freegan"
         s = mc.style_dim
         self.phone_encoder = HubertEncoder(mc)
         self.style1 = nn.Linear(mc.speaker_embedder.hidden_dim, s * 4)
@@ -51,9 +48,10 @@ class HubertSpeechPredictor(nn.Module):
             cond_channels=s)
         self.posterior_encoder = PosteriorEncoder(
             flow_dim, flow_dim, n_fft=mc.n_fft, win_length=mc.win_length,
-            hop_length=mc.hop_length // 4, n_layers=12, cond_channels=s)
+            hop_length=mc.hop_length // 4 if self.x4 else mc.hop_length,
+            n_layers=12, cond_channels=s)
         self.post_flow = nn.Linear(flow_dim, hidden)
-        self.generator = Generator(mc)
+        self.generator = generator_head(mc)
 
     def forward(
         self,
@@ -68,14 +66,19 @@ class HubertSpeechPredictor(nn.Module):
         generator: Optional[torch.Generator] = None,
         pcph_noise: Optional[torch.Tensor] = None,
         pcph_phase: Optional[torch.Tensor] = None,
+        nsf_draws: Optional[Dict[str, torch.Tensor]] = None,
     ) -> DecoderPrediction:
-        phones4 = self.phone_encoder(torch.repeat_interleave(phones, 4, 1),
-                                     phone_lengths * 4)
+        if self.x4:
+            phones4 = self.phone_encoder(
+                torch.repeat_interleave(phones, 4, 1), phone_lengths * 4)
+            pitch4 = upsample_x4_linear(pitch)
+            energy4 = upsample_x4_linear(energy)
+        else:
+            phones4 = self.phone_encoder(phones, phone_lengths)
+            pitch4, energy4 = pitch, energy
         s = self.dropout(mish(self.style1(spk_emb)))
         s = self.dropout(mish(self.style2(s)))
         style = self.style3(s)
-        pitch4 = upsample_x4_linear(pitch)
-        energy4 = upsample_x4_linear(energy)
         x = self.decoder(phones4, pitch4, energy4, style)
         text_stats = self.prior_encoder(x, sample=sample, generator=generator)
         text2mel_stats = self.flow(*text_stats, cond=style, reverse=True)
@@ -87,8 +90,8 @@ class HubertSpeechPredictor(nn.Module):
             mel2text_stats = self.flow(*mel_stats, cond=style, reverse=False)
             mel = self.post_flow(mel_stats[0])
         prediction = self.generator(
-            mel, style, pitch4, generator=generator, pcph_noise=pcph_noise,
-            pcph_phase=pcph_phase)
+            mel, style, pitch4, generator=generator,
+            **head_draws(self.x4, pcph_noise, pcph_phase, nsf_draws))
         if audio_gt is not None:
             prediction.text_stats = text_stats
             prediction.text2mel_stats = text2mel_stats

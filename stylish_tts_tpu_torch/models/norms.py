@@ -20,6 +20,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ..parallel import mesh
+
 
 class Dropout(nn.Module):
     """Inverted dropout with flax's semantics: keep with probability
@@ -47,6 +49,52 @@ def set_dropout_generator(module: nn.Module,
     for m in module.modules():
         if isinstance(m, Dropout):
             m.generator = generator
+
+
+class FlaxBatchNorm(nn.Module):
+    """flax ``BatchNorm`` on the last axis of [B, T, C], by default without
+    scale and bias (the text aligner's); ``affine=True`` adds flax's
+    ``scale`` (here ``weight``) and ``bias`` (the conformer's).
+
+    In train mode the batch's mean and its *biased* variance (flax's
+    E[x²] - E[x]², clamped at 0) over every position, padding included,
+    normalise ``x``, and the running stats move as
+    ``stat = momentum * stat + (1 - momentum) * batch_stat``.  Over R
+    ranks the moments are the global batch's (``parallel/mesh.py``).
+    ``nn.BatchNorm1d`` would store the unbiased variance and a
+    ``num_batches_tracked`` buffer that flax does not have.  In eval mode
+    the running stats normalise."""
+
+    def __init__(self, channels: int, momentum: float = 0.9,
+                 eps: float = 1e-5, affine: bool = False):
+        super().__init__()
+        self.momentum = momentum
+        self.eps = eps
+        if affine:
+            self.weight = nn.Parameter(torch.ones(channels))
+            self.bias = nn.Parameter(torch.zeros(channels))
+        else:
+            self.weight = self.bias = None
+        self.register_buffer("mean", torch.zeros(channels))
+        self.register_buffer("var", torch.ones(channels))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if not self.training:
+            mean, var = self.mean, self.var
+        else:
+            mean, var = mesh.moments(x.float().reshape(-1, x.shape[-1]))
+            with torch.no_grad():
+                self.mean.mul_(self.momentum).add_(
+                    mean.detach() * (1.0 - self.momentum))
+                self.var.mul_(self.momentum).add_(
+                    var.detach() * (1.0 - self.momentum))
+        # flax's order: (x - mean) * (rsqrt(var + eps) * scale) + bias, in
+        # f32, cast to x's type at the end
+        mul = torch.rsqrt(var + self.eps)
+        if self.weight is None:
+            return ((x.float() - mean) * mul).to(x.dtype)
+        out = (x.float() - mean) * (mul * self.weight.float())
+        return (out + self.bias.float()).to(x.dtype)
 
 
 class ChannelLayerNorm(nn.Module):
@@ -103,14 +151,15 @@ class AdaptiveInstanceNorm(_StyleAffine):
 
 class Conv1d(nn.Module):
     """1-D convolution on [B, T, C] with torch-style symmetric padding
-    (flax ``Conv1d`` wrapper; the conv itself is its ``Conv_0``).  The
-    slice uses stride 1, no dilation and a bias throughout."""
+    ``(k·d − d) // 2`` (flax ``Conv1d`` wrapper; the conv itself is its
+    ``Conv_0``), stride 1 and a bias."""
 
     def __init__(self, in_channels: int, features: int, kernel_size: int,
-                 groups: int = 1):
+                 groups: int = 1, dilation: int = 1):
         super().__init__()
         self.Conv_0 = nn.Conv1d(in_channels, features, kernel_size,
-                                padding=(kernel_size - 1) // 2, groups=groups)
+                                padding=(kernel_size - 1) * dilation // 2,
+                                dilation=dilation, groups=groups)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return self.Conv_0(x.transpose(1, 2)).transpose(1, 2)
@@ -153,6 +202,45 @@ class AdaptiveDecoderBlock(nn.Module):
         if self.conv1x1 is not None:
             x = self.conv1x1(x)
         return (h + x) / math.sqrt(2.0)
+
+
+def snake(x: torch.Tensor, alpha: torch.Tensor) -> torch.Tensor:
+    """Snake activation x + sin²(a·x) / a."""
+    return x + torch.sin(alpha * x) ** 2 / alpha
+
+
+class AdaptiveGeneratorBlock(nn.Module):
+    """HiFiGAN-style residual block of the ringformer head: per dilation
+    d, AdaIN -> snake -> conv (dilation d) -> AdaIN -> snake -> conv, added
+    to the input."""
+
+    def __init__(self, channels: int, style_dim: int, kernel_size: int = 3,
+                 dilation=(1, 3, 5)):
+        super().__init__()
+        self.dilation = tuple(dilation)
+        for i, d in enumerate(self.dilation):
+            setattr(self, f"alpha1_{i}", nn.Parameter(
+                torch.ones(1, 1, channels)))
+            setattr(self, f"alpha2_{i}", nn.Parameter(
+                torch.ones(1, 1, channels)))
+            setattr(self, f"adain1_{i}", AdaptiveInstanceNorm(channels,
+                                                              style_dim))
+            setattr(self, f"conv1_{i}", Conv1d(channels, channels,
+                                               kernel_size, dilation=d))
+            setattr(self, f"adain2_{i}", AdaptiveInstanceNorm(channels,
+                                                              style_dim))
+            setattr(self, f"conv2_{i}", Conv1d(channels, channels,
+                                               kernel_size))
+
+    def forward(self, x: torch.Tensor, style: torch.Tensor) -> torch.Tensor:
+        for i in range(len(self.dilation)):
+            h = snake(getattr(self, f"adain1_{i}")(x, style),
+                      getattr(self, f"alpha1_{i}"))
+            h = getattr(self, f"conv1_{i}")(h)
+            h = snake(getattr(self, f"adain2_{i}")(h, style),
+                      getattr(self, f"alpha2_{i}"))
+            x = x + getattr(self, f"conv2_{i}")(h)
+        return x
 
 
 def sequence_mask(lengths: torch.Tensor, max_length: int) -> torch.Tensor:

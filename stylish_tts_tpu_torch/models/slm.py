@@ -22,6 +22,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ..parallel import mesh
+
 CONV_DIMS = (512,) * 7
 CONV_STRIDES = (5, 2, 2, 2, 2, 2, 2)
 CONV_KERNELS = (10, 3, 3, 3, 3, 2, 2)
@@ -149,8 +151,8 @@ class SLMFeatureExtractor(nn.Module):
 
 def slm_feature_loss(gt_states: List[torch.Tensor],
                      pred_states: List[torch.Tensor]) -> torch.Tensor:
-    """Mean L1 over all hidden states, in f32."""
+    """Mean L1 over all hidden states (of the global batch), in f32."""
     loss = 0.0
     for g, p in zip(gt_states, pred_states):
-        loss = loss + torch.mean(torch.abs(g.detach().float() - p.float()))
+        loss = loss + mesh.mean(torch.abs(g.detach().float() - p.float()))
     return loss / len(gt_states)

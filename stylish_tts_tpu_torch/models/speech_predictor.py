@@ -1,18 +1,21 @@
 """SpeechPredictor: text encoder, style encoder, decoder, flow prior and
-the freegan generator.
+the generator head (freegan, or the ringformer of ``models/ringformer.py``).
 
 Synthesis runs the flow in reverse from the prior.  Training
 (``posterior=True`` and ``audio_gt`` given) also encodes the ground truth
 with the posterior encoder, runs the flow forward on it, feeds the
 posterior latent to the generator and attaches the four flow-stat triples.
 
-The alignment arrives at mel frame rate (hop 300) and is repeated ×4 to the
-generator rate (hop 75); pitch and energy are linearly upsampled ×4.
+The alignment arrives at mel frame rate (hop 300).  For the freegan head
+it is repeated ×4 to the generator rate (hop 75), pitch and energy are
+linearly upsampled ×4 and the posterior encoder reads the audio at hop 75;
+the ringformer head upsamples by itself, so everything stays at the mel
+rate and the posterior encoder reads hop 300.
 """
 
 from __future__ import annotations
 
-from typing import Optional
+from typing import Dict, Optional
 
 import torch
 from torch import nn
@@ -22,6 +25,7 @@ from .decoder import Decoder
 from .duration_predictor import text_encoder_for
 from .flow import PosteriorEncoder, PriorEncoder, ResidualCouplingBlock
 from .generator import DecoderPrediction, Generator
+from .ringformer import UpsampleGenerator
 from .style_encoders import TextStyleEncoder
 
 
@@ -37,12 +41,27 @@ def upsample_x4_linear(x: torch.Tensor) -> torch.Tensor:
     return x[:, lo] * (1.0 - w) + x[:, hi] * w
 
 
+def generator_head(mc: ModelConfig) -> nn.Module:
+    """The configured generator head: freegan or ringformer."""
+    if mc.generator.type == "freegan":
+        return Generator(mc)
+    if mc.generator.type == "ringformer":
+        return UpsampleGenerator(mc)
+    raise ValueError(f"unknown generator {mc.generator.type!r}")
+
+
+def head_draws(freegan: bool, pcph_noise, pcph_phase, nsf_draws) -> dict:
+    """The given draws of the head: the harmonic prior's for freegan, the
+    NSF source's for the ringformer."""
+    if freegan:
+        return dict(pcph_noise=pcph_noise, pcph_phase=pcph_phase)
+    return dict(nsf_draws=nsf_draws)
+
+
 class SpeechPredictor(nn.Module):
     def __init__(self, mc: ModelConfig, posterior: bool = False):
         super().__init__()
-        if mc.generator.type != "freegan":
-            raise NotImplementedError(
-                f"generator {mc.generator.type!r} is not ported")
+        self.x4 = mc.generator.type == "freegan"
         self.text_encoder = text_encoder_for(mc, mc.inter_dim)
         self.style_encoder = TextStyleEncoder(
             mc.inter_dim, mc.style_dim, mc.style_encoder.layers)
@@ -56,10 +75,10 @@ class SpeechPredictor(nn.Module):
             cond_channels=mc.style_dim)
         self.posterior_encoder = PosteriorEncoder(
             flow_dim, flow_dim, n_fft=mc.n_fft, win_length=mc.win_length,
-            hop_length=mc.hop_length // 4, n_layers=12,
-            cond_channels=mc.style_dim) if posterior else None
+            hop_length=mc.hop_length // 4 if self.x4 else mc.hop_length,
+            n_layers=12, cond_channels=mc.style_dim) if posterior else None
         self.post_flow = nn.Linear(flow_dim, hidden)
-        self.generator = Generator(mc)
+        self.generator = generator_head(mc)
 
     def forward(
         self,
@@ -74,13 +93,17 @@ class SpeechPredictor(nn.Module):
         generator: Optional[torch.Generator] = None,
         pcph_noise: Optional[torch.Tensor] = None,
         pcph_phase: Optional[torch.Tensor] = None,
+        nsf_draws: Optional[Dict[str, torch.Tensor]] = None,
     ) -> DecoderPrediction:
         text_encoding, _, _ = self.text_encoder(tokens, text_lengths)
         style = self.style_encoder(text_encoding, text_lengths)
 
-        alignment4 = torch.repeat_interleave(alignment, 4, dim=2)
-        pitch4 = upsample_x4_linear(pitch)
-        energy4 = upsample_x4_linear(energy)
+        if self.x4:
+            alignment4 = torch.repeat_interleave(alignment, 4, dim=2)
+            pitch4 = upsample_x4_linear(pitch)
+            energy4 = upsample_x4_linear(energy)
+        else:
+            alignment4, pitch4, energy4 = alignment, pitch, energy
 
         asr = torch.einsum("btc,btf->bfc", text_encoding, alignment4)
         x = self.decoder(asr, pitch4, energy4, style)
@@ -95,7 +118,7 @@ class SpeechPredictor(nn.Module):
             mel = self.post_flow(mel_stats[0])
         prediction = self.generator(
             mel, style, pitch4, generator=generator,
-            pcph_noise=pcph_noise, pcph_phase=pcph_phase)
+            **head_draws(self.x4, pcph_noise, pcph_phase, nsf_draws))
         if audio_gt is not None:
             prediction.text_stats = text_stats
             prediction.text2mel_stats = text2mel_stats

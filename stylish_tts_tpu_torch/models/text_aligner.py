@@ -15,43 +15,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from .norms import Conv1d, Dropout, sequence_mask
-
-
-class FlaxBatchNorm(nn.Module):
-    """flax ``BatchNorm(use_bias=False, use_scale=False)`` on the last
-    axis of [B, T, C].
-
-    In train mode the batch's mean and its *biased* variance (flax's
-    E[x²] - E[x]², clamped at 0) over every position, padding included,
-    normalise ``x``, and the running stats move as
-    ``stat = momentum * stat + (1 - momentum) * batch_stat``.
-    ``nn.BatchNorm1d`` would store the unbiased variance and a
-    ``num_batches_tracked`` buffer that flax does not have.  In eval mode
-    the running stats normalise."""
-
-    def __init__(self, channels: int, momentum: float = 0.9,
-                 eps: float = 1e-5):
-        super().__init__()
-        self.momentum = momentum
-        self.eps = eps
-        self.register_buffer("mean", torch.zeros(channels))
-        self.register_buffer("var", torch.ones(channels))
-
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        if not self.training:
-            mean, var = self.mean, self.var
-        else:
-            flat = x.float().reshape(-1, x.shape[-1])
-            mean = flat.mean(dim=0)
-            var = torch.clamp((flat * flat).mean(dim=0) - mean * mean, min=0)
-            with torch.no_grad():
-                self.mean.mul_(self.momentum).add_(
-                    mean.detach() * (1.0 - self.momentum))
-                self.var.mul_(self.momentum).add_(
-                    var.detach() * (1.0 - self.momentum))
-        out = (x.float() - mean) * torch.rsqrt(var + self.eps)
-        return out.to(x.dtype)
+from .norms import Conv1d, Dropout, FlaxBatchNorm, sequence_mask
 
 
 class TextAligner(nn.Module):

@@ -507,6 +507,20 @@ def convert_mrd(sd: Dict[str, np.ndarray]) -> Flat:
     return out
 
 
+def convert_mpd(sd: Dict[str, np.ndarray],
+                periods=(2, 3, 5, 7, 11)) -> Flat:
+    """Reference MultiPeriodDiscriminator: per period, 5 weight-normed
+    convs ``convs.{i}`` and the head ``conv_post``."""
+    out: Flat = {}
+    for d, p in enumerate(periods):
+        for i in range(5):
+            out.update(_prefixed(f"period_{p}", _wn_conv2d(
+                sd, f"discriminators.{d}.convs.{i}.", "", i, f"conv_{i}")))
+        out.update(_prefixed(f"period_{p}", _wn_conv2d(
+            sd, f"discriminators.{d}.conv_post.", "", 5, "out")))
+    return out
+
+
 def convert_text_aligner(sd: Dict[str, np.ndarray]) -> Tuple[Flat, Flat]:
     """Reference CTC aligner (text_aligner.py:33-127): TDNN convs with
     affine-free BatchNorm + 5-layer FFN with skip -> (params, batch_stats)."""
@@ -534,6 +548,7 @@ def convert_text_aligner(sd: Dict[str, np.ndarray]) -> Tuple[Flat, Flat]:
 #: (params, batch_stats) tuple.
 CONVERTERS = {
     "mrd": convert_mrd,
+    "mpd": convert_mpd,
     "text_aligner": convert_text_aligner,
     "duration_predictor": convert_duration_predictor,
     "pitch_energy_predictor": convert_pitch_energy_predictor,
@@ -544,7 +559,7 @@ CONVERTERS = {
 }
 
 #: the JAX package's other converters, not ported yet
-NOT_PORTED = ("mpd", "hubert_encoder", "hubert_speech_predictor",
+NOT_PORTED = ("hubert_encoder", "hubert_speech_predictor",
               "hubert_pitch_energy_predictor", "cfm_mel_decoder",
               "cfm_pitch_predictor", "rmvpe", "wespeaker", "vocos")
 
@@ -557,8 +572,8 @@ def converter(name: str):
     if name in NOT_PORTED:
         raise NotImplementedError(
             f"no converter for {name!r}: not ported yet (ROADMAP Queue 1 "
-            f"item 6, with distribution: the remaining generators, nets "
-            f"and converters)")
+            f"item 6: RMVPE, the SLM and conversion scripts and the "
+            f"remaining converters)")
     raise ValueError(f"unknown model {name!r}; one of {sorted(CONVERTERS)}")
 
 

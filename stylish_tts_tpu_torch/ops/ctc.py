@@ -19,6 +19,8 @@ from typing import Tuple
 
 import torch
 
+from ..parallel import mesh
+
 NEG_INF = -1e30
 PRIOR_SCALE = 0.3  # weight of the label priors subtracted from the emissions
 PRIOR_FLOOR = -12.0  # least log prior an epoch's end sets
@@ -86,9 +88,9 @@ def ctc_loss(
     blank: int,
 ) -> torch.Tensor:
     """Negative log-likelihood of the CTC lattice, each sequence's divided
-    by its target length, averaged over the batch."""
+    by its target length, averaged over the (global) batch."""
     nll = _nll(log_probs, targets, input_lengths, target_lengths, blank)
-    return torch.mean(nll / torch.clamp(target_lengths, min=1))
+    return mesh.mean(nll / torch.clamp(target_lengths, min=1))
 
 
 def ctc_loss_with_priors(

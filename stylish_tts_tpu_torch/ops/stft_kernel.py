@@ -1,14 +1,22 @@
 """Wrapper of the Hopper forward-STFT kernel (``csrc/stft.cu``).
 
 It replaces the TPU kernel ``stylish_tts_tpu/ops/stft_pallas.py:stft_pallas``
-and serves every STFT of the port: the generator's harmonic prior, the
-loss spectrograms, the magphase target and the posterior encoder.  A tensor
-on the CPU goes to the plain version (``ops/stft.py:stft``); a CUDA tensor
-goes to the kernel, a shared-memory real FFT, or the wrapper raises.
+and serves every STFT of the port: the generator's harmonic prior (the
+freegan head's and the ringformer's source), the loss spectrograms, the
+magphase target and the posterior encoder.  A tensor on the CPU goes to
+the plain version (``ops/stft.py:stft``); a CUDA tensor goes to one of the
+kernel's two paths, or the wrapper raises:
 
-The kernel reads two host-made tables: the port's f32 padded window and
+* the FFT path (``stft_fft_kernel``, a shared-memory real FFT) for n_fft a
+  power of two from 256 to 4096 (``N_FFT_SIZES``);
+* the DFT path (``stft_dft_kernel``, the windowed DFT by f32 FMAs over the
+  window's taps) for even n_fft up to 128 (``DFT_MAX_N_FFT``): the
+  ringformer head's 60-point STFT.
+
+The FFT path reads two host-made tables: the port's f32 padded window and
 the FFT's twiddles (``StftKernel.twiddles``, which ``csrc/stft.cu`` makes
-and lays out), each uploaded once per device.
+and lays out); the DFT path reads the plain version's windowed basis
+(``ops/stft.py:forward_basis``).  Each is uploaded once per device.
 
 The gradient is the transpose of the windowed-DFT product, then
 overlap-add, then the adjoint of the reflect pad, in torch ops: the JAX
@@ -27,7 +35,8 @@ import torch
 from . import stft as plain
 from .build import load_library
 
-N_FFT_SIZES = (256, 512, 1024, 2048, 4096)  # the kernel's FFT sizes
+N_FFT_SIZES = (256, 512, 1024, 2048, 4096)  # the FFT path's sizes
+DFT_MAX_N_FFT = 128  # the DFT path takes even n_fft up to this
 _MAX_SMEM = 232448  # bytes of shared memory a block may use on Hopper
 
 
@@ -38,8 +47,21 @@ def window_taps(n_fft: int, win_length: int) -> Tuple[int, int]:
     return int(nonzero[0]), int(nonzero[-1]) + 1
 
 
+def kernel_path(n_fft: int) -> str:
+    """"fft" or "dft": the path of the kernel that takes ``n_fft``;
+    raises for an n_fft neither takes."""
+    if n_fft in N_FFT_SIZES:
+        return "fft"
+    if 2 <= n_fft <= DFT_MAX_N_FFT and n_fft % 2 == 0:
+        return "dft"
+    raise ValueError(f"stft kernel takes n_fft in {N_FFT_SIZES} (FFT path) "
+                     f"or even n_fft <= {DFT_MAX_N_FFT} (DFT path), got "
+                     f"{n_fft}")
+
+
 class StftKernel:
-    """Callable wrapper; ``launches`` counts the kernel's launches."""
+    """Callable wrapper; ``launches`` counts the kernel's launches (both
+    paths), ``launches_by_n_fft`` the launches at each n_fft."""
 
     name = "stft_forward"
     route = "cuda"
@@ -48,6 +70,7 @@ class StftKernel:
 
     def __init__(self):
         self.launches = 0
+        self.launches_by_n_fft = {}
         self._lib = None
         self._tables = {}
 
@@ -63,6 +86,12 @@ class StftKernel:
             lib.stft_fft_twiddles.argtypes = [ctypes.c_int, ctypes.c_void_p,
                                               ctypes.c_void_p]
             lib.stft_fft_twiddles.restype = ctypes.c_int
+            lib.stft_dft_f32.argtypes = (
+                [ctypes.c_void_p] * 4 + [ctypes.c_int] * 8 + [ctypes.c_void_p]
+            )
+            lib.stft_dft_f32.restype = ctypes.c_int
+            lib.stft_dft_smem_bytes.argtypes = [ctypes.c_int] * 3
+            lib.stft_dft_smem_bytes.restype = ctypes.c_int
             self._lib = lib
         return self._lib
 
@@ -81,13 +110,20 @@ class StftKernel:
         return exponent, table
 
     def tables(self, n_fft: int, win_length: int, device: torch.device):
-        """The kernel's window and twiddles on ``device``, uploaded once,
-        and its taps."""
+        """The FFT path's window and twiddles, or the DFT path's windowed
+        basis [n_fft, 2 (n_fft/2 + 1)], on ``device``, uploaded once, and
+        the taps."""
         key = (n_fft, win_length, device)
         if key not in self._tables:
-            window = plain._padded_window(win_length, n_fft).to(device)
-            tw = torch.from_numpy(self.twiddles(n_fft)[1]).to(device)
-            self._tables[key] = (window, tw, *window_taps(n_fft, win_length))
+            taps = window_taps(n_fft, win_length)
+            if kernel_path(n_fft) == "dft":
+                basis = torch.from_numpy(np.array(plain.forward_basis(
+                    n_fft, win_length))).to(device)
+                self._tables[key] = (basis, *taps)
+            else:
+                window = plain._padded_window(win_length, n_fft).to(device)
+                tw = torch.from_numpy(self.twiddles(n_fft)[1]).to(device)
+                self._tables[key] = (window, tw, *taps)
         return self._tables[key]
 
     def __call__(self, x: torch.Tensor, *, n_fft: int, hop_length: int,
@@ -109,9 +145,7 @@ class StftKernel:
             raise ValueError(f"stft kernel takes [B, T], got {tuple(x.shape)}")
         if not x.is_contiguous():
             raise ValueError("stft kernel needs a contiguous input")
-        if n_fft not in N_FFT_SIZES:
-            raise ValueError(f"stft kernel takes n_fft in {N_FFT_SIZES}, "
-                             f"got {n_fft}")
+        path = kernel_path(n_fft)
         batch, t = x.shape
         pad = n_fft // 2
         if t <= pad:
@@ -120,9 +154,12 @@ class StftKernel:
             raise ValueError(f"stft kernel indexes in 32 bits, got T={t}")
         freq_bins = n_fft // 2 + 1
         frames = 1 + (t + 2 * pad - n_fft) // hop_length
-        window, tw, lo, hi = self.tables(n_fft, win_length, x.device)
+        tables = self.tables(n_fft, win_length, x.device)
+        lo, hi = tables[-2:]
         lib = self._library()
-        smem = lib.stft_fft_smem_bytes(n_fft, hop_length, hi - lo)
+        smem_bytes = (lib.stft_dft_smem_bytes if path == "dft"
+                      else lib.stft_fft_smem_bytes)
+        smem = smem_bytes(n_fft, hop_length, hi - lo)
         if smem > _MAX_SMEM:
             raise ValueError(f"hop {hop_length} needs {smem} B of shared memory")
         real = torch.empty((batch, frames, freq_bins), dtype=torch.float32,
@@ -130,14 +167,23 @@ class StftKernel:
         imag = torch.empty_like(real)
         with torch.cuda.device(x.device):
             stream = torch.cuda.current_stream(x.device).cuda_stream
-            err = lib.stft_fft_f32(
-                x.data_ptr(), window.data_ptr(), tw.data_ptr(),
-                real.data_ptr(), imag.data_ptr(), batch, t, frames, pad,
-                hop_length, n_fft, lo, hi, stream,
-            )
+            if path == "dft":
+                err = lib.stft_dft_f32(
+                    x.data_ptr(), tables[0].data_ptr(), real.data_ptr(),
+                    imag.data_ptr(), batch, t, frames, pad, hop_length,
+                    n_fft, lo, hi, stream,
+                )
+            else:
+                err = lib.stft_fft_f32(
+                    x.data_ptr(), tables[0].data_ptr(), tables[1].data_ptr(),
+                    real.data_ptr(), imag.data_ptr(), batch, t, frames, pad,
+                    hop_length, n_fft, lo, hi, stream,
+                )
         if err != 0:
             raise RuntimeError(f"stft kernel launch failed: CUDA error {err}")
         self.launches += 1
+        self.launches_by_n_fft[n_fft] = \
+            self.launches_by_n_fft.get(n_fft, 0) + 1
         return real, imag
 
 

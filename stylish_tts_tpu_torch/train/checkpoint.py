@@ -214,7 +214,10 @@ def load_checkpoint(
         _load_optimizer(key, module, state.optimizers[key],
                         read_safetensors(path / "optim" / f"{key}.safetensors"),
                         train["optimizers"][key])
-    if set(train["disc_ema"]) != set(state.disc_ema):
+    # a checkpoint written before the state held the MPD's EMA keeps the
+    # state's initial one
+    if not set(train["disc_ema"]) <= set(state.disc_ema) or not set(
+            state.disc_ema) - set(train["disc_ema"]) <= {"mpd"}:
         raise KeyError(f"checkpoint EMAs {sorted(train['disc_ema'])} differ "
                        f"from the state's {sorted(state.disc_ema)}")
     for key, value in train["disc_ema"].items():

@@ -23,7 +23,8 @@ from ..device import resolve_device
 from ..models import INFERENCE_MODELS, build_models
 from ..models.cfm_mel_decoder import CfmMelDecoder
 from ..models.cfm_pitch_predictor import CfmPitchPredictor
-from ..models.discriminator import MultiResolutionDiscriminator
+from ..models.discriminator import (MultiPeriodDiscriminator,
+                                    MultiResolutionDiscriminator)
 from ..models.hubert_encoder import HubertEncoder
 from ..models.hubert_speech_predictor import (HubertPitchEnergyPredictor,
                                               HubertSpeechPredictor)
@@ -42,6 +43,8 @@ from .state import TrainState, init_priors
 # decoder's shared modulations' last layer
 ZERO_INIT = ("proj_mean", "proj_logstd", "prenet.proj", "adaln",
              "shared_attn.fc2", "shared_xattn.fc2", "shared_ffw.fc2")
+# the discriminators' plain-loss EMAs at the start of a run
+DISC_EMA_INIT = {"mrd": 1.5, "mpd": 2.5}
 # flax's truncated normal on [-2, 2] has this std; lecun scales by 1/it
 _TRUNC_STD = 0.87962566103423978
 
@@ -51,7 +54,7 @@ def build_training_models(mc: ModelConfig,
                           ) -> Dict[str, nn.Module]:
     """The inference models plus the training-only ones: the speech
     predictor with its posterior encoder, the mel style encoder, the MRD,
-    the CTC text aligner and the models of the experimental hubert/CFM
+    the MPD, the CTC text aligner and the models of the experimental hubert/CFM
     stages (all of them, or those named in ``keys``).  Eval mode (dropout
     off, the aligner's batch norms on their running stats) until a step
     runs them."""
@@ -63,6 +66,7 @@ def build_training_models(mc: ModelConfig,
             max_conv_dim=mc.mel_style_encoder.max_channels,
             skip_last_downsample=mc.mel_style_encoder.skip_downsample),
         "mrd": lambda: MultiResolutionDiscriminator(3),
+        "mpd": MultiPeriodDiscriminator,
         "text_aligner": lambda: build_text_aligner(mc),
         "hubert_encoder": lambda: HubertEncoder(mc),
         # the "vocos" feature space is Vocos's 100 bins at hop 256
@@ -113,7 +117,8 @@ def init_params(module: nn.Module, generator: torch.Generator) -> nn.Module:
         elif leaf == "freqs":  # AxialRoPE [heads, half, pos_dim]
             p.copy_(torch.linspace(math.log(math.pi),
                                    math.log(5.0 * math.pi), p.shape[-1]))
-        elif leaf in ("scale", "gru_rel_pos_const"):
+        elif leaf in ("scale", "gru_rel_pos_const") or leaf.startswith(
+                "alpha"):  # the ringformer's snake alphas start at 1
             p.fill_(1.0)
         elif leaf == "gamma":  # ChannelLayerNorm's scale; GRN's gain is 0
             p.fill_(1.0 if p.dim() == 1 else 0.0)
@@ -210,8 +215,10 @@ def build_train_state(
     return TrainState(
         models=models,
         optimizers={k: make_optimizer(m) for k, m in models.items()},
-        disc_ema={"mrd": torch.tensor(1.5, dtype=torch.float32,
-                                      device=device)},
+        # the MPD's EMA is held as the JAX package holds it, though no
+        # stage trains the MPD
+        disc_ema={k: torch.tensor(v, dtype=torch.float32, device=device)
+                  for k, v in DISC_EMA_INIT.items()},
         priors=init_priors(mc.text_encoder.tokens + 1, device),
         step=0,
     )

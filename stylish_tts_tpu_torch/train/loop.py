@@ -35,6 +35,14 @@ not generalised), at each epoch's end it sets the CTC label priors
 parameters to ``<out>/alignment_model.safetensors``, the file that
 ``dataprep/align_text.py`` reads; the chain stops there.
 
+``distributed=True`` trains data-parallel over processes (one per card;
+``parallel/``): each loads its contiguous block of every global batch,
+the losses and batch-norm moments are the global batch's, the gradients
+are summed over the ranks, the parameters start equal (rank 0's,
+broadcast and checked), the OOM guard decides collectively, and only rank
+0 writes ``git_state.txt``, the logs' files, figures, statistics and
+checkpoints.  A resumed run reads the checkpoint on every rank.
+
 Each stage writes ``<out>/<stage>/train_stats.json``: the memory probe's
 fit and seconds, each step's bin, rows and samples, each log window's wall
 seconds and means (and the discriminator EMA), each validation's and
@@ -60,6 +68,10 @@ from ..data.dataset import FilePathDataset, get_data_path_list
 from ..device import resolve_device
 from ..models.text_aligner import aligner_params
 from ..ops.mel import MelSpectrogram
+from ..parallel import mesh
+from ..parallel.multihost import (initialize_distributed, is_main_process,
+                                  process_count, process_index,
+                                  shutdown_distributed)
 from ..text import TextCleaner
 from ..utils.profiling import save_git_state
 from ..utils.tensorfile import write_safetensors
@@ -120,18 +132,18 @@ class TrainContext:
 
     def init_normalization(self, device) -> None:
         """checkpoint -> json -> compute (reference
-        train_context.py:191-331)."""
+        train_context.py:191-331).  Every rank computes the same stats;
+        rank 0 writes them."""
         norm_file = self.out_dir / "normalization.json"
-        if self.normalization.frames > 0:
-            norm_file.write_text(json.dumps(asdict(self.normalization)))
-            return
-        if norm_file.is_file():
+        if self.normalization.frames == 0 and norm_file.is_file():
             for k, v in json.loads(norm_file.read_text()).items():
                 setattr(self.normalization, k, v)
-            if self.normalization.frames > 0:
-                return
-        self.compute_normalization(device)
-        norm_file.write_text(json.dumps(asdict(self.normalization)))
+        if self.normalization.frames == 0:
+            self.compute_normalization(device)
+        if is_main_process():
+            tmp = norm_file.with_suffix(".partial")
+            tmp.write_text(json.dumps(asdict(self.normalization)))
+            tmp.replace(norm_file)
 
     @torch.no_grad()
     def compute_normalization(self, device) -> None:
@@ -178,9 +190,27 @@ def select_val_samples(val_dataset, count: int) -> List[int]:
 def _device_batch(batch: dict, device, rows: Optional[int] = None
                   ) -> Dict[str, torch.Tensor]:
     """The batch's arrays (the first ``rows`` of each) as tensors on
-    ``device``; the bin, paths and batch size stay on the host."""
+    ``device``; the bin, paths and batch size stay on the host.  Over R
+    ranks the token axis is padded to the longest block's, so every rank
+    holds its block at the global batch's shape."""
+    if mesh.world_size() > 1 and "text" in batch:
+        batch = _pad_tokens(batch, mesh.max_int(batch["text"].shape[1],
+                                                device))
     return {k: torch.from_numpy(v if rows is None else v[:rows]).to(device)
             for k, v in batch.items() if isinstance(v, np.ndarray)}
+
+
+def _pad_tokens(batch: dict, tokens: int) -> dict:
+    """``text`` and ``alignment`` zero-padded to ``tokens`` tokens."""
+    pad = tokens - batch["text"].shape[1]
+    if pad <= 0:
+        return batch
+    out = dict(batch)
+    out["text"] = np.pad(batch["text"], ((0, 0), (0, pad)))
+    if "alignment" in batch:
+        out["alignment"] = np.pad(batch["alignment"],
+                                  ((0, 0), (0, pad), (0, 0)))
+    return out
 
 
 def _shape_key(batch: dict, rows: int) -> tuple:
@@ -206,7 +236,13 @@ def _guarded_step(step_fn, state: TrainState, batch: dict, generator, bm,
     moment was written) restores them exactly.  Before a retry the
     failed step's tensors are dropped, every gradient cleared and the
     allocator's cache emptied.  ``record`` counts the snapshots and their
-    seconds.  Other errors raise.  Returns (state, metrics or None)."""
+    seconds.  Other errors raise.  Returns (state, metrics or None).
+
+    Over R ranks the decision is collective: an all-reduce (MAX) of each
+    rank's OOM flag makes every rank restore and halve together (the
+    batch sizes are global, each rank keeps its share of the rows).  A rank
+    that runs out of memory after the step's first collective leaves the
+    others waiting in it: the collective's timeout then fails the run."""
     bin_num = batch.get("bin")
     rows = batch["text"].shape[0]
     oom_tries = 0
@@ -220,15 +256,17 @@ def _guarded_step(step_fn, state: TrainState, batch: dict, generator, bm,
             if record is not None:
                 record["snapshots"] += 1
                 record["snapshot_s"] += time.perf_counter() - t0
+        message = None
         try:
             out_state, metrics = step_fn(
                 state, _device_batch(batch, device, rows), generator)
         except torch.cuda.OutOfMemoryError as exc:
             message = str(exc)[:160]
-        else:
+        if not mesh.any_rank(message is not None, device):
             if first_run:
                 validated.add(key)
             return out_state, metrics
+        message = message or "out of memory on another rank"
         # out of the handler: the failed step's tensors are free now
         if snapshot is not None:
             restore_state(state, snapshot, generator)
@@ -244,7 +282,7 @@ def _guarded_step(step_fn, state: TrainState, batch: dict, generator, bm,
         if new_bs >= cur:
             break
         bm.set_batch_size(bin_num, new_bs)
-        rows = max(1, new_bs)
+        rows = max(1, new_bs // mesh.world_size())
         logger.warning("OOM on bin %s (%s): batch size %d -> %d (persisted), "
                        "retrying", bin_num, message, cur, new_bs)
     skip_bins.add(bin_num)
@@ -292,6 +330,10 @@ def train_model(
     device=None,
     seed: int = 0,
     on_stage: Optional[Callable[[str, str, TrainState], None]] = None,
+    distributed: bool = False,
+    coordinator: Optional[str] = None,
+    num_processes: Optional[int] = None,
+    process_id: Optional[int] = None,
 ) -> Manifest:
     """Train from ``stage_name`` to the end of the chain; returns the final
     manifest.  ``device`` defaults to the card.  ``seed`` draws the
@@ -302,13 +344,25 @@ def train_model(
     (``accelerator.save_state``) whose converted weights replace the drawn
     ones of every model it holds and the state runs.
     ``on_stage(event, stage, state)`` is called at each stage's "start",
-    after its memory plan ("planned") and after its final save ("end")."""
+    after its memory plan ("planned") and after its final save ("end").
+    ``distributed`` joins the process group (``coordinator``,
+    ``num_processes`` and ``process_id``, or torchrun's environment) and
+    trains data-parallel on this process's card (``cuda:LOCAL_RANK``), or
+    on the CPU under gloo; rank r > 0 draws its noise from ``seed`` + r
+    x 1000003."""
+    started_group = False
+    if distributed:
+        started_group = not torch.distributed.is_initialized()
+        device = initialize_distributed(coordinator, num_processes,
+                                        process_id, device=device)
     device = resolve_device(device)
+    rank, world = process_index(), process_count()
     check_stage(stage_name)
     ctx = TrainContext(stage_name=stage_name, out_dir=out_dir, config=config,
                        model_config=model_config)
-    save_git_state(ctx.base_out_dir)
-    ctx.writer = _summary_writer(ctx.out_dir)
+    if is_main_process():
+        save_git_state(ctx.base_out_dir)
+        ctx.writer = _summary_writer(ctx.out_dir)
     state = build_train_state(model_config, state_models(stage_name),
                               device=device,
                               generator=torch.Generator().manual_seed(seed))
@@ -344,6 +398,17 @@ def train_model(
             ctx.manifest.current_step = 0
             ctx.manifest.current_epoch = 0
             ctx.manifest.stage = ""
+    if rank:
+        # the checkpoint holds rank 0's generator; the others draw apart
+        generator.manual_seed(seed + 1000003 * rank
+                              + ctx.manifest.current_total_step)
+    if world > 1:
+        modules = list(state.models.values())
+        mesh.broadcast_modules(modules)
+        differ = mesh.check_equal(modules)
+        if differ:
+            raise RuntimeError(f"parameters differ between the ranks after "
+                               f"the broadcast: {differ[:5]}")
 
     current: Optional[str] = stage_name
     while current is not None:
@@ -356,9 +421,12 @@ def train_model(
         ctx.out_dir = ctx.base_out_dir / current
         ctx.out_dir.mkdir(parents=True, exist_ok=True)
         plan = getattr(config.training_plan, current)
+        shards = dict(divisor=world, process_index=rank,
+                      process_count=world)
         bm = BatchManager(
             ctx.train_dataset, ctx.out_dir, current,
-            probe_batch_max=plan.probe_batch_max, num_workers=workers)
+            probe_batch_max=plan.probe_batch_max, num_workers=workers,
+            **shards)
         ctx.init_normalization(device)
         steps_per_epoch = bm.steps_per_epoch()
         ctx.manifest.steps_per_epoch = steps_per_epoch
@@ -384,7 +452,8 @@ def train_model(
         eval_fn = make_eval_step(current, stage_ctx)
         val_manager = BatchManager(
             ctx.val_dataset, ctx.out_dir, current,
-            probe_batch_max=plan.probe_batch_max, num_workers=workers)
+            probe_batch_max=plan.probe_batch_max, num_workers=workers,
+            **shards)
         val_samples = select_val_samples(ctx.val_dataset,
                                          config.validation.sample_count)
 
@@ -452,13 +521,14 @@ def train_model(
             if done:
                 break
 
-        if current == "alignment":
+        if current == "alignment" and is_main_process():
             write_safetensors(ctx.base_out_dir / "alignment_model.safetensors",
                               aligner_params(state.models["text_aligner"]))
         _save(ctx, state, config, model_config, generator, stats, final=True)
         stats["first_visits"] = len(validated)
         stats["seconds"] = time.perf_counter() - started
-        (ctx.out_dir / "train_stats.json").write_text(json.dumps(stats))
+        if is_main_process():
+            (ctx.out_dir / "train_stats.json").write_text(json.dumps(stats))
         if on_stage:
             on_stage("end", current, state)
         logger.info("[%s] stage done in %.1f s: %d steps, %d first visits "
@@ -470,6 +540,8 @@ def train_model(
         current = stage.next_stage
         ctx.manifest.current_step = 0
         ctx.manifest.current_epoch = 0
+    if started_group:
+        shutdown_distributed()
     return ctx.manifest
 
 
@@ -494,10 +566,22 @@ def _plan_memory(bm: BatchManager, stage_ctx: StageContext,
                     "heuristic batch plan", current, device)
         return {"kept": f"no device memory to measure on {device}"}
     t0 = time.perf_counter()
+    measure = step_memory(make_train_step(current, stage_ctx, plan.lr),
+                          state, model_config, check_stage(current).inputs,
+                          device)
+
+    def measure_all(batch: int, bin_num: int) -> Optional[int]:
+        # every rank probes its own rows; the plan takes the largest
+        # peak, and an OOM on any rank counts as one
+        peak = measure(batch, bin_num)
+        worst = mesh.max_int(-1 if peak is None else peak, device)
+        if mesh.any_rank(peak is None, device):
+            return None
+        return worst
+
     fit = bm.refine_plan(
-        step_memory(make_train_step(current, stage_ctx, plan.lr), state,
-                    model_config, check_stage(current).inputs, device),
-        budget_bytes=config.training.memory_budget_mib * 2**20)
+        measure_all, budget_bytes=config.training.memory_budget_mib * 2**20,
+        scale=bm.process_count)
     return {"seconds": time.perf_counter() - t0, **fit,
             "batch_sizes": dict(bm.batch_sizes)}
 
@@ -603,6 +687,8 @@ def _write_sample(ctx, index: int, step: int, audio_pred, batch) -> None:
 def _save(ctx: TrainContext, state: TrainState, config: Config,
           model_config: ModelConfig, generator, stats: dict,
           final: bool = False) -> None:
+    if not is_main_process():
+        return
     name = ("checkpoint_final" if final else checkpoint_name(
         ctx.manifest.current_epoch, ctx.manifest.current_total_step))
     t0 = time.perf_counter()

@@ -56,6 +56,7 @@ from ..ops.griffin_lim import mel_to_audio
 from ..ops.mel import MelSpectrogram, calculate_mel, log_norm_energy
 from ..ops.multi_spectrogram import MultiSpectrogram
 from ..ops.resample import resample
+from ..parallel import mesh
 from .loss_log import backwards_loss, weighted_total
 from .optim import apply_updates, cosine_logical_lr
 from .state import TrainState
@@ -174,10 +175,16 @@ class StageContext:
         return module(*args, **kwargs)
 
     def magphase_params(self) -> Dict[str, int]:
-        """STFT of the freegan head's native resolution: n_fft at hop/4."""
+        """STFT of the generator head's native resolution: freegan's n_fft
+        at hop/4, the ringformer's own iSTFT grid (n_fft = win, hop)."""
         mc = self.model_config
-        return dict(n_fft=mc.n_fft, hop_length=mc.hop_length // 4,
-                    win_length=mc.win_length)
+        gc = mc.generator
+        if gc.type == "freegan":
+            return dict(n_fft=mc.n_fft, hop_length=mc.hop_length // 4,
+                        win_length=mc.win_length)
+        return dict(n_fft=gc.gen_istft_n_fft,
+                    hop_length=gc.gen_istft_hop_size,
+                    win_length=gc.gen_istft_n_fft)
 
     def mel_and_energy(self, audio_gt: torch.Tensor):
         mel, mel_length = calculate_mel(audio_gt, self.to_mel, self.mel_mean,
@@ -258,14 +265,17 @@ def _speech(ctx: StageContext, state: TrainState, batch, alignment, pitch,
             energy, audio_gt=None, *, sample: bool = True,
             generator: Optional[torch.Generator] = None,
             pcph_noise: Optional[torch.Tensor] = None,
-            pcph_phase: Optional[torch.Tensor] = None):
+            pcph_phase: Optional[torch.Tensor] = None,
+            nsf_draws: Optional[Dict[str, torch.Tensor]] = None):
     """The speech predictor on the batch's text: prior (and, with
-    ``audio_gt``, posterior) samples and the harmonic prior's noise from
-    ``generator`` or the hooks."""
+    ``audio_gt``, posterior) samples and the generator head's noise (the
+    freegan prior's or the ringformer source's) from ``generator`` or the
+    hooks."""
     return ctx.apply(
         state, "speech_predictor", batch["text"], batch["text_length"],
         alignment, pitch, energy, audio_gt, sample=sample,
-        generator=generator, pcph_noise=pcph_noise, pcph_phase=pcph_phase)
+        generator=generator, pcph_noise=pcph_noise, pcph_phase=pcph_phase,
+        nsf_draws=nsf_draws)
 
 
 def _spectral_losses(ctx: StageContext, batch, pred):
@@ -452,7 +462,7 @@ def _cfm_mel_losses(ctx: StageContext, state: TrainState, batch,
     if cfm_draws is None:
         draws.update(sampler.draw(mel, conds, generator))
     pred, target = sampler.compute_pred_target(mel, draws=draws, **conds)
-    return {"mel_l2": torch.mean((pred - target) ** 2)}, None
+    return {"mel_l2": mesh.mean((pred - target) ** 2)}, None
 
 
 def _cfm_pitch_losses(ctx: StageContext, state: TrainState, batch,
@@ -465,7 +475,7 @@ def _cfm_pitch_losses(ctx: StageContext, state: TrainState, batch,
     f0 = batch["pitch"]
     normed = norm_f0_zscore(f0, f0 == 0, ctx.f0_log2_mean, ctx.f0_log2_std)
     pred = ctx.apply(state, "cfm_pitch_predictor", phones, mel)
-    return {"normed_pitch_l2": torch.mean(
+    return {"normed_pitch_l2": mesh.mean(
         (pred[:, :normed.shape[1]] - normed) ** 2)}, None
 
 
@@ -623,7 +633,8 @@ def make_train_step(stage_name: str, ctx: StageContext, base_lr: float):
             set_dropout_generator(state.models[key], generator)
         for key in updated:
             state.optimizers[key].zero_grad(set_to_none=True)
-        batch_size = batch["text"].shape[0]
+        # the global batch's rows: the GAN term's sqrt(B) weight
+        batch_size = batch["text"].shape[0] * mesh.world_size()
         try:
             # the second value: the MRD's inputs for the GAN stages, the
             # batch's prior accumulators where the stage uses priors
@@ -641,6 +652,9 @@ def make_train_step(stage_name: str, ctx: StageContext, base_lr: float):
         if has_disc:
             total = total + d_total * math.sqrt(batch_size)
         total.backward()
+        # over R ranks: each trained module's gradients summed in one
+        # bucket, divided by R (parallel/mesh.py)
+        mesh.sync_gradients(state.models[k] for k in updated)
 
         lr = cosine_logical_lr(base_lr, state.step, ctx.step_limit)
         for key in stage.train_models:
@@ -709,7 +723,7 @@ def make_eval_step(stage_name: str, ctx: StageContext):
                                              lengths, blank)
             valid = (torch.arange(scores.shape[1], device=scores.device)
                      [None] < mel_length[:, None])
-            confidence = (torch.exp(scores) * valid).sum() / valid.sum()
+            confidence = mesh.sum(torch.exp(scores) * valid) / mesh.sum(valid)
             metrics = {"align_loss": loss, "confidence": confidence}
             audio = None
         elif stage_name == "duration":
@@ -796,7 +810,7 @@ def _ssl_eval(stage_name: str, ctx: StageContext, state: TrainState,
         normed = norm_f0_zscore(f0, f0 == 0, ctx.f0_log2_mean,
                                 ctx.f0_log2_std)
         pred = ctx.apply(state, "cfm_pitch_predictor", phones, mel)
-        return {"normed_pitch_l2": torch.mean(
+        return {"normed_pitch_l2": mesh.mean(
             (pred[:, :normed.shape[1]] - normed) ** 2)}, None
     # cfm_hubert_mel
     mc = ctx.model_config
@@ -814,8 +828,8 @@ def _ssl_eval(stage_name: str, ctx: StageContext, state: TrainState,
     sampler = CfmMelDecoderWrapper(decoder, {"noise": noise}).sampler()
     mel_pred = sampler.sample(z, CFM_EVAL_STEPS, asr=phones, f0=pitch,
                               energy=energy, spk_emb=spk_emb)
-    metrics = {"mel_l2": torch.mean((mel_pred - mel) ** 2),
-               "mel_l1": torch.mean(torch.abs(mel_pred - mel))}
+    metrics = {"mel_l2": mesh.mean((mel_pred - mel) ** 2),
+               "mel_l1": mesh.mean(torch.abs(mel_pred - mel))}
     vocos_space = mc.cfm_mel_features == "vocos"
     if vocos_space and ctx.vocos is not None:
         audio = ctx.vocos(mel_pred * ctx.mel_std + ctx.mel_mean)
@@ -835,12 +849,17 @@ def _ssl_eval(stage_name: str, ctx: StageContext, state: TrainState,
 def end_alignment_epoch(state: TrainState) -> TrainState:
     """Epoch-end CTC prior update, in place: the priors become the
     epoch's mean emission probabilities (log, clamped at -12), the
-    accumulators restart and ``priors_initialized`` turns true.  One
-    process: the JAX package's psum over the data axis comes with the
-    mesh (Queue 1 item 6)."""
+    accumulators restart and ``priors_initialized`` turns true.  Over R
+    ranks the accumulators are first summed over the ranks, as the JAX
+    package's psum over the data axis: log(sum(exp(prior_sum)) + 1e-30)
+    and the frame count."""
     priors = state.priors
+    prior_sum, frames = priors["prior_sum"], priors["prior_frames"]
+    if mesh.world_size() > 1:
+        prior_sum = torch.log(mesh.host_sum(torch.exp(prior_sum)) + 1e-30)
+        frames = mesh.host_sum(frames)
     priors["log_priors"] = ctc_ops.update_log_priors(
-        priors["prior_sum"], torch.log(priors["prior_frames"] + 1e-9))
+        prior_sum, torch.log(frames + 1e-9))
     priors["prior_sum"] = torch.full_like(priors["prior_sum"], -1e30)
     priors["prior_frames"] = torch.zeros_like(priors["prior_frames"])
     priors["priors_initialized"] = torch.ones_like(

@@ -361,19 +361,37 @@ def _aligner_ref(f: Flat) -> Flat:
     return sd
 
 
+def _wn_conv2d_ref(sd: Flat, f: Flat, t: str, scope: str, i: int,
+                   name: str) -> None:
+    """One flax ``WeightNorm(Conv)`` of ``scope`` as the reference's
+    parametrized conv: g the scale, v the kernel."""
+    w = np.ascontiguousarray(f[f"{scope}/{name}/kernel"].transpose(3, 2, 0, 1))
+    g = f[f"{scope}/WeightNorm_{i}/{name}/kernel/scale"]
+    sd[t + "parametrizations.weight.original0"] = g.reshape(
+        (-1,) + (1,) * (w.ndim - 1))
+    sd[t + "parametrizations.weight.original1"] = w
+    sd[t + "bias"] = f[f"{scope}/{name}/bias"]
+
+
 def _mrd_ref(f: Flat) -> Flat:
     sd: Flat = {}
     for d in _indices(f, "disc_"):
         convs = [(f"discriminators.{d}.discriminators.{i}.", i, f"conv_{i}")
                  for i in range(5)]
         for t, i, name in convs + [(f"discriminators.{d}.out.", 5, "out")]:
-            k = f"disc_{d}/{name}/kernel"
-            w = np.ascontiguousarray(f[k].transpose(3, 2, 0, 1))
-            g = f[f"disc_{d}/WeightNorm_{i}/{name}/kernel/scale"]
-            sd[t + "parametrizations.weight.original0"] = g.reshape(
-                (-1,) + (1,) * (w.ndim - 1))
-            sd[t + "parametrizations.weight.original1"] = w
-            sd[t + "bias"] = f[f"disc_{d}/{name}/bias"]
+            _wn_conv2d_ref(sd, f, t, f"disc_{d}", i, name)
+    return sd
+
+
+def _mpd_ref(f: Flat) -> Flat:
+    sd: Flat = {}
+    periods = sorted(_indices(f, "period_"))
+    for d, p in enumerate(periods):
+        convs = [(f"discriminators.{d}.convs.{i}.", i, f"conv_{i}")
+                 for i in range(5)]
+        for t, i, name in convs + [(f"discriminators.{d}.conv_post.", 5,
+                                    "out")]:
+            _wn_conv2d_ref(sd, f, t, f"period_{p}", i, name)
     return sd
 
 
@@ -393,6 +411,7 @@ _REFERENCE_WRITERS = {
     "speech_predictor": _speech_ref,
     "text_aligner": _aligner_ref,
     "mrd": _mrd_ref,
+    "mpd": _mpd_ref,
 }
 
 

@@ -51,6 +51,41 @@ def _kernel_input(case: str, n_fft: int, hop: int):
     return 2, blocks * per_block * hop + hop // 2
 
 
+# the DFT path's frames a block (csrc/stft.cu: DFT_FPB)
+DFT_FPB = 128
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("batch,t", [
+    (8, 138000),                 # the ringformer step's magphase target
+    (1, 9201 * 15 + 7),          # one row, no multiple of the hop
+    (2, DFT_FPB * 15 * 3),       # the last block holds one frame
+    (2, 31)])                    # just above n_fft / 2: mostly reflection
+def test_dft_path_matches_plain(cuda, batch, t):
+    """The STFT kernel's DFT path at the ringformer's 60/15/60 against the
+    plain version and a float64 rfft, launched once."""
+    n_fft = win = 60
+    hop = 15
+    x_np = np.random.default_rng(1).standard_normal((batch, t)) \
+        .astype(np.float32)
+    x = torch.from_numpy(x_np).cuda()
+    before = stft_forward.launches_by_n_fft.get(60, 0)
+    real, imag = stft_forward(x, n_fft=n_fft, hop_length=hop, win_length=win)
+    torch.cuda.synchronize()
+    assert stft_forward.launches_by_n_fft[60] == before + 1
+    r0, i0 = plain.stft(x, n_fft=n_fft, hop_length=hop, win_length=win)
+    ref = rfft_frames(x_np[:, :min(t, 4096)], n_fft, hop, win) \
+        if t <= 4096 else None
+    for got, want in ((real, r0), (imag, i0)):
+        assert got.shape == want.shape == (batch, 1 + t // hop, 31)
+        # f32 sums of 59 products in another order
+        err = (got - want).abs().max().item()
+        assert err <= 1e-5 * want.abs().max().item(), err
+    if ref is not None:
+        assert np.abs(real.cpu().numpy() - ref.real).max() <= \
+            1e-5 * np.abs(ref).max()
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("case", ["b3", "b1", "short", "partial"])
 @pytest.mark.parametrize("n_fft,hop,win", SHAPES)

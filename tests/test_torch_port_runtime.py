@@ -471,7 +471,8 @@ def _corrupt(path, what: str):
         (models / "duration_predictor.safetensors").unlink()
     elif what == "EMA unused":
         meta = json.loads((path / "meta.json").read_text())
-        meta["train_state"]["disc_ema"]["mpd"] = 1.0
+        # the state holds the MRD's and the MPD's EMAs: a third is unused
+        meta["train_state"]["disc_ema"]["msd"] = 1.0
         (path / "meta.json").write_text(json.dumps(meta))
     elif what == "prior missing":
         edit(path / "priors.safetensors", lambda t: t.pop("log_priors"))

@@ -13,13 +13,16 @@ import torch
 
 from stylish_tts_tpu.ops import stft as jstft
 from stylish_tts_tpu_torch.ops import stft as pstft
-from stylish_tts_tpu_torch.ops.stft_kernel import stft_forward, window_taps
+from stylish_tts_tpu_torch.ops.stft_kernel import (kernel_path,
+                                                   stft_forward, window_taps)
 from test_torch_port_helpers import assert_close
 from torch_port_stft_oracle import rfft_frames
 
-# (n_fft, hop, win): the generator's prior STFT, then the loss resolutions
+# (n_fft, hop, win): the generator's prior STFT, then the loss
+# resolutions, then the ringformer head's source and magphase grid (the
+# kernel's DFT path)
 SHAPES = [(2048, 75, 1200), (512, 50, 240), (1024, 120, 600),
-          (2048, 240, 1200), (2048, 300, 1200)]
+          (2048, 240, 1200), (2048, 300, 1200), (60, 15, 60)]
 
 
 def _audio(n_fft, hop, batch=2, seed=0):
@@ -136,3 +139,32 @@ def test_stft_is_the_rfft_of_the_windowed_frames(n_fft, hop, win):
     assert np.abs(real.numpy() - ref.real).max() <= 1e-5 * scale
     assert np.abs(imag.numpy() - ref.imag).max() <= 1e-5 * scale
 
+
+
+def test_kernel_paths_and_the_small_n_fft_gradient():
+    """n_fft picks the kernel's path (no fallback: a size neither path
+    takes raises), and the wrapper's own backward at the ringformer's
+    60/15/60 equals the JAX STFT's VJP."""
+    assert [kernel_path(n) for n in (60, 2, 128, 256, 4096)] == \
+        ["dft", "dft", "dft", "fft", "fft"]
+    for bad in (61, 130, 200, 8192):
+        with pytest.raises(ValueError, match="DFT path"):
+            kernel_path(bad)
+    n_fft, hop, win = 60, 15, 60
+    x = _audio(n_fft, hop, seed=3)
+    rng = np.random.default_rng(4)
+    frames = 1 + x.shape[1] // hop
+    g = [rng.standard_normal((2, frames, 31)).astype(np.float32)
+         for _ in range(2)]
+    fn = functools.partial(jstft.stft, n_fft=n_fft, hop_length=hop,
+                           win_length=win)
+    (want,) = jax.jit(lambda x, g: jax.vjp(fn, x)[1](g))(
+        jnp.asarray(x), tuple(jnp.asarray(a) for a in g))
+    xt = torch.from_numpy(x).requires_grad_()
+    before = stft_forward.launches
+    real, imag = stft_forward(xt, n_fft=n_fft, hop_length=hop,
+                              win_length=win)
+    ((real * torch.from_numpy(g[0])).sum()
+     + (imag * torch.from_numpy(g[1])).sum()).backward()
+    assert stft_forward.launches == before  # the plain path on the CPU
+    assert_close(xt.grad, want, rel=1e-5, what="d stft / dx at n_fft 60")
