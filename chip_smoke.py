@@ -37,7 +37,12 @@ Phases, in order; any failure raises and the exit code is non-zero:
    ``synthesize_batch`` of 8 utterances, with the allocator's new
    segments in each request; the launch counts are set to 0
    just before and read just after, and the audio is checked (finite, not
-   silent, exactly total_frames * hop samples); the STFT kernel is held
+   silent, exactly total_frames * hop samples); then two
+   ``synthesize_batch_async`` batches (the halves of the 8) dispatched
+   back to back before either is read, the counts set to 0 before and
+   read after (one STFT launch a batch), no synchronizing operation seen
+   in the dispatches (torch's sync debug mode), each bit-equal to
+   ``synthesize_batch`` from the same generator state; the STFT kernel is held
    against its plain version at this path's shapes, and the CPU and card
    outputs of the full-width models are compared on a short input;
 5. training: the acoustic-stage train state at
@@ -200,10 +205,26 @@ Phases, in order; any failure raises and the exit code is non-zero:
    backward at [8, 138000] f32 on the card timed, and held against the
    CPU at MPD_CPU_SHAPE within MPD_TOL.  Each run's seconds and each
    step's wall ms printed;
-12. one JSON line of every kernel's numbers, with its launches on the path
+12. RMVPE pitch and the conversion scripts, on phase 8's book dataset: a
+   seeded full-width RMVPE (its batch norms away from the identity) as the
+   reference's state dict through ``scripts/convert_rmvpe.py``, loaded on
+   the card (every tensor its source); CLI ``pitch --method rmvpe
+   --rmvpe-weights`` through the CLI's ``main``, the launch counts set to
+   0 just before and read just after: a finite track of samples // hop + 1
+   frames a segment, f0 >= 0, one STFT launch a segment at n_fft 1024 (hop
+   160, window 1024, B = 1) and no other kernel; the STFT held against its
+   plain version and torch.stft at every length the run took and timed at
+   the longest beside its bound; one segment's salience on the card
+   against the CPU within RMVPE_CPU_TOL (f32, TF32 off); last the five
+   conversion scripts on seeded full-width inputs (the SSL encoders as
+   local HF checkpoint directories written through ``tensorfile``), each
+   file equal to the in-process conversion.  The seconds a segment
+   printed;
+13. one JSON line of every kernel's numbers, with its launches on the path
    that runs it (per train step, acoustic, joint, each experimental run
    and the ringformer step, synthesis request or probe run; the STFT's DFT
-   path an entry of its own, per ringformer step), then the result line.
+   path an entry of its own, per ringformer step, and its RMVPE shape one
+   too, per file), then the result line.
 
 ``--profile`` adds torch.profiler breakdowns of one batch request and of
 one train step: device time by kernel, the port's own kernels' totals,
@@ -285,6 +306,13 @@ CHAIN_INTERVAL, CHAIN_BUDGET_SHARE = 3, 0.85
 # on phase 7's dataset: JOINT_STEPS steps of batches of up to JOINT_BATCH
 # (the heuristic plan), a validation and a save every JOINT_INTERVAL
 REFERENCE_SAFETENSORS = ("speech_predictor", "mrd", "pe_mel_style_encoder")
+# its models: the chain's, the aligner and the discriminators (the
+# experimental models and the frozen nets convert in phase 12's scripts
+# and the CPU tests)
+REFERENCE_MODELS = ("mrd", "mpd", "text_aligner", "duration_predictor",
+                    "pitch_energy_predictor", "speech_predictor",
+                    "pe_text_encoder", "pe_text_style_encoder",
+                    "pe_mel_style_encoder")
 JOINT_STEPS, JOINT_INTERVAL, JOINT_BATCH = 6, 3, 8
 # the experimental stages' phase on phase 7's dataset: (run, stage,
 # cfm_mel_features, steps), batches of up to EXPERIMENTAL_BATCH (the
@@ -334,6 +362,10 @@ RING_STFT = {"train": {"all": 1 + 2 * 3 + 1 + 2, "dft": 2},
 # of these bf16 steps differ by up to 3.7e-3 at step 4 (mel), as cuDNN's
 # algorithms accumulate in no fixed order
 RING_RUN_TOL = 0.0
+# the RMVPE phase on phase 8's book dataset: the seeded weights' seed, the
+# bound on one segment's salience on the card against the CPU (f32, TF32
+# off), and the positional conv's fold (g * v / |v|) of the SSL scripts
+RMVPE_SEED, RMVPE_CPU_TOL, SSL_FOLD_REL = 12, 1e-3, 1e-6
 # the leaves of the batch-stats collections: batch norms' running moments
 # and spectral norms' vectors
 BATCH_STATS = ("mean", "var", "u", "sigma")
@@ -408,6 +440,24 @@ def stft_error(x: torch.Tensor, n_fft: int, hop: int, win: int) -> tuple:
     return real, imag, err
 
 
+def stft_vs_torch(x: torch.Tensor, real: torch.Tensor, imag: torch.Tensor,
+                  n_fft: int, hop: int, win: int) -> float:
+    """The kernel's (real, imag) of ``x`` against an independent algorithm,
+    cuFFT through torch.stft: the max error, which must stay within
+    KERNEL_TOL of the largest value."""
+    from stylish_tts_tpu_torch.ops import stft as plain
+
+    window = plain._padded_window(win, n_fft).to(x.device)
+    lib = torch.stft(x, n_fft, hop, n_fft, window, center=True,
+                     pad_mode="reflect", return_complex=True).transpose(1, 2)
+    lib_err = max((real - lib.real).abs().max().item(),
+                  (imag - lib.imag).abs().max().item())
+    if not lib_err <= KERNEL_TOL * lib.abs().max().item():
+        raise AssertionError(f"stft n_fft={n_fft} hop={hop}: kernel vs "
+                             f"torch.stft max err {lib_err:.3e}")
+    return lib_err
+
+
 def stft_numbers(x: torch.Tensor, n_fft: int, hop: int, win: int,
                  flush: torch.Tensor) -> dict:
     """Hold the kernel against the plain version on ``x`` and time both,
@@ -417,16 +467,8 @@ def stft_numbers(x: torch.Tensor, n_fft: int, hop: int, win: int,
 
     kw = dict(n_fft=n_fft, hop_length=hop, win_length=win)
     real, imag, err = stft_error(x, n_fft, hop, win)
-
-    # and against an independent algorithm: cuFFT through torch.stft
+    lib_err = stft_vs_torch(x, real, imag, n_fft, hop, win)
     window = plain._padded_window(win, n_fft).to(x.device)
-    lib = torch.stft(x, n_fft, hop, n_fft, window, center=True,
-                     pad_mode="reflect", return_complex=True).transpose(1, 2)
-    lib_err = max((real - lib.real).abs().max().item(),
-                  (imag - lib.imag).abs().max().item())
-    if not lib_err <= KERNEL_TOL * lib.abs().max().item():
-        raise AssertionError(f"stft n_fft={n_fft} hop={hop}: kernel vs "
-                             f"torch.stft max err {lib_err:.3e}")
     ms = time_ms(lambda: stft_forward(x, **kw), flush=flush)
     plain_ms = time_ms(lambda: plain.stft(x, **kw), flush=flush)
     def library():
@@ -1552,9 +1594,11 @@ def _record_stft_shapes(shapes: list):
     return lambda: setattr(stft_forward, "launch", launch)
 
 
-def book_path(card: str, kernels, chain_artifact: Path) -> dict:
+def book_path(card: str, kernels, chain_artifact: Path,
+              keep_data: Path) -> dict:
     """From a book's text to a voice through the CLI, at the full-width
-    default ModelConfig; see the module docstring, phase 8."""
+    default ModelConfig; see the module docstring, phase 8.  The book's
+    dataset is copied to ``keep_data`` for phase 12."""
     import functools
     import shutil
     import tempfile
@@ -1834,6 +1878,7 @@ def book_path(card: str, kernels, chain_artifact: Path) -> dict:
         print(f"book: speak --text {seconds['speak_text']:.1f} s, "
               f"{pcm.shape[0] / mc.sample_rate:.2f} s of audio from 3 "
               f"sentences on the chain's artifact [{card}]")
+        shutil.copytree(data, keep_data)
     torch.cuda.empty_cache()
     seconds["phase"] = time.perf_counter() - t_phase
     print(f"book phase: {seconds['phase']:.1f} s [{card}]")
@@ -1943,8 +1988,7 @@ def interop_path(device, card: str, kernels, data: Path,
         load_reference_state_dicts)
     from stylish_tts_tpu_torch.export.infer import Synthesizer
     from stylish_tts_tpu_torch.export.package import load_inference_models
-    from stylish_tts_tpu_torch.models.torch_convert import (CONVERTERS,
-                                                            convert_module)
+    from stylish_tts_tpu_torch.models.torch_convert import convert_module
     from stylish_tts_tpu_torch.scripts.spec_conv_times import \
         LAUNCHES_PER_LAYER
     from stylish_tts_tpu_torch.train import loop
@@ -1979,7 +2023,8 @@ def interop_path(device, card: str, kernels, data: Path,
         t0 = time.perf_counter()
         built = build_training_models(mc)
         generator = torch.Generator().manual_seed(40)
-        reference = {k: init_params(built[k], generator) for k in CONVERTERS}
+        reference = {k: init_params(built[k], generator)
+                     for k in REFERENCE_MODELS}
         speech_levels(reference)
         ckpt = root / "reference"
         files = write_reference_checkpoint(ckpt, reference,
@@ -3217,6 +3262,256 @@ def ringformer_path(device, card: str, kernels, data: Path,
 
 
 # --------------------------------------------------------------------------- #
+# RMVPE pitch on the book's dataset and the conversion scripts
+
+
+def _same_flat(got: dict, want: dict, what: str) -> None:
+    """Two flat dicts of arrays: the same names, every array bit-equal."""
+    if got.keys() != want.keys():
+        raise AssertionError(f"{what}: names differ by "
+                             f"{sorted(set(got) ^ set(want))[:5]}")
+    for k in want:
+        if not np.array_equal(got[k], np.asarray(want[k])):
+            raise AssertionError(f"{what}: {k} differs")
+
+
+def conversion_scripts(root: Path, rmvpe_sd: dict, rmvpe_file: Path,
+                       card: str) -> dict:
+    """The port's five conversion scripts on seeded inputs, each file equal
+    to the in-process conversion of the same input: RMVPE's (already
+    written by phase 12), the speaker net's and Vocos's from seeded
+    full-width modules' reference state dicts (the speaker net's wrapped
+    as wespeaker's checkpoints hold it), WavLM's and HuBERT's from seeded
+    full-width SSL encoders written as local HF checkpoint directories
+    through ``tensorfile`` (which also convert back to the encoders' own
+    flax names, the positional conv's folded weight norm within
+    SSL_FOLD_REL)."""
+    from stylish_tts_tpu_torch.convert import export_flax_params
+    from stylish_tts_tpu_torch.models import torch_convert
+    from stylish_tts_tpu_torch.models.slm import SLMFeatureExtractor
+    from stylish_tts_tpu_torch.models.slm_convert import \
+        convert_checkpoint_directory
+    from stylish_tts_tpu_torch.models.vocos import Vocos
+    from stylish_tts_tpu_torch.models.wespeaker import SimAMResNet34ASP
+    from stylish_tts_tpu_torch.scripts import (convert_hubert,
+                                               convert_vocos, convert_wavlm,
+                                               convert_wespeaker)
+    from stylish_tts_tpu_torch.train.init import init_params
+    from stylish_tts_tpu_torch.utils.synthetic import (reference_state_dict,
+                                                       write_ssl_checkpoint)
+    from stylish_tts_tpu_torch.utils.tensorfile import read_safetensors
+
+    record = {}
+    params, stats = torch_convert.convert_rmvpe(rmvpe_sd)
+    _same_flat(read_safetensors(rmvpe_file), {
+        **params, **{f"__batch_stats__/{k}": np.atleast_1d(v)
+                     for k, v in stats.items()}}, "convert_rmvpe")
+    record["rmvpe"] = len(params) + len(stats)
+    gen = torch.Generator().manual_seed(RMVPE_SEED + 1)
+    for name, module, script in (
+            ("wespeaker", SimAMResNet34ASP(), convert_wespeaker),
+            ("vocos", Vocos(), convert_vocos)):
+        t0 = time.perf_counter()
+        sd = reference_state_dict(name, init_params(module, gen))
+        state = {k: torch.from_numpy(v) for k, v in sd.items()}
+        src, dst = root / f"{name}.pt", root / f"{name}.safetensors"
+        torch.save({"model": state} if name == "wespeaker" else state, src)
+        script.main([str(src), str(dst)])
+        _same_flat(read_safetensors(dst),
+                   torch_convert.CONVERTERS[name](sd), f"convert_{name}")
+        record[name] = len(sd)
+        print(f"rmvpe phase: scripts/convert_{name}.py on a seeded "
+              f"full-width state dict of {len(sd)} tensors: the file is the "
+              f"in-process conversion, {time.perf_counter() - t0:.1f} s "
+              f"[{card}]")
+    for name, module, script in (
+            ("wavlm", SLMFeatureExtractor(), convert_wavlm),
+            ("hubert", SLMFeatureExtractor(n_layers=6, rel_pos_bias=False),
+             convert_hubert)):
+        t0 = time.perf_counter()
+        hf = write_ssl_checkpoint(root / name, init_params(module, gen))
+        dst = root / f"{name}.safetensors"
+        script.main(["--model", str(hf), "--out", str(dst)])
+        got = read_safetensors(dst)
+        _same_flat(got, convert_checkpoint_directory(
+            hf, gated=module.rel_pos_bias), f"convert_{name}")
+        own = export_flax_params("slm", module)
+        for k, v in own.items():
+            gap = float(np.abs(got[k] - v).max())
+            if k == "pos_conv/kernel":
+                if not gap <= SSL_FOLD_REL * float(np.abs(v).max()):
+                    raise AssertionError(f"convert_{name}: {k} off by {gap}")
+            elif gap != 0.0:
+                raise AssertionError(f"convert_{name}: {k} off by {gap}")
+        record[name] = len(got)
+        print(f"rmvpe phase: scripts/convert_{name}.py on a seeded "
+              f"{module.n_layers}-layer HF directory: {len(got)} tensors, "
+              f"the in-process conversion, {time.perf_counter() - t0:.1f} s "
+              f"[{card}]")
+    return record
+
+
+def stft_at_lengths(lengths, n_fft: int, hop: int, win: int,
+                    flush: torch.Tensor, card: str) -> dict:
+    """The STFT kernel on [1, T] at every T of ``lengths``, against its
+    plain version and torch.stft; timed at the longest beside its bound
+    (``stft_numbers``), returned with the lengths and the worst errors."""
+    t0 = time.perf_counter()
+    worst = lib_worst = 0.0
+    for t in lengths:
+        gen = torch.Generator(device="cuda").manual_seed(t)
+        x = 0.1 * torch.randn(1, t, generator=gen, device="cuda")
+        real, imag, err = stft_error(x, n_fft, hop, win)
+        worst = max(worst, err)
+        lib_worst = max(lib_worst, stft_vs_torch(x, real, imag, n_fft, hop,
+                                                 win))
+    numbers = stft_numbers(x, n_fft, hop, win, flush)
+    print(f"rmvpe phase: stft at {n_fft}/{hop}/{win} held at the run's "
+          f"{len(lengths)} lengths (max err {worst:.2e}, vs torch.stft "
+          f"{lib_worst:.2e}), {time.perf_counter() - t0:.1f} s; at the "
+          f"longest, {numbers['shape']}: {stft_line(numbers)} [{card}]")
+    return {**numbers, "lengths": list(lengths), "worst_err": worst,
+            "worst_err_vs_torch_stft": lib_worst}
+
+
+def rmvpe_path(device, card: str, kernels, data: Path,
+               flush: torch.Tensor) -> dict:
+    """RMVPE pitch through CLI ``pitch --method rmvpe`` on phase 8's book
+    dataset ``data`` from a seeded full-width weights file, and the five
+    conversion scripts; see the module docstring, phase 12."""
+    import tempfile
+
+    from stylish_tts_tpu_torch import cli
+    from stylish_tts_tpu_torch.config import Config, ModelConfig, dump_json
+    from stylish_tts_tpu_torch.data.audio import read_wav, wav_info
+    from stylish_tts_tpu_torch.dataprep import rmvpe as rm
+    from stylish_tts_tpu_torch.ops.resample import resample
+    from stylish_tts_tpu_torch.ops.stft_kernel import stft_forward
+    from stylish_tts_tpu_torch.scripts import convert_rmvpe
+    from stylish_tts_tpu_torch.utils.synthetic import (reference_state_dict,
+                                                       seeded_rmvpe)
+    from stylish_tts_tpu_torch.utils.tensorfile import read_safetensors
+
+    t_phase = time.perf_counter()
+    mc = ModelConfig()
+    hop = mc.hop_length
+    record: dict = {"card": card, "seconds": {}}
+    seconds = record["seconds"]
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_rmvpe_") as tmp:
+        root = Path(tmp)
+        # the weights: a seeded full-width net as the reference's state
+        # dict, through the port's script, loaded on the card
+        t0 = time.perf_counter()
+        model = seeded_rmvpe(RMVPE_SEED)
+        sd = reference_state_dict("rmvpe", model)
+        torch.save({k: torch.from_numpy(v) for k, v in sd.items()},
+                   root / "rmvpe.pt")
+        weights = root / "rmvpe.safetensors"
+        convert_rmvpe.main([str(root / "rmvpe.pt"), str(weights)])
+        net = rm.RMVPEInference(str(weights), device=device)
+        loaded = net.model.state_dict()
+        for k, v in model.state_dict().items():
+            if not torch.equal(loaded[k].cpu(), v):
+                raise AssertionError(f"rmvpe: {k} is not its source")
+        seconds["weights"] = time.perf_counter() - t0
+        print(f"rmvpe phase: {len(sd)} reference tensors through "
+              f"scripts/convert_rmvpe.py, loaded on the card, every tensor "
+              f"its source, {seconds['weights']:.1f} s [{card}]")
+
+        # CLI pitch --method rmvpe on the book's dataset
+        cfg = Config()
+        cfg.dataset.path = str(data)
+        (root / "config.json").write_text(dump_json(cfg))
+        segments = {}
+        for split in ("train", "val"):
+            for line in (data / f"{split}-list.txt").read_text().splitlines():
+                name = line.split("|")[0]
+                segments[name] = wav_info(data / "wav24" / name).frames
+        shapes: list = []
+        restore = _record_stft_shapes(shapes)
+        for k in kernels:
+            k.launches = 0
+        stft_forward.launches_by_n_fft.clear()
+        t0 = time.perf_counter()
+        try:
+            cli.main(["pitch", "--config", str(root / "config.json"),
+                      "--method", "rmvpe", "--rmvpe-weights", str(weights)])
+        finally:
+            restore()
+        torch.cuda.synchronize()
+        seconds["pitch"] = time.perf_counter() - t0
+        launches = _launch_counts(kernels)
+        by_n_fft = dict(stft_forward.launches_by_n_fft)
+        n = len(segments)
+        pitch = read_safetensors(data / "pitch.safetensors")
+        if set(pitch) != set(segments):
+            raise AssertionError(f"rmvpe: pitch for {len(pitch)} of {n} "
+                                 f"segments")
+        for name, f0 in pitch.items():
+            if f0.shape != (segments[name] // hop + 1,) or not np.all(
+                    np.isfinite(f0)) or not np.all(f0 >= 0):
+                raise AssertionError(f"rmvpe: {name}: f0 {f0.shape}, "
+                                     f"min {f0.min()}")
+        taken = [s for s in shapes if s[2:] == (rm.N_FFT, rm.HOP, rm.WIN)]
+        if (len(taken) != n or len(shapes) != n or by_n_fft != {rm.N_FFT: n}
+                or launches["stft_forward"] != n
+                or any(s[0] != 1 for s in taken)):
+            raise AssertionError(f"rmvpe: {n} segments, STFT launches "
+                                 f"{launches} by n_fft {by_n_fft}, shapes "
+                                 f"{shapes}")
+        if any(v for k, v in launches.items() if k != "stft_forward"):
+            raise AssertionError(f"rmvpe: other kernels ran: {launches}")
+        voiced = float(np.mean(np.concatenate(list(pitch.values())) > 0))
+        audio_s = sum(segments.values()) / mc.sample_rate
+        record.update(segments=n, audio_s=audio_s, launches=launches,
+                      launches_per_file=launches["stft_forward"] // n,
+                      voiced_share=voiced,
+                      seconds_per_segment=seconds["pitch"] / n,
+                      frames=sorted(s[1] // rm.HOP + 1 for s in taken))
+        print(f"rmvpe phase: pitch --method rmvpe {seconds['pitch']:.2f} s "
+              f"for {n} segments ({audio_s:.1f} s of audio), "
+              f"{record['seconds_per_segment']:.3f} s a segment; one STFT "
+              f"launch a file at {rm.N_FFT}/{rm.HOP}/{rm.WIN} (B = 1, "
+              f"{min(record['frames'])}-{max(record['frames'])} frames), "
+              f"launches {launches}; {100 * voiced:.1f}% of the frames "
+              f"voiced [{card}]")
+
+        # the STFT kernel at every length the run took, against its plain
+        # version and torch.stft; timed at the longest beside its bound
+        record["stft"] = stft_at_lengths(sorted({s[1] for s in taken}),
+                                         rm.N_FFT, rm.HOP, rm.WIN, flush,
+                                         card)
+
+        # one segment's salience on the card against the CPU, f32, TF32 off
+        if (torch.backends.cuda.matmul.allow_tf32
+                or torch.backends.cudnn.allow_tf32):
+            raise AssertionError("rmvpe: TF32 is on")
+        name = min(segments, key=segments.get)
+        wave = torch.from_numpy(read_wav(data / "wav24" / name,
+                                         mc.sample_rate)[None])
+        wave16 = resample(wave, mc.sample_rate, rm.SAMPLE_RATE)[0]
+        cpu = rm.RMVPEInference(str(weights), device="cpu")
+        on_cpu = cpu.salience(wave16)
+        on_card = net.salience(wave16.to(device)).cpu()
+        gap = float((on_card - on_cpu).abs().max())
+        if on_card.shape != on_cpu.shape or not gap <= RMVPE_CPU_TOL:
+            raise AssertionError(f"rmvpe: card vs cpu salience {gap:.2e}")
+        record["cpu_vs_card"] = {"segment": name, "frames": on_cpu.shape[0],
+                                 "max_abs_err": gap}
+        print(f"rmvpe phase: salience of {name} ({on_cpu.shape[0]} frames) "
+              f"on the card against the CPU: max err {gap:.2e} (bound "
+              f"{RMVPE_CPU_TOL}) [{card}]")
+
+        t0 = time.perf_counter()
+        record["scripts"] = conversion_scripts(root, sd, weights, card)
+        seconds["scripts"] = time.perf_counter() - t0
+    torch.cuda.empty_cache()
+    record["seconds"]["phase"] = time.perf_counter() - t_phase
+    print(f"rmvpe phase: {record['seconds']['phase']:.1f} s [{card}]")
+    return record
+
+
+# --------------------------------------------------------------------------- #
 # the main path
 
 
@@ -3316,6 +3611,55 @@ def cpu_vs_card(mc, models_cpu, synth, text: str) -> float:
             raise AssertionError(f"cpu vs card {name}: {err:.3e} > {bound:.3e}")
         worst = max(worst, err / max(a.abs().max().item(), 1e-30))
     return worst
+
+
+def pipelined_batches(synth, batch, hop: int, kernels, card: str) -> dict:
+    """Two ``synthesize_batch_async`` batches (the halves of ``batch``)
+    dispatched back to back before either is read, with no operation torch's
+    sync debug mode flags, each bit-equal to ``synthesize_batch`` from the
+    same generator state; the launch counts are set to 0 just before the
+    dispatches and read just after the reads."""
+    import warnings
+
+    state = synth.generator.get_state()
+    halves = (batch[: len(batch) // 2], batch[len(batch) // 2:])
+    for k in kernels:
+        k.launches = 0
+    # torch's sync debug mode warns of each operation that waits for the
+    # card (it sees most, not all): the dispatches must hold none
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        t0 = time.perf_counter()
+        try:
+            pending = [synth.synthesize_batch_async(h, fixed_duration=8)
+                       for h in halves]
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        dispatch_s = time.perf_counter() - t0
+    pcms = [p.pcm.cpu().numpy() for p in pending]
+    wall_s = time.perf_counter() - t0
+    launches = _launch_counts(kernels)
+    syncs = [str(w.message) for w in caught
+             if "synchronizing CUDA operation" in str(w.message)]
+    if syncs or launches["stft_forward"] != len(halves) or not all(
+            bool(p.finite) for p in pending):
+        raise AssertionError(f"pipelined batches: launches {launches}, "
+                             f"synchronizing operations {syncs}")
+    synth.generator.set_state(state)
+    for half, p, pcm in zip(halves, pending, pcms):
+        for i, want in enumerate(synth.synthesize_batch(half,
+                                                        fixed_duration=8)):
+            got = pcm[i, : p.totals[i] * hop].astype(np.float32) / 32767.0
+            if not np.array_equal(got, want):
+                raise AssertionError(f"pipelined batch item {i}: not "
+                                     f"synthesize_batch's audio")
+    print(f"synthesize_batch_async: 2 batches of {len(halves[0])} "
+          f"dispatched in {dispatch_s * 1e3:.1f} ms with no synchronizing "
+          f"operation seen, read after {wall_s * 1e3:.1f} ms, each "
+          f"bit-equal to synthesize_batch; launches {launches} [{card}]")
+    return {"dispatch_s": dispatch_s, "wall_s": wall_s,
+            "launches": launches}
 
 
 def profile_batch(synth, batch, card: str) -> dict:
@@ -3534,6 +3878,7 @@ def main() -> int:
     if synth_launches["stft_forward"] == 0:
         raise AssertionError("stft_forward never launched on synthesis")
     print(f"synthesis launches: {synth_launches}")
+    record["pipelined"] = pipelined_batches(synth, batch, hop, kernels, card)
 
     check_audio(audio, 80 + 2, 8, hop, "synthesize")
     for i, (a, n) in enumerate(zip(audios, counts)):
@@ -3628,8 +3973,9 @@ def main() -> int:
     # from a book's text to a voice, speak --text on the chain's artifact
     with tempfile.TemporaryDirectory(prefix="chip_smoke_artifact_") as keep:
         artifact, data = Path(keep) / "chain_artifact", Path(keep) / "data"
+        book_data = Path(keep) / "book_data"
         record["chain"] = chain_path(device, card, kernels, artifact, data)
-        record["book"] = book_path(card, kernels, artifact)
+        record["book"] = book_path(card, kernels, artifact, book_data)
         # 9. interop and the joint stage: import-torch, train --stage joint
         # --init-torch on phase 7's dataset, CLI test
         record["interop"] = interop_path(device, card, kernels, data,
@@ -3642,11 +3988,15 @@ def main() -> int:
         # training and the MPD
         record["ringformer"] = ringformer_path(device, card, kernels, data,
                                                flush)
+        # 12. RMVPE pitch on phase 8's book dataset (the STFT at
+        # 1024/160/1024, B = 1), and the five conversion scripts
+        record["rmvpe"] = rmvpe_path(device, card, kernels, book_data, flush)
 
-    # 12. results: each kernel's own numbers and its launches on the path
+    # 13. results: each kernel's own numbers and its launches on the path
     # that runs it: per train step (acoustic, and joint, the experimental
     # runs and the ringformer step beside it), or per probe run; the STFT's
-    # DFT path as an entry of its own, at the ringformer step
+    # DFT path as an entry of its own, at the ringformer step, and its
+    # RMVPE shape (1024/160/1024, B = 1) too, per file
     out_dir = Path("chiprun_out")
     out_dir.mkdir(exist_ok=True)
     (out_dir / "chip_smoke.json").write_text(json.dumps(record, indent=1))
@@ -3687,6 +4037,19 @@ def main() -> int:
         "source": stft_forward.source, "replaces": stft_forward.replaces,
         "launches": ring["launches_per_step"]["train"]["stft_dft"],
         "per": "ringformer train step", "n_fft": RING_N_FFT,
+        "max_abs_err": n["max_abs_err"], "ms": n["ms"],
+        "plain_ms": n["plain_ms"], "bound_ms": n["bound_ms"],
+        "bound_by": n["bound_by"], "library_ms": n["library_ms"],
+        "device_ms": n["device_ms"],
+        "library_device_ms": n["library_device_ms"]})
+    rmvpe = record["rmvpe"]
+    entries[0]["rmvpe_launches"] = rmvpe["launches_per_file"]  # per file
+    n = rmvpe["stft"]
+    entries.insert(2, {
+        "name": "stft_forward_rmvpe", "route": stft_forward.route,
+        "source": stft_forward.source, "replaces": stft_forward.replaces,
+        "launches": rmvpe["launches_per_file"], "per": "RMVPE pitch file",
+        "n_fft": n["n_fft"], "hop": n["hop"], "shape": n["shape"],
         "max_abs_err": n["max_abs_err"], "ms": n["ms"],
         "plain_ms": n["plain_ms"], "bound_ms": n["bound_ms"],
         "bound_by": n["bound_by"], "library_ms": n["library_ms"],

@@ -5,7 +5,8 @@
         [--transcript CH1.txt ...] [--sample-rate 24000] [--seed 0]
 
     python -m stylish_tts_tpu_torch.cli pitch --config CONFIG.json \\
-        [--model-config MODEL.json] [--method yin] [--device cpu]
+        [--model-config MODEL.json] [--method yin|rmvpe] \\
+        [--rmvpe-weights RMVPE.safetensors] [--device cpu]
 
     python -m stylish_tts_tpu_torch.cli train-align --config CONFIG.json \\
         --out DIR [--model-config MODEL.json] [--checkpoint DIR] \\
@@ -40,7 +41,7 @@ The workflow from a book's audio and text to a voice: ``prepare-book``
 cuts the chapters' WAVs into segments at their silences and matches each
 to the book's words (``dataprep/book.py``), writing ``wav24/`` and the
 train and val lists; ``pitch`` caches each segment's F0 (YIN,
-``dataprep/pitch.py``); ``train-align`` trains the CTC aligner
+``dataprep/pitch.py``, or the RMVPE net, ``dataprep/rmvpe.py``); ``train-align`` trains the CTC aligner
 (the ``alignment`` stage) and writes ``DIR/alignment_model.safetensors``,
 which ``align`` expects in the dataset's directory
 (``dataset.alignment_model_path``) to cache each segment's durations
@@ -206,8 +207,13 @@ def import_torch(args: argparse.Namespace) -> Path:
         load_inference_models(out, args.device)
     else:
         from .device import resolve_device
+        from .models.vocos import Vocos
+        from .models.wespeaker import SimAMResNet34ASP
 
-        module = build_training_models(mc, [args.model])[args.model]
+        # the frozen nets at their published widths; the rest as trained
+        frozen = {"wespeaker": SimAMResNet34ASP, "vocos": Vocos}
+        module = (frozen[args.model]() if args.model in frozen else
+                  build_training_models(mc, [args.model])[args.model])
         load_converted_module(out / f"{args.model}.safetensors", args.model,
                               module).to(resolve_device(args.device))
     return out
@@ -289,10 +295,14 @@ def build_parser() -> argparse.ArgumentParser:
                          "(phrase|start|end|text), one per --audio")
     bp.add_argument("--sample-rate", type=int, default=24000)
     bp.add_argument("--seed", type=int, default=0)
-    pp = sub.add_parser("pitch", help="cache the dataset's F0 (YIN)")
+    pp = sub.add_parser("pitch", help="cache the dataset's F0 (YIN or "
+                                      "RMVPE)")
     _add_configs(pp)
-    pp.add_argument("--method", default="yin", choices=("yin", "rmvpe"),
-                    help="rmvpe is not ported yet")
+    pp.add_argument("--method", default="yin", choices=("yin", "rmvpe"))
+    pp.add_argument("--rmvpe-weights", default=None,
+                    help="converted RMVPE safetensors "
+                         "(scripts/convert_rmvpe.py) for --method rmvpe; "
+                         "without it the net is drawn from a seed")
     _add_device(pp)
     ap = sub.add_parser("train-align", help="train the CTC aligner")
     _add_configs(ap)
@@ -395,6 +405,7 @@ def main(argv: Optional[List[str]] = None) -> None:
 
         config, model_config = _configs(args)
         out = calculate_pitch(config, model_config, method=args.method,
+                              rmvpe_weights=args.rmvpe_weights,
                               device=args.device)
         print(f"wrote {config.dataset.pitch_path} ({len(out)} segments)")
     elif args.command == "align":

@@ -7,7 +7,8 @@ refinement of each voiced frame.  YIN frames are independent of their
 file, so the whole dataset flattens into one (file, frame) stream that is
 processed in fixed-size chunks of [CHUNK_FRAMES, frame_len].  Output: one
 [frames] float32 array per segment in ``pitch.safetensors``, 0 where
-unvoiced.
+unvoiced.  ``--method rmvpe`` runs the RMVPE net (``dataprep/rmvpe.py``)
+on each file instead.
 """
 
 from __future__ import annotations
@@ -227,11 +228,38 @@ def extract_pitch_batch(waves, sample_rate: int, hop_length: int,
     return results
 
 
+def extract_pitch(wave: np.ndarray, sample_rate: int, hop_length: int,
+                  device=None) -> np.ndarray:
+    """[T] audio -> [T//hop + 1] f0 (the single-file YIN wrapper)."""
+    return extract_pitch_batch([wave], sample_rate, hop_length,
+                               device=device)[0]
+
+
+def rmvpe_pitch(rmvpe, wave: np.ndarray, sample_rate: int,
+                hop_length: int) -> np.ndarray:
+    """[T] audio -> [T//hop + 1] f0 by RMVPE: resampled to 16 kHz on the
+    net's device, one STFT and one forward, and the net's frames (hop 160
+    at 16 kHz) interpolated linearly onto the mel frame grid."""
+    from ..ops.resample import resample
+    from .rmvpe import SAMPLE_RATE
+
+    x = torch.from_numpy(np.asarray(wave, np.float32)[None]).to(rmvpe.device)
+    f0 = rmvpe(resample(x, sample_rate, SAMPLE_RATE)[0])
+    n_frames = wave.shape[0] // hop_length + 1
+    xp = np.linspace(0, 1, f0.shape[0])
+    xq = np.linspace(0, 1, n_frames)
+    return np.interp(xq, xp, f0).astype(np.float32)
+
+
 def calculate_pitch(config, model_config, method: str = "yin",
+                    rmvpe_weights: str | None = None,
                     device=None) -> Dict[str, np.ndarray]:
     """Precache F0 for the val and train splits into ``pitch.safetensors``
-    (written by ``utils/tensorfile.py``); returns what it wrote.  YIN runs
-    on ``device`` (the card unless named).  ``rmvpe`` is not ported."""
+    (written by ``utils/tensorfile.py``); returns what it wrote.  ``yin``
+    runs on ``device`` (the card unless named); ``rmvpe`` runs the RMVPE
+    net there, one file at a time, from the converted weights
+    ``rmvpe_weights`` (``scripts/convert_rmvpe.py``) or, without them,
+    from a seed as the JAX package does."""
     from concurrent.futures import ThreadPoolExecutor
 
     from ..data.audio import read_wav
@@ -239,13 +267,14 @@ def calculate_pitch(config, model_config, method: str = "yin",
     from ..device import resolve_device
     from ..utils.tensorfile import write_safetensors
 
-    if method == "rmvpe":
-        raise NotImplementedError(
-            "pitch --method rmvpe is not ported yet: Queue 1 item 6 (the "
-            "frozen RMVPE net); use --method yin")
-    if method != "yin":
+    if method not in ("yin", "rmvpe"):
         raise ValueError(f"unknown pitch method {method!r}")
     device = resolve_device(device)
+    rmvpe = None
+    if method == "rmvpe":
+        from .rmvpe import RMVPEInference
+
+        rmvpe = RMVPEInference(rmvpe_weights, device=device)
     root = Path(config.dataset.path)
     wavdir = root / config.dataset.wav_path
     out: Dict[str, np.ndarray] = {}
@@ -264,10 +293,12 @@ def calculate_pitch(config, model_config, method: str = "yin",
                 group = names[g : g + GROUP]
                 waves = list(
                     pool.map(lambda n: read_wav(wavdir / n, sr), group))
-                for name, f0 in zip(
-                    group, extract_pitch_batch(waves, sr, hop, device=device)
-                ):
-                    out[name] = f0
+                if rmvpe is not None:
+                    tracks = [rmvpe_pitch(rmvpe, w, sr, hop) for w in waves]
+                else:
+                    tracks = extract_pitch_batch(waves, sr, hop,
+                                                 device=device)
+                out.update(zip(group, tracks))
                 done += len(group)
                 if done % 512 < GROUP:
                     logger.info("%s: %d/%d", split, done, len(names))

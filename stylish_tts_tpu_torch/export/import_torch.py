@@ -65,13 +65,17 @@ BATCH_STATS_PREFIX = "__batch_stats__/"
 PathLike = Union[str, Path]
 
 
-def _load_state_dict_file(path: PathLike) -> Dict[str, np.ndarray]:
+def load_state_dict_file(path: PathLike) -> Dict[str, np.ndarray]:
     """One module's torch ``state_dict`` from a ``.safetensors`` file or a
-    torch pickle (``.bin``, ``.pt``), as numpy arrays."""
+    torch pickle (``.bin``, ``.pt``; a checkpoint dict that holds it under
+    ``model`` or ``state_dict`` is unwrapped), as numpy arrays."""
     path = Path(path)
     if path.suffix == ".safetensors":
         return read_safetensors(path)
     sd = torch.load(str(path), map_location="cpu", weights_only=True)
+    for key in ("model", "state_dict"):
+        if key in sd and hasattr(sd[key], "items"):
+            sd = sd[key]
     return {k: v.numpy() for k, v in sd.items()}
 
 
@@ -95,7 +99,7 @@ def load_reference_state_dicts(checkpoint_dir: PathLike
     for i, name in enumerate(REFERENCE_SAVE_ORDER):
         p = _model_file(ckpt, i)
         if p is not None:
-            out[name] = _load_state_dict_file(p)
+            out[name] = load_state_dict_file(p)
     if not out:
         raise FileNotFoundError(
             f"no pytorch_model*.bin / model*.safetensors under {ckpt}")
@@ -103,10 +107,15 @@ def load_reference_state_dicts(checkpoint_dir: PathLike
 
 
 def save_converted_module(out_path: PathLike, name: str, state_dict) -> None:
-    """One module -> flat safetensors; its batch stats (the aligner's batch
-    norms, the mel style encoder's spectral norms) share the file under
-    ``BATCH_STATS_PREFIX``, at least 1-d as the JAX package writes them."""
-    params, stats = convert_module(name, state_dict)
+    """One module -> flat safetensors (``write_converted``)."""
+    write_converted(out_path, *convert_module(name, state_dict))
+
+
+def write_converted(out_path: PathLike, params, stats) -> None:
+    """Converted params -> flat safetensors; the batch stats (the aligner's
+    batch norms, the mel style encoder's spectral norms, RMVPE's batch
+    norms) share the file under ``BATCH_STATS_PREFIX``, at least 1-d as
+    the JAX package writes them."""
     flat = dict(params)
     for k, v in stats.items():
         flat[BATCH_STATS_PREFIX + k] = np.atleast_1d(np.asarray(v))
@@ -148,7 +157,7 @@ def import_torch_checkpoint(checkpoint: PathLike, out_dir: PathLike,
     if single_model is not None:
         converter(single_model)
         save_converted_module(out / f"{single_model}.safetensors",
-                              single_model, _load_state_dict_file(checkpoint))
+                              single_model, load_state_dict_file(checkpoint))
         return out
 
     state_dicts = load_reference_state_dicts(checkpoint)

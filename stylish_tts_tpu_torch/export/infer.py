@@ -11,7 +11,7 @@ from __future__ import annotations
 
 import time
 from dataclasses import dataclass
-from typing import Dict, List, Optional, Tuple, Union
+from typing import Dict, List, NamedTuple, Optional, Tuple, Union
 
 import numpy as np
 import torch
@@ -33,13 +33,27 @@ def text_bucket(n_tokens: int) -> int:
     return min(max(64, -(-n_tokens // 64) * 64), 512)
 
 
-def to_pcm16(audio: torch.Tensor) -> torch.Tensor:
+def pcm16(audio: torch.Tensor) -> torch.Tensor:
     """tanh-bounded float audio -> int16 PCM (truncating, as the JAX
-    package's ``astype(int16)``).  Raises on NaN or inf, which the integer
-    cast would otherwise turn into silence."""
+    package's ``astype(int16)``), without a check."""
+    return torch.clamp(audio * 32767.0, -32768.0, 32767.0).to(torch.int16)
+
+
+def to_pcm16(audio: torch.Tensor) -> torch.Tensor:
+    """``pcm16`` that raises on NaN or inf, which the integer cast would
+    otherwise turn into silence."""
     if not bool(torch.isfinite(audio).all()):
         raise FloatingPointError("synthesis produced non-finite audio")
-    return torch.clamp(audio * 32767.0, -32768.0, 32767.0).to(torch.int16)
+    return pcm16(audio)
+
+
+class BatchAudio(NamedTuple):
+    """One dispatched batch: int16 PCM [B, frames * hop] on the device,
+    each utterance's frame total, and whether the float audio was finite
+    (a bool tensor on the device, read when the PCM is)."""
+    pcm: torch.Tensor
+    totals: List[int]
+    finite: torch.Tensor
 
 
 def check_servable(model_config: ModelConfig) -> None:
@@ -124,8 +138,16 @@ class Synthesizer:
         for i, ids in enumerate(encoded):
             tokens[i, : len(ids)] = ids
             lengths.append(len(ids))
-        return (torch.from_numpy(tokens).to(self.device),
-                torch.tensor(lengths, device=self.device), lengths)
+        return (self.upload(tokens), self.upload(np.array(lengths)), lengths)
+
+    def upload(self, array: np.ndarray) -> torch.Tensor:
+        """A host array on the device without waiting for the device: on
+        the card a pinned copy, copied asynchronously (a copy from pageable
+        memory would wait for the work already queued)."""
+        t = torch.from_numpy(array)
+        if self.device.type != "cuda":
+            return t.to(self.device)
+        return t.pin_memory().to(self.device, non_blocking=True)
 
     def predict_durations(self, phonemes: str) -> np.ndarray:
         tokens, lengths, (n,) = self.encode_batch([phonemes])
@@ -165,20 +187,24 @@ class Synthesizer:
         if style is None:
             style = self.style_graph(tokens, lengths)
         audio = self.speech_audio(
-            tokens, lengths, torch.from_numpy(dur_vec).to(self.device),
+            tokens, lengths, self.upload(dur_vec),
             frame_bucket(total_frames), style)
         samples = total_frames * self.mc.hop_length
         pcm = to_pcm16(audio[0, :samples]).cpu().numpy()
         return pcm.astype(np.float32) / 32767.0
 
-    def synthesize_batch(
+    def synthesize_batch_async(
         self,
         phoneme_list: List[str],
         speed: float = 1.0,
         fixed_duration: Optional[int] = None,
-    ) -> List[np.ndarray]:
-        """All utterances padded to one (text-bucket, frame-bucket) pair
-        and decoded in one pass."""
+    ) -> BatchAudio:
+        """Dispatch one batch, all utterances padded to one (text-bucket,
+        frame-bucket) pair and decoded in one pass, without waiting for
+        the audio: its PCM stays on the device, so the caller can queue
+        the next batch while this one computes (the pipelined serving
+        loop).  The durations are read back first unless
+        ``fixed_duration`` is given: they set the frame bucket."""
         tokens, lengths, counts = self.encode_batch(phoneme_list)
         logits = self.duration_logits(tokens, lengths)
         if fixed_duration is not None:
@@ -196,9 +222,23 @@ class Synthesizer:
             frames = max(frames, frame_bucket(int(d.sum())))
         style = self.style_graph(tokens, lengths)
         audio = self.speech_audio(
-            tokens, lengths, torch.from_numpy(dur_vec).to(self.device),
+            tokens, lengths, self.upload(dur_vec),
             frames, style)
-        pcm = to_pcm16(audio).cpu().numpy()
+        return BatchAudio(pcm16(audio), totals, torch.isfinite(audio).all())
+
+    def synthesize_batch(
+        self,
+        phoneme_list: List[str],
+        speed: float = 1.0,
+        fixed_duration: Optional[int] = None,
+    ) -> List[np.ndarray]:
+        """``synthesize_batch_async``, then its PCM copied to the host and
+        cut to each utterance's frames; raises on non-finite audio."""
+        pcm, totals, finite = self.synthesize_batch_async(
+            phoneme_list, speed=speed, fixed_duration=fixed_duration)
+        pcm = pcm.cpu().numpy()
+        if not bool(finite):
+            raise FloatingPointError("synthesis produced non-finite audio")
         return [
             pcm[i, : totals[i] * self.mc.hop_length].astype(np.float32)
             / 32767.0

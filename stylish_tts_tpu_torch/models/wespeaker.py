@@ -30,7 +30,7 @@ def simam(x: torch.Tensor, eps: float = 1e-4) -> torch.Tensor:
     return x * torch.sigmoid(d / (4.0 * (v + eps)) + 0.5)
 
 
-class _BN(nn.Module):
+class FrozenBatchNorm(nn.Module):
     """Frozen batch norm over the channel axis ``dim``: (x - mean) /
     sqrt(var + 1e-5) * scale + bias, from stored statistics."""
 
@@ -58,14 +58,14 @@ class SimAMBasicBlock(nn.Module):
     def __init__(self, in_planes: int, planes: int, stride: int = 1):
         super().__init__()
         self.conv1 = _conv3x3(in_planes, planes, stride)
-        self.bn1 = _BN(planes)
+        self.bn1 = FrozenBatchNorm(planes)
         self.conv2 = _conv3x3(planes, planes)
-        self.bn2 = _BN(planes)
+        self.bn2 = FrozenBatchNorm(planes)
         self.downsample = stride != 1 or in_planes != planes
         if self.downsample:
             self.downsample_conv = nn.Conv2d(in_planes, planes, 1,
                                              stride=stride, bias=False)
-            self.downsample_bn = _BN(planes)
+            self.downsample_bn = FrozenBatchNorm(planes)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         h = F.relu(self.bn1(self.conv1(x)))
@@ -83,7 +83,7 @@ class SimAMResNet34(nn.Module):
         super().__init__()
         m = m_channels
         self.conv1 = _conv3x3(1, m)
-        self.bn1 = _BN(m)
+        self.bn1 = FrozenBatchNorm(m)
         self.names = []
         in_planes = m
         for stage, (blocks, planes, stride) in enumerate(
@@ -108,7 +108,7 @@ class ASP(nn.Module):
     def __init__(self, dim: int, bottleneck: int = 128):
         super().__init__()
         self.att_in = nn.Conv1d(dim, bottleneck, 1)
-        self.att_bn = _BN(bottleneck, dim=-1)
+        self.att_bn = FrozenBatchNorm(bottleneck, dim=-1)
         self.att_out = nn.Conv1d(bottleneck, dim, 1)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:

@@ -86,10 +86,19 @@ def inverse_basis(n_fft: int, win_length: int) -> np.ndarray:
 
 
 @functools.lru_cache(maxsize=32)
+@functools.lru_cache(maxsize=32)
 def _on_device(kind: str, n_fft: int, win_length: int,
                device: torch.device) -> torch.Tensor:
-    table = {"forward": forward_basis, "inverse": inverse_basis}[kind]
+    """The basis on ``device``, uploaded once: a copy from the host at
+    every call would wait for the work already queued on the card."""
+    table = {"forward": forward_basis, "inverse": inverse_basis,
+             "window_sq": _window_sq}[kind]
     return torch.from_numpy(np.array(table(n_fft, win_length))).to(device)
+
+
+def _window_sq(n_fft: int, win_length: int) -> np.ndarray:
+    """The padded window squared: the iSTFT's overlap-add envelope."""
+    return (_padded_window(win_length, n_fft) ** 2).numpy()
 
 
 def stft(
@@ -149,7 +158,7 @@ def istft(
     y = _overlap_add(torch.matmul(coeffs, basis), hop_length)
 
     n_frames = real.shape[1]
-    w2 = (_padded_window(win_length, n_fft) ** 2).to(y.device)
+    w2 = _on_device("window_sq", n_fft, win_length, y.device)
     env = _overlap_add(w2.expand(1, n_frames, n_fft), hop_length)
     y = y / torch.clamp(env, min=eps)
 

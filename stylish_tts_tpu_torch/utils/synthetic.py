@@ -155,9 +155,10 @@ def _conv1d(sd, f, t, k, norm=None, bias=True):
         sd[t + "bias"] = f[f"{k}/bias"]
 
 
-def _linear(sd, f, t, k):
+def _linear(sd, f, t, k, bias=True):
     _put(sd, t, f[f"{k}/kernel"].T, None)
-    sd[t + "bias"] = f[f"{k}/bias"]
+    if bias:
+        sd[t + "bias"] = f[f"{k}/bias"]
 
 
 def _conv1x1(sd, f, t, k):
@@ -189,13 +190,21 @@ def _text_encoder_ref(sd, f, t, k):
         _gamma_beta(sd, f, f"{t}prenet.norm_layers.{i}.",
                     f"{k}/prenet/norm_{i}")
     _conv1d(sd, f, t + "prenet.proj.", f"{k}/prenet/proj")
-    for i in _indices(f, f"{k}/encoder/attn_"):
-        e = f"{t}encoder."
-        _mha_ref(sd, f, f"{e}attn_layers.{i}.", f"{k}/encoder/attn_{i}")
-        _ffn_ref(sd, f, f"{e}ffn_layers.{i}.", f"{k}/encoder/ffn_{i}")
-        _gamma_beta(sd, f, f"{e}norm_layers_1.{i}.", f"{k}/encoder/norm1_{i}")
-        _gamma_beta(sd, f, f"{e}norm_layers_2.{i}.", f"{k}/encoder/norm2_{i}")
+    _transformer_ref(sd, f, t + "encoder.", f"{k}/encoder")
     _conv1d(sd, f, t + "proj_m.", f"{k}/proj_m")
+
+
+def _transformer_ref(sd, f, t, k):
+    for i in _indices(f, f"{k}/attn_"):
+        _mha_ref(sd, f, f"{t}attn_layers.{i}.", f"{k}/attn_{i}")
+        _ffn_ref(sd, f, f"{t}ffn_layers.{i}.", f"{k}/ffn_{i}")
+        _gamma_beta(sd, f, f"{t}norm_layers_1.{i}.", f"{k}/norm1_{i}")
+        _gamma_beta(sd, f, f"{t}norm_layers_2.{i}.", f"{k}/norm2_{i}")
+
+
+def _hubert_encoder_ref(sd, f, t, k):
+    _conv1d(sd, f, t + "phone_emb.", f"{k}/phone_emb")
+    _transformer_ref(sd, f, t + "encoder.", f"{k}/encoder")
 
 
 def _text_style_encoder_ref(sd, f, t, k):
@@ -251,11 +260,24 @@ def _pitch_energy_ref(f: Flat) -> Flat:
     _mha_ref(sd, f, "cross_attention.", "cross_attention")
     _conv1d(sd, f, "cross_post.0.", "cross_post_dw/Conv_0")
     _conv1d(sd, f, "cross_post.2.", "cross_post_pw")
+    _f0_energy_heads_ref(sd, f)
+    return sd
+
+
+def _f0_energy_heads_ref(sd, f):
     for tname, fname in (("F0", "f0_block"), ("N", "energy_block")):
         for i in range(3):
             _adain_block_ref(sd, f, f"{tname}.{i}.", f"{fname}_{i}")
     _conv1d(sd, f, "F0_proj.", "f0_proj")
     _conv1d(sd, f, "N_proj.", "energy_proj")
+
+
+def _hubert_pitch_energy_ref(f: Flat) -> Flat:
+    sd: Flat = {}
+    _conv1d(sd, f, "phone_quant.", "phone_quant")
+    _linear(sd, f, "style_encoder.", "style_encoder")
+    _prosody_encoder_ref(sd, f, "prosody_encoder.", "prosody_encoder")
+    _f0_energy_heads_ref(sd, f)
     return sd
 
 
@@ -272,6 +294,22 @@ def _speech_ref(f: Flat) -> Flat:
     sd: Flat = {}
     _text_encoder_ref(sd, f, "text_encoder.", "text_encoder")
     _text_style_encoder_ref(sd, f, "style_encoder.", "style_encoder")
+    _speech_back_end_ref(sd, f)
+    return sd
+
+
+def _hubert_speech_ref(f: Flat) -> Flat:
+    sd: Flat = {}
+    _hubert_encoder_ref(sd, f, "phone_encoder.", "phone_encoder")
+    for j, idx in enumerate((0, 3, 6)):
+        _linear(sd, f, f"style_encoder.{idx}.", f"style{j + 1}")
+    _speech_back_end_ref(sd, f)
+    return sd
+
+
+def _speech_back_end_ref(sd, f):
+    """The decoder, flow, posterior and prior heads and the freegan
+    generator, which both speech predictors share."""
     _conv1d(sd, f, "decoder.F0_conv.", "decoder/f0_conv/Conv_0",
             norm="param")
     _conv1d(sd, f, "decoder.N_conv.", "decoder/n_conv/Conv_0", norm="param")
@@ -306,7 +344,6 @@ def _speech_ref(f: Flat) -> Flat:
     for tname, fname in (("amp_final_layer_norm", "amp_final_norm"),
                          ("phase_final_layer_norm", "phase_final_norm")):
         _linear(sd, f, f"generator.{tname}.fc.", f"{g}/{fname}/fc")
-    return sd
 
 
 def _spectral_ref(sd, f, t, k, bias=True):
@@ -395,6 +432,175 @@ def _mpd_ref(f: Flat) -> Flat:
     return sd
 
 
+def _sub_flat(f: Flat, k: str) -> Flat:
+    return {n[len(k) + 1:]: v for n, v in f.items() if n.startswith(k + "/")}
+
+
+def _style_convnext_ref(sd, f, t, k):
+    _conv1d(sd, f, t + "dwconv.", f"{k}/dwconv/Conv_0")
+    _linear(sd, f, t + "norm.fc.", f"{k}/AdaptiveLayerNorm_0/fc")
+    _linear(sd, f, t + "pwconv1.", f"{k}/pwconv1")
+    _gamma_beta(sd, f, t + "grn.", f"{k}/GRN_0")
+    _linear(sd, f, t + "pwconv2.", f"{k}/pwconv2")
+
+
+def _cfm_pitch_ref(f: Flat) -> Tuple[Flat, Flat]:
+    sd: Flat = {}
+    _conv1d(sd, f, "asr_emb.0.", "asr_emb1")
+    _conv1d(sd, f, "asr_emb.2.", "asr_emb2")
+    _conv1d(sd, f, "out_proj.", "out_proj")
+    spk, sigmas = _mel_style_ref(_sub_flat(f, "spk_emb"))
+    sd.update({f"spk_emb.{n}": v for n, v in spk.items()})
+    for i in _indices(f, "block_"):
+        _style_convnext_ref(sd, f, f"blocks.{i}.", f"block_{i}")
+    return sd, {f"spk_emb/{n}": v for n, v in sigmas.items()}
+
+
+def _layer_norm_ref(sd, f, t, k):
+    sd[t + "weight"] = f[f"{k}/scale"]
+    sd[t + "bias"] = f[f"{k}/bias"]
+
+
+def _xut_block_ref(sd, f, t, k):
+    _linear(sd, f, t + "attn.qkv.", f"{k}/attn/qkv", bias=False)
+    _linear(sd, f, t + "attn.out.", f"{k}/attn/out")
+    sd[t + "attn.rope.freqs"] = f[f"{k}/attn/rope/freqs"]
+    _linear(sd, f, t + "mlp.w12.", f"{k}/mlp/w12")
+    _linear(sd, f, t + "mlp.w3.", f"{k}/mlp/w3")
+    for norm in ("attn_pre_norm", "mlp_pre_norm"):
+        sd[f"{t}{norm}.norm.weight"] = f[f"{k}/{norm}/norm/scale"]
+    if f"{k}/xattn/q/kernel" in f:
+        _linear(sd, f, t + "xattn.q.", f"{k}/xattn/q", bias=False)
+        _linear(sd, f, t + "xattn.kv.", f"{k}/xattn/kv", bias=False)
+        _linear(sd, f, t + "xattn.out.", f"{k}/xattn/out")
+        sd[t + "xattn.rope.freqs"] = f[f"{k}/xattn/rope/freqs"]
+        sd[t + "xattn_pre_norm.norm.weight"] = f[
+            f"{k}/xattn_pre_norm/norm/scale"]
+
+
+def _cfm_mel_ref(f: Flat) -> Flat:
+    sd: Flat = {}
+    for t, k in (("time_emb.proj.0.", "time_emb/proj"),
+                 ("asr_emb.1.", "asr_emb1"), ("asr_emb.3.", "asr_emb2"),
+                 ("spk_emb.0.", "spk_emb1"), ("spk_emb.2.", "spk_emb2"),
+                 ("in_proj.", "in_proj"), ("out_proj.0.", "out_proj")):
+        _linear(sd, f, t, k)
+    _linear(sd, f, "m_source.1.merge.0.", "m_source/merge", bias=False)
+    _conv1d(sd, f, "prior_generator.1.", "prior_generator")
+    for t, k in (("shared_adaln_attn.", "shared_attn"),
+                 ("shared_adaln_xattn.", "shared_xattn"),
+                 ("shared_adaln_ffw.", "shared_ffw")):
+        _layer_norm_ref(sd, f, t + "0.", f"{k}/ln")
+        _linear(sd, f, t + "1.", f"{k}/fc1")
+        _linear(sd, f, t + "3.", f"{k}/fc2")
+    blocks = {n.split("/")[1] for n in f if n.startswith("backbone/")}
+    for name in blocks:  # enc_{d}_{i} / dec_{d}_{i}
+        side, d, i = name.split("_")
+        _xut_block_ref(sd, f, f"backbone.{side}_blocks.{d}.{i}.",
+                       f"backbone/{name}")
+    for t, k in (("prev_tread_trns.blocks.", "prev_tread/block_"),
+                 ("post_tread_trns.blocks.", "post_tread/block_")):
+        for i in _indices(f, k):
+            _xut_block_ref(sd, f, f"{t}{i}.", f"{k}{i}")
+    return sd
+
+
+def _bn_ref(sd, f, t, k):
+    """A flax batch norm (``scale``, ``bias``, ``mean``, ``var``) as
+    torch's BatchNorm keys."""
+    _layer_norm_ref(sd, f, t, k)
+    sd[t + "running_mean"] = f[f"{k}/mean"]
+    sd[t + "running_var"] = f[f"{k}/var"]
+
+
+def _conv2d_ref(sd, f, t, k, bias=False):
+    """flax 2-D conv ``k/kernel`` [kh, kw, in, out] -> torch ``t``
+    [out, in, kh, kw]."""
+    _put(sd, t, f[f"{k}/kernel"].transpose(3, 2, 0, 1), None)
+    if bias:
+        sd[t + "bias"] = f[f"{k}/bias"]
+
+
+def _conv_block_res_ref(sd, f, t, k):
+    for j, idx in enumerate((0, 3)):
+        _conv2d_ref(sd, f, f"{t}conv.{idx}.", f"{k}/conv_{j}")
+        _bn_ref(sd, f, f"{t}conv.{idx + 1}.", f"{k}/bn_{j}")
+    if f"{k}/shortcut/kernel" in f:
+        _conv2d_ref(sd, f, t + "shortcut.", f"{k}/shortcut", bias=True)
+
+
+def _gru_ref(sd, f, t, sfx, k):
+    """A flax GRUCell as one direction of torch's GRU (gates r, z, n): the
+    r and z gates' hidden bias is written as 0, so the converter's sum
+    b_ih + b_hh gives the flax bias back exactly."""
+    hn_bias = f[f"{k}/hn/bias"]
+    zeros = np.zeros_like(hn_bias)
+    for side, gates in (("ih", ("ir", "iz", "in")),
+                        ("hh", ("hr", "hz", "hn"))):
+        sd[f"{t}weight_{side}_l0{sfx}"] = np.ascontiguousarray(
+            np.concatenate([f[f"{k}/{g}/kernel"].T for g in gates]))
+    sd[f"{t}bias_ih_l0{sfx}"] = np.concatenate(
+        [f[f"{k}/{g}/bias"] for g in ("ir", "iz", "in")])
+    sd[f"{t}bias_hh_l0{sfx}"] = np.concatenate([zeros, zeros, hn_bias])
+
+
+def _rmvpe_ref(f: Flat) -> Flat:
+    sd: Flat = {}
+    _bn_ref(sd, f, "unet.encoder.bn.", "in_bn")
+    for part, scope in (("encoder", "enc_"), ("intermediate", "inter_"),
+                        ("decoder", "dec_")):
+        for i in _indices(f, scope):
+            t = f"unet.{part}.layers.{i}."
+            convs = "conv2" if part == "decoder" else "conv"
+            for j in _indices(f, f"{scope}{i}/block_"):
+                _conv_block_res_ref(sd, f, f"{t}{convs}.{j}.",
+                                    f"{scope}{i}/block_{j}")
+            if part == "decoder":  # torch ConvTranspose2d [in, out, kh, kw]
+                sd[t + "conv1.0.weight"] = np.ascontiguousarray(np.flip(
+                    f[f"dec_{i}/up/kernel"], (0, 1)).transpose(2, 3, 0, 1))
+                _bn_ref(sd, f, t + "conv1.1.", f"dec_{i}/bn")
+    _conv2d_ref(sd, f, "cnn.", "cnn", bias=True)
+    _gru_ref(sd, f, "fc.0.gru.", "", "gru/fwd")
+    _gru_ref(sd, f, "fc.0.gru.", "_reverse", "gru/bwd")
+    _linear(sd, f, "fc.1.", "head")
+    return sd
+
+
+def _wespeaker_ref(f: Flat) -> Flat:
+    sd: Flat = {}
+    _conv2d_ref(sd, f, "front.conv1.", "front/conv1")
+    _bn_ref(sd, f, "front.bn1.", "front/bn1")
+    for s in range(1, 5):
+        for i in _indices(f, f"front/layer{s}_"):
+            t, k = f"front.layer{s}.{i}.", f"front/layer{s}_{i}"
+            for n in (1, 2):
+                _conv2d_ref(sd, f, f"{t}conv{n}.", f"{k}/conv{n}")
+                _bn_ref(sd, f, f"{t}bn{n}.", f"{k}/bn{n}")
+            if f"{k}/downsample_conv/kernel" in f:
+                _conv2d_ref(sd, f, t + "downsample.0.", f"{k}/downsample_conv")
+                _bn_ref(sd, f, t + "downsample.1.", f"{k}/downsample_bn")
+    _conv1d(sd, f, "pooling.attention.0.", "pooling/att_in")
+    _bn_ref(sd, f, "pooling.attention.2.", "pooling/att_bn")
+    _conv1d(sd, f, "pooling.attention.3.", "pooling/att_out")
+    return sd
+
+
+def _vocos_ref(f: Flat) -> Flat:
+    sd: Flat = {}
+    _conv1d(sd, f, "backbone.embed.", "embed/Conv_0")
+    _layer_norm_ref(sd, f, "backbone.norm.", "norm")
+    for i in _indices(f, "convnext_"):
+        t, k = f"backbone.convnext.{i}.", f"convnext_{i}"
+        _conv1d(sd, f, t + "dwconv.", f"{k}/dwconv/Conv_0")
+        _layer_norm_ref(sd, f, t + "norm.", f"{k}/norm")
+        _linear(sd, f, t + "pwconv1.", f"{k}/pwconv1")
+        _linear(sd, f, t + "pwconv2.", f"{k}/pwconv2")
+        sd[t + "gamma"] = f[f"{k}/gamma"]
+    _layer_norm_ref(sd, f, "backbone.final_layer_norm.", "final_layer_norm")
+    _linear(sd, f, "head.out.", "out")
+    return sd
+
+
 def _top_level(write, f: Flat) -> Flat:
     """``write``'s state dict of a model whose converter reads the
     reference module itself, not a submodule of it."""
@@ -412,25 +618,40 @@ _REFERENCE_WRITERS = {
     "text_aligner": _aligner_ref,
     "mrd": _mrd_ref,
     "mpd": _mpd_ref,
+    "hubert_encoder": lambda f: _top_level(_hubert_encoder_ref, f),
+    "hubert_speech_predictor": _hubert_speech_ref,
+    "hubert_pitch_energy_predictor": _hubert_pitch_energy_ref,
+    "cfm_mel_decoder": _cfm_mel_ref,
+    "wespeaker": _wespeaker_ref,
+    "vocos": _vocos_ref,
+    "rmvpe": _rmvpe_ref,
+}
+# writers that also return the spectral norms' sigma = u W v of what they
+# wrote, by flax batch-stat name
+_SPECTRAL_WRITERS = {
+    "pe_mel_style_encoder": _mel_style_ref,
+    "cfm_pitch_predictor": _cfm_pitch_ref,
 }
 
 
 def reference_state_dict(name: str, module) -> Flat:
     """The torch reference's ``state_dict`` (numpy arrays, its key names
-    and layouts) that holds ``module``'s weights as model ``name``.
+    and layouts) that holds ``module``'s weights as model ``name``: one of
+    the converters' 16 models or ``rmvpe``.
 
-    The mel style encoder's spectral norms: ``u`` is the module's, ``v``
-    one power-iteration step from it, and the module's ``sigma`` buffers
-    are set, in place, to u W v of those, the value the converter derives
-    from the written state."""
+    The spectral norms (the mel style encoder's, the CFM pitch predictor's
+    speaker branch's): ``u`` is the module's, ``v`` one power-iteration
+    step from it, and the module's ``sigma`` buffers are set, in place, to
+    u W v of those, the value the converter derives from the written
+    state."""
     import torch
 
     from ..convert import export_flax_params
 
     f = export_flax_params(name, module)
-    if name != "pe_mel_style_encoder":
+    if name not in _SPECTRAL_WRITERS:
         return _REFERENCE_WRITERS[name](f)
-    sd, sigmas = _mel_style_ref(f)
+    sd, sigmas = _SPECTRAL_WRITERS[name](f)
     state = module.state_dict()
     for key, sigma in sigmas.items():
         path = key.split("/SpectralNorm_0/")[0].replace("/", ".")
@@ -466,3 +687,102 @@ def write_reference_checkpoint(out_dir: Path, models: Dict,
                         for k, v in sd.items()}, path)
         written[name] = path
     return written
+
+
+def ssl_state_dict(module) -> Flat:
+    """The HF ``transformers`` ``state_dict`` (WavLM's key names and
+    layouts where ``module.rel_pos_bias``, else HuBERT's) that holds the
+    port's ``SLMFeatureExtractor`` ``module``: the inverse of
+    ``models/slm_convert.py:convert_wavlm_state_dict``.  The positional
+    conv is weight-normed as ``parametrizations.weight.original0`` (g, the
+    norm over the output and input axes at each tap) and ``original1``
+    (v, the kernel)."""
+    from ..convert import export_flax_params
+
+    f = export_flax_params("slm", module)
+    sd: Flat = {}
+    fe, fp = "feature_extractor.conv_layers.", "feature_projection."
+    for i in _indices(f, "conv_"):
+        sd[f"{fe}{i}.conv.weight"] = np.ascontiguousarray(
+            f[f"conv_{i}/kernel"].transpose(2, 1, 0))
+    _layer_norm_ref(sd, f, fe + "0.layer_norm.", "gn")
+    _layer_norm_ref(sd, f, fp + "layer_norm.", "fp_ln")
+    _linear(sd, f, fp + "projection.", "feature_proj")
+    w = np.ascontiguousarray(f["pos_conv/kernel"].transpose(2, 1, 0))
+    pos = "encoder.pos_conv_embed.conv."
+    sd[pos + "parametrizations.weight.original0"] = np.linalg.norm(
+        w, axis=(0, 1), keepdims=True).astype(np.float32)
+    sd[pos + "parametrizations.weight.original1"] = w
+    sd[pos + "bias"] = f["pos_conv/bias"]
+    _layer_norm_ref(sd, f, "encoder.layer_norm.", "encoder_ln")
+    gated = "rel_attn_embed" in f
+    if gated:
+        sd["encoder.layers.0.attention.rel_attn_embed.weight"] = f[
+            "rel_attn_embed"]
+    for i in range(module.n_layers):
+        t, a = f"encoder.layers.{i}.", f"layer_{i}_attn"
+        for proj in ("q_proj", "k_proj", "v_proj"):  # [in, h, d]
+            kernel = f[f"{a}/{proj}/kernel"]
+            sd[f"{t}attention.{proj}.weight"] = np.ascontiguousarray(
+                kernel.reshape(kernel.shape[0], -1).T)
+            sd[f"{t}attention.{proj}.bias"] = f[f"{a}/{proj}/bias"].reshape(-1)
+        kernel = f[f"{a}/out_proj/kernel"]  # [h, d, out]
+        sd[f"{t}attention.out_proj.weight"] = np.ascontiguousarray(
+            kernel.reshape(-1, kernel.shape[-1]).T)
+        sd[f"{t}attention.out_proj.bias"] = f[f"{a}/out_proj/bias"]
+        if gated:
+            _linear(sd, f, f"{t}attention.gru_rel_pos_linear.",
+                    f"{a}/gru_rel_pos_linear")
+            sd[f"{t}attention.gru_rel_pos_const"] = f[
+                f"{a}/gru_rel_pos_const"].reshape(1, -1, 1, 1)
+        _layer_norm_ref(sd, f, t + "layer_norm.", f"layer_{i}_ln1")
+        _linear(sd, f, t + "feed_forward.intermediate_dense.",
+                f"layer_{i}_fc1")
+        _linear(sd, f, t + "feed_forward.output_dense.", f"layer_{i}_fc2")
+        _layer_norm_ref(sd, f, t + "final_layer_norm.", f"layer_{i}_ln2")
+    return sd
+
+
+def write_ssl_checkpoint(out_dir: Path, module) -> Path:
+    """``module`` (the port's ``SLMFeatureExtractor``) as a local HF
+    checkpoint directory, ``config.json`` and ``model.safetensors``
+    (``ssl_state_dict``), the input of ``scripts/convert_wavlm.py`` and
+    ``scripts/convert_hubert.py``.  Returns the directory."""
+    import json
+
+    out = Path(out_dir)
+    out.mkdir(parents=True, exist_ok=True)
+    write_safetensors(out / "model.safetensors", ssl_state_dict(module))
+    attn = module.layer_0_attn
+    (out / "config.json").write_text(json.dumps({
+        "model_type": "wavlm" if module.rel_pos_bias else "hubert",
+        "num_hidden_layers": module.n_layers,
+        "num_attention_heads": attn.n_heads,
+        "hidden_size": module.feature_proj.out_features}))
+    return out
+
+
+def seeded_rmvpe(seed: int, **widths):
+    """An RMVPE net (``dataprep/rmvpe.py``; the published widths unless
+    ``widths`` narrows it) drawn from ``seed``: the flax initialisers'
+    distributions, then its batch norms away from the identity (scale and
+    bias 1 + 0.1 N and 0.1 N, running mean 0.1 N, running variance
+    exp(0.2 N)), so a converted file carries statistics that matter."""
+    import torch
+
+    from ..dataprep.rmvpe import RMVPE
+    from ..models.wespeaker import FrozenBatchNorm
+    from ..train.init import init_params
+
+    generator = torch.Generator().manual_seed(seed)
+    model = init_params(RMVPE(**widths), generator)
+    with torch.no_grad():
+        for bn in model.modules():
+            if isinstance(bn, FrozenBatchNorm):
+                n = [torch.randn(bn.mean.shape, generator=generator)
+                     for _ in range(4)]
+                bn.weight.copy_(1.0 + 0.1 * n[0])
+                bn.bias.copy_(0.1 * n[1])
+                bn.mean.copy_(0.1 * n[2])
+                bn.var.copy_(torch.exp(0.2 * n[3]))
+    return model.eval()

@@ -1,4 +1,6 @@
-"""The port and its smoke script import nothing of JAX or the JAX package.
+"""The port and its smoke script import nothing of JAX or the JAX package,
+and neither ``transformers`` nor ``safetensors``, which the card's machine
+lacks (files go through ``utils/tensorfile.py``).
 
 The whole top-level name is compared, not a prefix: ``stylish_tts_tpu_torch``
 starts with ``stylish_tts_tpu``.
@@ -12,7 +14,8 @@ from pathlib import Path
 import pytest
 
 ROOT = Path(__file__).resolve().parent.parent
-FORBIDDEN = {"jax", "flax", "optax", "stylish_tts_tpu"}
+FORBIDDEN = {"jax", "flax", "optax", "stylish_tts_tpu", "transformers",
+             "safetensors"}
 SOURCES = sorted((ROOT / "stylish_tts_tpu_torch").rglob("*.py")) + [
     ROOT / "chip_smoke.py"]
 

@@ -56,9 +56,13 @@ from test_torch_port_helpers import (_inference_shapes, _train_shapes,
 from torch_port_chain import CHAIN_KEYS, few_threads  # noqa: F401
 from torch_port_chain import jax_state
 
-# the MPD's converter is held against the JAX package's in
-# test_torch_port_mpd.py, on its own 40 M-parameter reference
-MODELS = tuple(k for k in torch_convert.CONVERTERS if k != "mpd")
+# the chain's models and the aligner; the MPD's converter is held against
+# the JAX package's in test_torch_port_mpd.py, on its own 40 M-parameter
+# reference, and the experimental models' and frozen nets' in
+# test_torch_port_convert.py
+MODELS = ("mrd", "text_aligner", "duration_predictor",
+          "pitch_energy_predictor", "speech_predictor", "pe_text_encoder",
+          "pe_text_style_encoder", "pe_mel_style_encoder")
 INFERENCE = ("duration_predictor", "pe_text_encoder", "pe_text_style_encoder",
              "pitch_energy_predictor", "speech_predictor")
 # weight-normed kernels the converters fold (g * v / |v|): within 1e-6
@@ -198,11 +202,18 @@ def test_converter_matches_jax_and_fills_the_jax_tree(reference, templates,
 
 
 def test_converters_not_ported_name_their_queue_item():
-    assert len(MODELS) == 8
-    for name in ("hubert_encoder", "cfm_mel_decoder", "rmvpe",
-                 "wespeaker", "vocos"):
-        with pytest.raises(NotImplementedError, match="item 6"):
-            torch_convert.converter(name)
+    """Every converter is ported now: the port's dispatch is the JAX
+    package's, its 16 models, RMVPE's converter beside them but not among
+    them (only the conversion script reaches it, in both packages)."""
+    assert set(MODELS) < set(torch_convert.CONVERTERS)
+    assert sorted(torch_convert.CONVERTERS) == sorted(jconvert.CONVERTERS)
+    for name in jconvert.CONVERTERS:
+        assert torch_convert.converter(name) is torch_convert.CONVERTERS[name]
+    assert "rmvpe" not in torch_convert.CONVERTERS
+    assert callable(torch_convert.convert_rmvpe)
+    assert not hasattr(torch_convert, "NOT_PORTED")
+    with pytest.raises(ValueError, match="unknown model"):
+        torch_convert.converter("rmvpe")
     with pytest.raises(ValueError, match="unknown model"):
         torch_convert.converter("nope")
 
@@ -264,9 +275,12 @@ def test_import_torch_one_module_through_the_cli(reference, tmp_path, name,
     want = reference["models"][name].state_dict()
     for k, t in module.state_dict().items():
         assert torch.equal(t, want[k]), (name, k)
-    with pytest.raises(NotImplementedError, match="item 6"):
-        import_torch_checkpoint(path, tmp_path / "x", reference["mc"],
-                                single_model="vocos")
+    # RMVPE is converted by its script only, in both packages
+    for convert, mc in ((jimport.import_torch_checkpoint,
+                         reference["mc_jax"]),
+                        (import_torch_checkpoint, reference["mc"])):
+        with pytest.raises(ValueError, match="unknown model"):
+            convert(path, tmp_path / "x", mc, single_model="rmvpe")
 
 
 def test_artifact_speech_matches_jax(reference, tmp_path, capsys):

@@ -67,7 +67,7 @@ def test_mpd_scores_and_feature_maps_match_jax():
 
 def test_convert_mpd_is_bit_equal_to_jax(seeded_mpd):
     mpd, sd = seeded_mpd
-    assert "mpd" not in torch_convert.NOT_PORTED
+    assert torch_convert.converter("mpd") is torch_convert.convert_mpd
     got, got_stats = torch_convert.convert_module("mpd", sd)
     want, want_stats = jconvert.convert_module("mpd", sd)
     assert got_stats == want_stats == {}

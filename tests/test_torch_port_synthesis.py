@@ -152,6 +152,27 @@ def test_synthesize_batch_with_sampling(setup):
     assert report.rtf > 0
 
 
+def test_synthesize_batch_async_is_synthesize_batch(setup):
+    """The pipelined path: the PCM of one dispatched batch stays on the
+    device with its frame totals; cut to the totals it is bit for bit
+    what ``synthesize_batch`` gives from the same generator state."""
+    _, mc, _, synth = setup
+    state = synth.generator.get_state().clone()
+    pcm, totals, finite = synth.synthesize_batch_async(PHONEMES)
+    assert pcm.dtype == torch.int16 and pcm.device == synth.device
+    assert bool(finite) and pcm.shape[0] == len(PHONEMES)
+    assert pcm.shape[1] >= max(totals) * mc.hop_length
+    synth.generator.set_state(state)
+    want = synth.synthesize_batch(PHONEMES)
+    for i, audio in enumerate(want):
+        got = pcm[i, : totals[i] * mc.hop_length].numpy()
+        assert audio.shape == got.shape
+        assert np.array_equal(got.astype(np.float32) / 32767.0, audio)
+    # the totals are the predicted durations' sums
+    assert totals == [int(synth.predict_durations(p).sum())
+                      for p in PHONEMES]
+
+
 def test_speak_command_on_a_packaged_artifact(setup, tmp_path):
     from stylish_tts_tpu_torch import cli
 
