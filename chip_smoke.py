@@ -54,7 +54,15 @@ Phases, in order; any failure raises and the exit code is non-zero:
    changed and every kernel launched, the spec-conv forward, dgrad and
    wgrad as often as the MRD's 12 layers give; then one f32 step at full
    width on 1 x 64 frames runs on the CPU and on the card from the same
-   weights and their metrics are compared;
+   weights and their metrics are compared; last the bf16 step at b8 x f460
+   four times from the same weights, batch and generator, with
+   ``remat_flow`` off, on, on, off (the flow's couplings and the
+   posterior WaveNet checkpointed), 1 warm-up and REMAT_TIMED timed steps
+   each under deterministic algorithms: each run's peak allocated memory,
+   the memory allocated when the speech predictor's forward returns, warm
+   wall ms and launches (counts set to 0 before its first step, read after
+   its last; equal in every run) printed, the metrics bit-equal at every
+   step and the trained parameters within REMAT_PARAM_TOL;
 6. training runtime: at the same width, a synthetic dataset of 158 train
    segments of 0.7-1.3 x 5.75 s (460 frames) is written to disk, a
    ``BatchManager`` (``probe_batch_max=8``: the bin of 460 frames takes
@@ -172,7 +180,12 @@ Phases, in order; any failure raises and the exit code is non-zero:
    versions at every batch shape the runs took as in phase 7, the STFT
    also at Vocos's 1024/256/1024 setting, which is timed; last one f32
    ``hubert_acoustic`` step at full width on 1 x 64 frames on the CPU and
-   on the card, its metrics within STEP_TOL.  Each run's seconds and each
+   on the card, its metrics within STEP_TOL, on a well-posed prior (F0 on
+   the 24000/512 Hz grid, an unvoiced onset); then a diagnostic pass of
+   the voiced-onset input (the batch as drawn) on both devices, which
+   prints the largest gap at each stage's output (the frozen features, the
+   PCPH prior, its STFT, the generator's input, log-magnitude and phase,
+   the audio and the mel the loss reads) and asserts nothing.  Each run's seconds and each
    step's wall ms (first visit of its shape, or warm) printed;
 11. the ringformer head, data parallelism and the MPD, at the full-width
    default ModelConfig with ``generator: {type: ringformer}`` (decoder
@@ -220,11 +233,19 @@ Phases, in order; any failure raises and the exit code is non-zero:
    local HF checkpoint directories written through ``tensorfile``), each
    file equal to the in-process conversion.  The seconds a segment
    printed;
-13. one JSON line of every kernel's numbers, with its launches on the path
-   that runs it (per train step, acoustic, joint, each experimental run
-   and the ringformer step, synthesis request or probe run; the STFT's DFT
-   path an entry of its own, per ringformer step, and its RMVPE shape one
-   too, per file), then the result line.
+13. the root tools: ``scripts/pitch_eval.py``'s YIN, raw and refined, on
+   TOOLS_UTTS speech-like utterances on the card and on the CPU (tracks
+   within YIN_F0_REL and YIN_VOICING of each other, the cents figures
+   within PITCH_CENTS_TOL), both reports printed; ``scripts/g2p_eval.py``'s
+   report (host), which must equal the committed ``G2P_r05.json``; and
+   ``scripts/train_homographs.py`` at its default 200 epochs into a
+   temporary file (host), its report printed with whether its w, b and
+   alpha equal the committed ``textfrontend/data/homograph_lr.npz``'s;
+14. one JSON line of every kernel's numbers, with its launches on the path
+   that runs it (per train step, acoustic, joint, each experimental run,
+   the remat_flow step and the ringformer step, synthesis request or
+   probe run; the STFT's DFT path an entry of its own, per ringformer
+   step, and its RMVPE shape one too, per file), then the result line.
 
 ``--profile`` adds torch.profiler breakdowns of one batch request and of
 one train step: device time by kernel, the port's own kernels' totals,
@@ -279,6 +300,15 @@ PORT_KERNEL_SYMBOLS = ("stft_fft_kernel", "spec_conv_",
 STEP_TOL = {"mel": 1e-3, "mag": 1e-3, "phase": 1e-3, "pitch": 1e-3,
             "energy": 1e-3, "slm": 2e-2, "generator": 2e-2,
             "discriminator": 2e-2, "loss": 2e-3}
+# phase 5's step with remat_flow off and on, under deterministic
+# algorithms: timed steps after one warm-up, and the bound on the updated
+# parameters' gap (of each tensor's largest value; the same ops on the same
+# inputs, so 0 is expected)
+REMAT_TIMED, REMAT_PARAM_TOL = 2, 1e-6
+# the tools' phase: pitch_eval's utterances, and its YIN on the card
+# against the CPU: tracks at the port-against-JAX bounds of
+# tests/test_torch_port_dataprep.py, cents figures within PITCH_CENTS_TOL
+TOOLS_UTTS, PITCH_CENTS_TOL, YIN_F0_REL, YIN_VOICING = 4, 0.1, 5e-3, 0.99
 # the training runtime's phase: a synthetic dataset on disk of segments
 # spread around the train step's 460 frames (158 train segments over 14
 # bins, enough that the first batches an epoch takes are at their bins'
@@ -793,6 +823,209 @@ def cpu_vs_card_step(mc, card: str) -> dict:
     print(f"full-width train step f32 on 1 x 64 frames, cpu vs card: "
           f"relative differences {json.dumps(rel)} [{card}]")
     return {"metrics": results, "relative_difference": rel}
+
+
+def remat_path(device, card: str, kernels) -> dict:
+    """Phase 5's step at b8 x f460, bf16, run four times from the same
+    weights, batch and generator, with ``remat_flow`` off, on, on, off
+    (so neither setting always runs first), each 1 warm-up and REMAT_TIMED
+    timed steps under deterministic algorithms.  Per run: the peak
+    allocated memory over the timed steps, the memory allocated when the
+    speech predictor's forward returns (its kept activations, the flow's
+    among them, are all live there), the timed steps' wall ms and the
+    kernels' launches (counts set to 0 before the warm-up, read after the
+    last step).  Every run's metrics must be bit-equal to the first's at
+    every step, and its trained models' parameters within REMAT_PARAM_TOL
+    of each tensor's largest value (bit-equal expected)."""
+    from stylish_tts_tpu_torch.config import Config, ModelConfig
+    from stylish_tts_tpu_torch.train.stages import STAGES
+
+    t_phase = time.perf_counter()
+    trained = STAGES["acoustic"].train_models + ["mrd"]
+    runs = []
+    with deterministic_algorithms() as warned:
+        for remat in (False, True, True, False):
+            mc = ModelConfig()
+            mc.remat_flow = remat
+            state, step = train_setup(mc, Config(), device, seed=10)
+            predictor = state.models["speech_predictor"]
+            if predictor.flow.remat is not remat:
+                raise AssertionError("remat_flow did not reach the flow")
+            after_forward = []
+            hook = predictor.register_forward_hook(
+                lambda *_: after_forward.append(
+                    torch.cuda.memory_allocated()))
+            batch = on_device(synthetic_batch(mc, TRAIN_BATCH, TRAIN_FRAMES,
+                                              11), device)
+            gen = torch.Generator(device=device).manual_seed(12)
+            for k in kernels:
+                k.launches = 0
+            metrics = [step(state, batch, gen)[1]]  # warm-up
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            walls = []
+            for _ in range(REMAT_TIMED):
+                t0 = time.perf_counter()
+                metrics.append(step(state, batch, gen)[1])
+                torch.cuda.synchronize()
+                walls.append(time.perf_counter() - t0)
+            hook.remove()
+            runs.append({
+                "remat": remat,
+                "peak_bytes": torch.cuda.max_memory_allocated(),
+                "after_forward_bytes": max(after_forward),
+                "wall_ms": [w * 1e3 for w in walls],
+                "launches": _launch_counts(kernels),
+                "metrics": [{k: v.item() for k, v in m.items()}
+                            for m in metrics],
+                "params": {f"{key}.{n}": p.detach().cpu() for key in
+                           trained for n, p in
+                           state.models[key].named_parameters()}})
+            del state, step, batch, gen, predictor, metrics
+            torch.cuda.empty_cache()
+    first = runs[0]
+    worst, name, unequal = 0.0, None, 0
+    for run in runs[1:]:
+        if run["launches"] != first["launches"] or \
+                0 in run["launches"].values():
+            raise AssertionError(f"launches {run['launches']} against "
+                                 f"{first['launches']}")
+        if run["metrics"] != first["metrics"]:
+            raise AssertionError(f"remat_flow={run['remat']} changed the "
+                                 f"metrics: {run['metrics']} against "
+                                 f"{first['metrics']}")
+        for n, p in first["params"].items():
+            gap = float((run["params"][n] - p).abs().max()) \
+                / max(float(p.abs().max()), 1e-30)
+            unequal += not torch.equal(run["params"][n], p)
+            if gap >= worst:
+                worst, name = gap, n
+    if not worst <= REMAT_PARAM_TOL:
+        raise AssertionError(f"remat_flow moved {name} by {worst:.3e} of "
+                             f"its largest value")
+    out = {"steps": 1 + REMAT_TIMED, "order": [r["remat"] for r in runs],
+           "param_tensors": len(first["params"]),
+           "param_tensors_unequal": unequal, "param_worst_rel": worst,
+           "param_worst": name, "metrics_equal": True,
+           "nondeterministic_ops": warned, "card": card,
+           "runs": [{k: r[k] for k in ("remat", "peak_bytes",
+                                       "after_forward_bytes", "wall_ms",
+                                       "launches")} for r in runs]}
+    for r in runs:
+        print(f"remat_flow {'on' if r['remat'] else 'off'}: acoustic step "
+              f"(bf16, b{TRAIN_BATCH} x f{TRAIN_FRAMES}, deterministic) "
+              f"peak memory {r['peak_bytes'] / 2**30:.3f} GiB, "
+              f"{r['after_forward_bytes'] / 2**30:.3f} GiB allocated after "
+              f"the speech predictor's forward, warm steps "
+              f"{', '.join(f'{w:.1f}' for w in r['wall_ms'])} ms, launches "
+              f"over {1 + REMAT_TIMED} steps {r['launches']} [{card}]")
+    for label, flag in (("off", False), ("on", True)):
+        mine = [r for r in runs if r["remat"] is flag]
+        out[label] = {
+            "peak_bytes": max(r["peak_bytes"] for r in mine),
+            "after_forward_bytes": max(r["after_forward_bytes"]
+                                       for r in mine),
+            "median_ms": float(np.median([w for r in mine
+                                          for w in r["wall_ms"]])),
+            "launches": mine[0]["launches"]}
+    off, on = out["off"], out["on"]
+    out["peak_saved_bytes"] = off["peak_bytes"] - on["peak_bytes"]
+    out["forward_saved_bytes"] = (off["after_forward_bytes"]
+                                  - on["after_forward_bytes"])
+    out["step_time_ratio"] = on["median_ms"] / off["median_ms"]
+    out["seconds"] = time.perf_counter() - t_phase
+    print(f"remat_flow on vs off ({out['seconds']:.1f} s): peak memory "
+          f"{out['peak_saved_bytes'] / 2**30:+.3f} GiB saved "
+          f"({out['peak_saved_bytes'] / off['peak_bytes']:.1%}), after the "
+          f"forward {out['forward_saved_bytes'] / 2**30:+.3f} GiB saved; "
+          f"warm step median {on['median_ms']:.1f} against "
+          f"{off['median_ms']:.1f} ms (x{out['step_time_ratio']:.3f}); "
+          f"metrics bit-equal at all {1 + REMAT_TIMED} steps of all 4 runs;"
+          f" {unequal} parameter tensors of {len(first['params'])} x 3 runs "
+          f"not bit-equal to the first run's, worst {worst:.3e} of its "
+          f"largest value (bound {REMAT_PARAM_TOL}) [{card}]")
+    return out
+
+
+def tools_path(card: str, root: Path) -> dict:
+    """The root tools: ``pitch_eval``'s YIN on the card and on the CPU on
+    TOOLS_UTTS utterances (tracks within the YIN bounds, cents figures
+    within PITCH_CENTS_TOL), ``g2p_eval``'s report (equal to the committed
+    ``G2P_r05.json``), and ``train_homographs`` at its default 200 epochs
+    into ``root``, its weights compared with the committed file's."""
+    from stylish_tts_tpu_torch.dataprep.pitch import extract_pitch_batch
+    from stylish_tts_tpu_torch.scripts import (g2p_eval, pitch_eval,
+                                               train_homographs)
+
+    out = {"card": card}
+    t0 = time.perf_counter()
+    waves, gts = pitch_eval.speechlike_suite(TOOLS_UTTS)
+    tracks, reports = {}, {}
+    for device in ("cuda", "cpu"):
+        t1 = time.perf_counter()
+        tracks[device] = {
+            refine: extract_pitch_batch(waves, pitch_eval.SAMPLE_RATE,
+                                        pitch_eval.HOP, refine=refine,
+                                        device=device)
+            for refine in (False, True)}
+        reports[device] = {
+            name: pitch_eval.score(tracks[device][refine], gts)
+            for name, refine in (("yin_raw", False),
+                                 ("yin_stonemask_refined", True))}
+        reports[device]["seconds"] = time.perf_counter() - t1
+    gaps = {}
+    for refine in (False, True):
+        agree = total = 0
+        worst = 0.0
+        for a, b in zip(tracks["cuda"][refine], tracks["cpu"][refine]):
+            agree += int(np.sum((a > 0) == (b > 0)))
+            total += a.shape[0]
+            both = (a > 0) & (b > 0)
+            if both.any():
+                worst = max(worst, float(np.max(np.abs(a[both] - b[both])
+                                                / b[both])))
+        gaps["refined" if refine else "raw"] = {
+            "voicing_agreement": agree / total, "worst_f0_rel": worst}
+        if agree < YIN_VOICING * total or worst > YIN_F0_REL:
+            raise AssertionError(f"YIN card vs cpu (refine={refine}): "
+                                 f"voicing {agree}/{total}, f0 {worst:.3e}")
+    for name in ("yin_raw", "yin_stonemask_refined"):
+        a, b = reports["cuda"][name], reports["cpu"][name]
+        off = max(abs(a[k] - b[k]) for k in ("cents_mae", "cents_p95"))
+        if off > PITCH_CENTS_TOL or abs(a["vuv_f1"] - b["vuv_f1"]) > 0.01:
+            raise AssertionError(f"pitch_eval {name}: card {a} vs cpu {b}")
+    out["pitch_eval"] = {"utts": TOOLS_UTTS, "card": reports["cuda"],
+                         "cpu": reports["cpu"], "tracks": gaps}
+    print(f"pitch_eval on {TOOLS_UTTS} utterances, card: "
+          f"{json.dumps(reports['cuda'])}; cpu: {json.dumps(reports['cpu'])}"
+          f"; tracks card vs cpu {json.dumps(gaps)} (bounds: cents "
+          f"{PITCH_CENTS_TOL}, f0 {YIN_F0_REL}, voicing {YIN_VOICING}) "
+          f"[{card}]")
+
+    t1 = time.perf_counter()
+    g2p = g2p_eval.evaluate()
+    committed = json.loads(Path("G2P_r05.json").read_text())
+    out["g2p_eval"] = {"report": g2p, "equals_G2P_r05": g2p == committed,
+                       "seconds": time.perf_counter() - t1}
+    print(f"g2p_eval ({out['g2p_eval']['seconds']:.1f} s, host): "
+          f"{json.dumps(g2p)}")
+    if g2p != committed:
+        raise AssertionError("g2p_eval's report differs from G2P_r05.json")
+    print("g2p_eval: the report equals the committed G2P_r05.json")
+
+    t1 = time.perf_counter()
+    report = train_homographs.train(out=root / "homograph_lr.npz")
+    same = train_homographs.compare_weights(root / "homograph_lr.npz")
+    out["train_homographs"] = {"report": report, "committed": same,
+                               "seconds": time.perf_counter() - t1}
+    print(f"train_homographs ({out['train_homographs']['seconds']:.1f} s, "
+          f"host): {json.dumps(report)}; against the committed "
+          f"textfrontend/data/homograph_lr.npz: w, b and alpha "
+          f"{'bit-equal' if same['equal'] else 'differ'} (largest "
+          f"differences {json.dumps(same['max_abs_diff'])})")
+    out["seconds"] = time.perf_counter() - t0
+    print(f"tools phase: {out['seconds']:.1f} s [{card}]")
+    return out
 
 
 def profile_step(step, state, batch, gen, card: str) -> dict:
@@ -2662,14 +2895,15 @@ def cpu_vs_card_hubert_step(card: str) -> dict:
     # speaker vector's style moves the generator's spectra further than
     # the text style of phase 5's step does, and a voiced onset left the
     # card's mel 2.3e-3 from the CPU's
+    voiced_onset = copy.deepcopy(batch), noise.copy()
     step_hz = mc.sample_rate / 512
     pitch = np.clip(np.round(batch["pitch"] / step_hz), 2, 6) * step_hz
     pitch[:, :3] = 0.0
     batch["pitch"] = pitch.astype(np.float32)
     noise[:, :(3 * 4 - 2) * (mc.hop_length // 4)] = 0.0
     batch["audio_gt"][:, :mc.n_fft // 2 + 1] = 0.0
-    results = {}
-    for device in ("cpu", "cuda"):
+
+    def run(device, batch, noise, stages=None):
         state = build_train_state(mc, keys, models=copy.deepcopy(models),
                                   device=device)
         ctx = StageContext(model_config=mc, config=cfg, mel_mean=-4.0,
@@ -2677,12 +2911,16 @@ def cpu_vs_card_hubert_step(card: str) -> dict:
                            slm=copy.deepcopy(slm).to(device),
                            ssl=tuple(copy.deepcopy(m).to(device)
                                      for m in ssl))
-        _, metrics = make_train_step("hubert_acoustic", ctx, 1e-4)(
-            state, on_device(batch, device), sample=False,
-            pcph_noise=torch.from_numpy(noise).to(device),
-            pcph_phase=torch.zeros(1, 1, device=device))
-        results[device] = {k: v.item() for k, v in metrics.items()}
-        del state, ctx
+        with _stage_capture(state.models["hubert_speech_predictor"], ctx,
+                            stages):
+            _, metrics = make_train_step("hubert_acoustic", ctx, 1e-4)(
+                state, on_device(batch, device), sample=False,
+                pcph_noise=torch.from_numpy(noise).to(device),
+                pcph_phase=torch.zeros(1, 1, device=device))
+        return {k: v.item() for k, v in metrics.items()}
+
+    results = {device: run(device, batch, noise)
+               for device in ("cpu", "cuda")}
     rel = {}
     for key, bound in STEP_TOL.items():
         a, b = results["cpu"][key], results["cuda"][key]
@@ -2692,7 +2930,104 @@ def cpu_vs_card_hubert_step(card: str) -> dict:
                                  f"{a} vs {b}")
     print(f"full-width hubert_acoustic step f32 on 1 x 64 frames, cpu vs "
           f"card: relative differences {json.dumps(rel)} [{card}]")
-    return {"metrics": results, "relative_difference": rel}
+    return {"metrics": results, "relative_difference": rel,
+            "voiced_onset": voiced_onset_gaps(run, *voiced_onset, card)}
+
+
+def voiced_onset_gaps(run, batch, noise, card: str) -> dict:
+    """The diagnostic pass of the voiced-onset input (the synthetic batch
+    and prior noise as drawn, before the well-posed edits): the step on
+    both devices with each stage's output recorded, and the largest gap
+    between the two at each stage relative to the CPU's largest value, in
+    the order the data flows (``_stage_capture``); phases also modulo
+    2 pi.  Nothing is asserted: the asserted check stays on the well-posed
+    input."""
+    t0 = time.perf_counter()
+    stages = {"cpu": {}, "cuda": {}}
+    metrics = {d: run(d, batch, noise, stages[d]) for d in stages}
+    gaps = {}
+    for name, ref in stages["cpu"].items():
+        got = stages["cuda"][name]
+        scale = max(float(np.max(np.abs(r))) for r in ref)
+        gaps[name] = max(float(np.max(np.abs(g - r)))
+                         for g, r in zip(got, ref)) / max(scale, 1e-30)
+        if "phase" in name:
+            gaps[f"{name} mod 2pi"] = max(
+                float(np.max(np.abs(np.angle(np.exp(1j * (g - r))))))
+                for g, r in zip(got, ref)) / max(scale, 1e-30)
+    gaps["metric mel"] = abs(metrics["cpu"]["mel"] - metrics["cuda"]["mel"]) \
+        / abs(metrics["cpu"]["mel"])
+    gaps["seconds"] = time.perf_counter() - t0
+    print(f"voiced-onset input ({gaps['seconds']:.1f} s), hubert_acoustic "
+          f"f32 step cpu vs card, the "
+          f"largest gap of each stage's output relative to its largest "
+          f"value: {json.dumps({k: float(f'{v:.3e}') for k, v in gaps.items()})}"
+          f" [{card}]")
+    return gaps
+
+
+@contextlib.contextmanager
+def _stage_capture(model, ctx, stages):
+    """Record into ``stages`` (a dict; nothing without one), as float64
+    numpy arrays, each stage's output of one step of the hubert speech
+    predictor: the frozen HuBERT features and speaker vector, the PCPH
+    prior, its STFT's magnitude and phase, the generator's input latent,
+    its log-magnitude and phase, the audio, and the mel spectrograms of
+    the prediction that the mel loss reads (3 resolutions)."""
+    from stylish_tts_tpu_torch.models import generator as gen_mod
+
+    if stages is None:
+        yield
+        return
+
+    def keep(name, *tensors):
+        stages.setdefault(name, []).extend(
+            t.detach().double().cpu().numpy() for t in tensors)
+
+    real_pcph, real_ssl = gen_mod.generate_pcph, ctx.ssl_features
+    head = model.generator.stft_head
+    real_transform = head.transform
+    real_spec = ctx.multi_spectrogram
+
+    def pcph(*args, **kwargs):
+        out = real_pcph(*args, **kwargs)
+        keep("prior", out)
+        return out
+
+    def ssl(*args, **kwargs):
+        feats, spk = real_ssl(*args, **kwargs)
+        keep("hubert features", feats)
+        keep("speaker vector", spk)
+        return feats, spk
+
+    def transform(x):
+        mag, cos, sin = real_transform(x)
+        keep("prior stft magnitude", mag)
+        keep("prior stft phase", torch.atan2(sin, cos))
+        return mag, cos, sin
+
+    def spec(*, target, pred):
+        out = real_spec(target=target, pred=pred)
+        keep("mel (3 resolutions)", *out[1])
+        return out
+
+    def on_generator(module, args, output):
+        keep("generator input", args[0])
+        keep("generator log-magnitude", output.magnitude)
+        keep("generator phase", output.phase)
+        keep("audio", output.audio)
+
+    gen_mod.generate_pcph = pcph
+    ctx.ssl_features, head.transform, ctx.multi_spectrogram = \
+        ssl, transform, spec
+    hook = model.generator.register_forward_hook(on_generator)
+    try:
+        yield
+    finally:
+        hook.remove()
+        gen_mod.generate_pcph = real_pcph
+        ctx.ssl_features, ctx.multi_spectrogram = real_ssl, real_spec
+        del head.transform
 
 
 # --------------------------------------------------------------------------- #
@@ -3963,6 +4298,8 @@ def main() -> int:
     del state, step, tbatch, gen
     torch.cuda.empty_cache()
     record["train_cpu_vs_card"] = cpu_vs_card_step(mc, card)
+    # ... and the same step with remat_flow off and on
+    record["remat"] = remat_path(device, card, kernels)
 
     # 6. the training runtime: dataset on disk, steps fed by the epoch
     # iterator, checkpoint and resume, the artifact and speech from it
@@ -3991,8 +4328,11 @@ def main() -> int:
         # 12. RMVPE pitch on phase 8's book dataset (the STFT at
         # 1024/160/1024, B = 1), and the five conversion scripts
         record["rmvpe"] = rmvpe_path(device, card, kernels, book_data, flush)
+        # 13. the root tools: pitch_eval on the card and the CPU, g2p_eval
+        # and train_homographs on the host
+        record["tools"] = tools_path(card, Path(keep))
 
-    # 13. results: each kernel's own numbers and its launches on the path
+    # 14. results: each kernel's own numbers and its launches on the path
     # that runs it: per train step (acoustic, and joint, the experimental
     # runs and the ringformer step beside it), or per probe run; the STFT's
     # DFT path as an entry of its own, at the ringformer step, and its
@@ -4008,6 +4348,8 @@ def main() -> int:
     joint = record["interop"]["launches_per_step"]
     experimental = {run: r["per_step"] for run, r in
                     record["experimental"]["runs"].items()}
+    remat_launches = {k: n // record["remat"]["steps"] for k, n in
+                      record["remat"]["on"]["launches"].items()}
     launches.update({k: (n, "probe run")
                      for k, n in record["probe_run"]["launches"].items()})
     entries = []
@@ -4018,6 +4360,8 @@ def main() -> int:
             "name": k.name, "route": k.route, "source": k.source,
             "replaces": k.replaces, "launches": count, "per": per,
             "joint_launches": joint.get(k.name),  # per joint train step
+            # per remat_flow train step (phase 5's step, the flag on)
+            "remat_launches": remat_launches.get(k.name),
             # per train step of each experimental run
             "experimental_launches": {run: n.get(k.name) for run, n in
                                       experimental.items()},

@@ -150,10 +150,13 @@ def _stonemask_refine(
     return torch.where((out >= F0_FLOOR) & (out <= F0_CEIL), out, 0.0)
 
 
-def _yin(frames: torch.Tensor, sample_rate: int) -> torch.Tensor:
+def _yin(frames: torch.Tensor, sample_rate: int,
+         refine: bool = True) -> torch.Tensor:
+    """YIN's track of each frame, refined by ``_stonemask_refine`` unless
+    ``refine`` is false."""
     with torch.no_grad():
-        return _stonemask_refine(
-            frames, _yin_frame_pitch(frames, sample_rate), sample_rate)
+        f0 = _yin_frame_pitch(frames, sample_rate)
+        return _stonemask_refine(frames, f0, sample_rate) if refine else f0
 
 
 def _file_frames(wave: np.ndarray, sample_rate: int, hop_length: int):
@@ -177,9 +180,10 @@ def _median3(f0: np.ndarray) -> np.ndarray:
 
 
 def extract_pitch_batch(waves, sample_rate: int, hop_length: int,
-                        device=None) -> list:
+                        refine: bool = True, device=None) -> list:
     """List of [T] audio -> list of [T//hop + 1] f0 tracks, on ``device``
-    (the card unless named).
+    (the card unless named); ``refine=False`` keeps YIN's raw track (both
+    then median-filtered over 3 frames).
 
     Every file's frames go into one stream, run in CHUNK_FRAMES-size
     batches (the last one zero-padded), so the device batches stay full
@@ -203,7 +207,7 @@ def extract_pitch_batch(waves, sample_rate: int, hop_length: int,
 
     def run(rows: int) -> None:
         nonlocal stream_pos
-        f0 = _yin(torch.from_numpy(buf).to(device), sample_rate)
+        f0 = _yin(torch.from_numpy(buf).to(device), sample_rate, refine)
         out[stream_pos : stream_pos + rows] = f0[:rows].cpu().numpy()
         stream_pos += rows
 
@@ -229,9 +233,9 @@ def extract_pitch_batch(waves, sample_rate: int, hop_length: int,
 
 
 def extract_pitch(wave: np.ndarray, sample_rate: int, hop_length: int,
-                  device=None) -> np.ndarray:
+                  refine: bool = True, device=None) -> np.ndarray:
     """[T] audio -> [T//hop + 1] f0 (the single-file YIN wrapper)."""
-    return extract_pitch_batch([wave], sample_rate, hop_length,
+    return extract_pitch_batch([wave], sample_rate, hop_length, refine,
                                device=device)[0]
 
 

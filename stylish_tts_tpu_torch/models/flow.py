@@ -1,6 +1,12 @@
 """VITS-style normalizing flow: gated WaveNet couplings over the latent,
 transporting (z, mean, logstd) triples in both directions, plus the prior
-encoder and the posterior encoder (training only)."""
+encoder and the posterior encoder (training only).
+
+``remat=True`` (``ModelConfig.remat_flow``) recomputes each coupling
+layer's activations, and the posterior encoder's WaveNet's, in the
+backward instead of keeping them: the flow runs at the generator's frame
+rate (4x the mel's), so they are among the largest of the acoustic step.
+"""
 
 from __future__ import annotations
 
@@ -8,11 +14,31 @@ from typing import Optional, Tuple
 
 import torch
 from torch import nn
+from torch.func import functional_call
+from torch.utils.checkpoint import checkpoint
 
 from ..ops.stft_kernel import stft_forward
 from .norms import Conv1d, Conv1x1, Dropout
 
 FlowTriple = Tuple[torch.Tensor, torch.Tensor, torch.Tensor]
+
+
+def remat_call(module: nn.Module, remat: bool, *args):
+    """``module(*args)``; with ``remat`` and autograd recording, its
+    activations are recomputed in the backward (non-reentrant
+    checkpointing), so synthesis under ``no_grad`` is unchanged.
+
+    The recompute runs after the caller's ``functional_call`` has put the
+    f32 masters back (``train/stages.py:run_cast``), so it reinstates the
+    tensors the module holds now, bf16 copies included.  Only the global
+    RNG streams are restored for it: a region that draws from an explicit
+    generator (``norms.Dropout`` at a rate above 0) would draw anew."""
+    if not (remat and torch.is_grad_enabled()):
+        return module(*args)
+    tensors = {**dict(module.named_parameters()),
+               **dict(module.named_buffers())}
+    return checkpoint(lambda *a: functional_call(module, tensors, a), *args,
+                      use_reentrant=False)
 
 
 class WaveNet(nn.Module):
@@ -97,14 +123,16 @@ def _flip(pair):
 class ResidualCouplingBlock(nn.Module):
     """n_flows × (coupling + flip).  The inverse direction
     (``reverse=True``, synthesis) runs the flows in reverse order, each
-    preceded by its flip; the forward direction serves training."""
+    preceded by its flip; the forward direction serves training.
+    ``remat`` checkpoints each coupling layer, in both directions."""
 
     def __init__(self, channels: int, hidden_channels: int,
                  kernel_size: int = 5, n_layers: int = 4, n_flows: int = 8,
-                 cond_channels: int = 0):
+                 cond_channels: int = 0, remat: bool = False):
         super().__init__()
         self.half = channels // 2
         self.n_flows = n_flows
+        self.remat = remat
         for i in range(n_flows):
             setattr(self, f"flow_{i}", ResidualCouplingLayer(
                 self.half, hidden_channels, kernel_size, n_layers,
@@ -119,12 +147,14 @@ class ResidualCouplingBlock(nn.Module):
         if reverse:
             for i in reversed(range(self.n_flows)):
                 zs, means, logstds = _flip(zs), _flip(means), _flip(logstds)
-                zs, means, logstds = getattr(self, f"flow_{i}")(
-                    zs, means, logstds, cond, True)
+                zs, means, logstds = remat_call(
+                    getattr(self, f"flow_{i}"), self.remat, zs, means,
+                    logstds, cond, True)
         else:
             for i in range(self.n_flows):
-                zs, means, logstds = getattr(self, f"flow_{i}")(
-                    zs, means, logstds, cond, False)
+                zs, means, logstds = remat_call(
+                    getattr(self, f"flow_{i}"), self.remat, zs, means,
+                    logstds, cond, False)
                 zs, means, logstds = _flip(zs), _flip(means), _flip(logstds)
         return (torch.cat(zs, -1), torch.cat(means, -1),
                 torch.cat(logstds, -1))
@@ -152,12 +182,16 @@ class PriorEncoder(nn.Module):
 class PosteriorEncoder(nn.Module):
     """Waveform -> STFT magnitude and phase -> 1x1 convs -> WaveNet ->
     (z, mean, logstd).  The STFT runs at the generator's frame rate, in
-    f32; its outputs return to the activation type."""
+    f32; its outputs return to the activation type.  ``remat``
+    checkpoints the WaveNet alone: the STFT kernel is not launched again
+    in the backward."""
 
     def __init__(self, out_channels: int, hidden_channels: int, n_fft: int,
                  win_length: int, hop_length: int, kernel_size: int = 3,
-                 n_layers: int = 12, cond_channels: int = 0):
+                 n_layers: int = 12, cond_channels: int = 0,
+                 remat: bool = False):
         super().__init__()
+        self.remat = remat
         self.n_fft, self.win_length, self.hop_length = \
             n_fft, win_length, hop_length
         freq_bins = n_fft // 2 + 1
@@ -179,7 +213,7 @@ class PosteriorEncoder(nn.Module):
         mag = (torch.hypot(real, imag) + 1e-9)[:, :-1].to(act)
         phase = torch.atan2(imag, real)[:, :-1].to(act)  # drop the last frame
         x = torch.cat([self.pre_spec(mag), self.pre_phase(phase)], dim=-1)
-        x = self.enc(x, cond=cond)
+        x = remat_call(self.enc, self.remat, x, cond)
         mean = self.proj_mean(x)
         logstd = self.proj_logstd(x)
         if not sample:

@@ -72,11 +72,12 @@ class SpeechPredictor(nn.Module):
         self.prior_encoder = PriorEncoder(hidden, flow_dim)
         self.flow = ResidualCouplingBlock(
             flow_dim, flow_dim, kernel_size=5, n_layers=4, n_flows=8,
-            cond_channels=mc.style_dim)
+            cond_channels=mc.style_dim, remat=mc.remat_flow)
         self.posterior_encoder = PosteriorEncoder(
             flow_dim, flow_dim, n_fft=mc.n_fft, win_length=mc.win_length,
             hop_length=mc.hop_length // 4 if self.x4 else mc.hop_length,
-            n_layers=12, cond_channels=mc.style_dim) if posterior else None
+            n_layers=12, cond_channels=mc.style_dim,
+            remat=mc.remat_flow) if posterior else None
         self.post_flow = nn.Linear(flow_dim, hidden)
         self.generator = generator_head(mc)
 

@@ -15,6 +15,10 @@ R times that loss's gradient summed over the ranks' parameters.
 ``sync_gradients`` therefore sums each trained module's gradients over
 the ranks in one flat bucket and divides by R.
 
+The OOM guard's common decision (``oom_on_any_rank``) goes through the
+process group's store, never through a collective: a collective could
+pair with one that a rank still waits in.
+
 Without a process group every function is the plain torch reduction,
 bit for bit; with one (a world of one included) the collectives run, and
 ``COLLECTIVES`` counts them by kind.  A world of one computes the plain
@@ -24,8 +28,10 @@ their sums divided by a count.
 
 from __future__ import annotations
 
+import json
+import time
 from collections import Counter
-from typing import Iterable, List
+from typing import Iterable, List, Optional
 
 import torch
 import torch.distributed as dist
@@ -34,6 +40,20 @@ from torch import nn
 
 # the collectives run since the process started, by kind
 COLLECTIVES: Counter = Counter()
+# how long a rank that ran out of memory before any collective of its step
+# waits for the others to reach the guard before it stops the run: a rank
+# that is still in a collective of its step never reaches it
+GUARD_WAIT_S = 60.0
+# how long a rank whose collective failed waits for the failing rank's
+# verdict, and a failing rank that holds the store for the others to read
+# it
+RECORD_WAIT_S = 10.0
+_GUARD_PREFIX = "stylish_oom_guard"
+
+
+def collective_count() -> int:
+    """The collectives this process has issued through this module."""
+    return COLLECTIVES.total()
 
 
 def world_size() -> int:
@@ -106,6 +126,145 @@ def any_rank(flag: bool, device) -> bool:
     COLLECTIVES["all_reduce"] += 1
     dist.all_reduce(t, op=dist.ReduceOp.MAX)
     return bool(t.item())
+
+
+class RankFailure(RuntimeError):
+    """A rank ran out of memory where the ranks cannot restore together:
+    raised on every rank, naming the one that failed."""
+
+
+class _Decision:
+    """The keys of the current guard decision in the process group's
+    store.  Every rank takes the decisions in the same order and counts
+    its own in the store, so a new group (a new store) starts at 0."""
+
+    def __init__(self):
+        self.store = dist.distributed_c10d._get_default_store()
+        self.rank, self.world = dist.get_rank(), dist.get_world_size()
+        self.count_key = f"{_GUARD_PREFIX}/count/{self.rank}"
+        self.index = int(self.store.add(self.count_key, 0))
+
+    def key(self, name, index: Optional[int] = None) -> str:
+        return f"{_GUARD_PREFIX}/{self.index if index is None else index}" \
+               f"/{name}"
+
+    def done(self) -> None:
+        self.store.add(self.count_key, 1)
+
+    def stop(self, message: str) -> RankFailure:
+        """Record ``message`` as the verdict and abort the process group.
+        A card's rank waiting for the decision reads the verdict and aborts
+        its own group, which releases its collectives.  Over gloo a rank
+        waiting in a collective is released only when this process's
+        connections close, at its exit, and then reads the verdict.  Rank
+        0 holds the store, so it waits up to RECORD_WAIT_S for the others
+        to read it first."""
+        self.store.set(self.key("verdict"), message)
+        _abort()
+        deadline = time.monotonic() + RECORD_WAIT_S
+        while (self.rank == 0 and time.monotonic() < deadline
+               and int(self.store.add(self.key("read"), 0)) < self.world - 1):
+            time.sleep(0.01)
+        return RankFailure(message)
+
+
+def _abort() -> None:
+    dist.distributed_c10d._abort_process_group()
+
+
+def rank_failure() -> Optional[RankFailure]:
+    """After a collective raised: the failure another rank recorded for
+    the current guard decision (the process group is then aborted here
+    too), or None where none was recorded within ``RECORD_WAIT_S`` or no
+    other rank exists.  When the store is gone, rank 0, which held it, has
+    stopped."""
+    if world_size() == 1:
+        return None
+    try:
+        decision = _Decision()
+        verdict = decision.key("verdict")
+        deadline = time.monotonic() + RECORD_WAIT_S
+        while not decision.store.check([verdict]):
+            if time.monotonic() > deadline:
+                return None
+            time.sleep(0.01)
+        message = decision.store.get(verdict).decode()
+        decision.store.add(decision.key("read"), 1)
+    except dist.DistError as exc:
+        message = (f"rank 0 stopped the run: the process group's store it "
+                   f"held is gone ({exc})")
+    _abort()
+    return RankFailure(message)
+
+
+def oom_on_any_rank(message: Optional[str], collectives: int) -> bool:
+    """The OOM guard's decision, taken on every rank after its step:
+    True on every rank when one ran out of memory (``message``) and all
+    can restore together, False when none did.
+
+    The ranks decide through the process group's store, never through a
+    collective, which could pair with a collective that a rank still
+    waits in.  Each rank posts whether it failed and how many collectives
+    its step issued (``collectives``).  They can restore together only
+    when every rank reached the decision and all issued the same
+    collectives; otherwise the step's collectives are mis-paired and a
+    rank may wait in one that no other rank will join, so a
+    ``RankFailure`` naming the failing rank is raised on every rank and
+    the group is aborted:
+
+    * a rank that fails after one of its step's collectives stops the run
+      at once;
+    * a rank that fails before any waits up to ``GUARD_WAIT_S`` for the
+      others to post, and stops it where one does not, or where one issued
+      a collective (a card's collectives run asynchronously, so a rank may
+      post while its card waits in one);
+    * a rank whose step raised in a collective reads the failing rank's
+      verdict (``rank_failure``)."""
+    if not _active():
+        return message is not None
+    decision = _Decision()
+    store, rank = decision.store, decision.rank
+    failed = message is not None
+    store.set(decision.key(str(rank)),
+              json.dumps([failed, collectives, message]))
+    if decision.index >= 2:
+        # every rank has posted to the last decision, so each has read the
+        # one before it: this rank's post there can go
+        store.delete_key(decision.key(str(rank), decision.index - 2))
+    if failed and collectives:
+        raise decision.stop(f"rank {rank} ran out of memory after "
+                            f"{collectives} of the step's collectives "
+                            f"({message}): the ranks cannot restore "
+                            f"together, so the run stops on every rank")
+    keys = [decision.key(str(r)) for r in range(decision.world)]
+    start = time.monotonic()
+    while not store.check(keys):
+        if store.check([decision.key("verdict")]):
+            raise rank_failure()
+        waited = time.monotonic() - start
+        if failed and waited > GUARD_WAIT_S:
+            raise decision.stop(
+                f"rank {rank} ran out of memory before its step's first "
+                f"collective ({message}), and not every rank reached the "
+                f"guard within {GUARD_WAIT_S:.0f} s: the run stops on every "
+                f"rank")
+        if waited > store.timeout.total_seconds():
+            raise RuntimeError(f"rank {rank} waited {waited:.0f} s for the "
+                               f"other ranks at the OOM guard")
+        time.sleep(0.005)
+    posts = [json.loads(store.get(k)) for k in keys]
+    decision.done()
+    failing = [r for r, (f, _, _) in enumerate(posts) if f]
+    counts = {n for _, n, _ in posts}
+    if failing and len(counts) > 1:
+        first = failing[0]
+        _abort()
+        raise RankFailure(
+            f"rank {first} ran out of memory after {posts[first][1]} of the "
+            f"step's collectives ({posts[first][2]}), and another rank "
+            f"issued {max(counts)}: the ranks cannot restore together, so "
+            f"the run stops on every rank")
+    return bool(failing)
 
 
 def max_int(value: int, device) -> int:

@@ -191,13 +191,19 @@ def _device_batch(batch: dict, device, rows: Optional[int] = None
                   ) -> Dict[str, torch.Tensor]:
     """The batch's arrays (the first ``rows`` of each) as tensors on
     ``device``; the bin, paths and batch size stay on the host.  Over R
-    ranks the token axis is padded to the longest block's, so every rank
-    holds its block at the global batch's shape."""
-    if mesh.world_size() > 1 and "text" in batch:
-        batch = _pad_tokens(batch, mesh.max_int(batch["text"].shape[1],
-                                                device))
+    ranks take the batch from ``_global_batch`` first."""
     return {k: torch.from_numpy(v if rows is None else v[:rows]).to(device)
             for k, v in batch.items() if isinstance(v, np.ndarray)}
+
+
+def _global_batch(batch: dict, device) -> dict:
+    """Over R ranks, ``batch`` with its token axis padded to the longest
+    block's (a collective), so every rank holds its block at the global
+    batch's shape; the batch itself in one process."""
+    if mesh.world_size() > 1 and "text" in batch:
+        return _pad_tokens(batch, mesh.max_int(batch["text"].shape[1],
+                                               device))
+    return batch
 
 
 def _pad_tokens(batch: dict, tokens: int) -> dict:
@@ -238,13 +244,19 @@ def _guarded_step(step_fn, state: TrainState, batch: dict, generator, bm,
     allocator's cache emptied.  ``record`` counts the snapshots and their
     seconds.  Other errors raise.  Returns (state, metrics or None).
 
-    Over R ranks the decision is collective: an all-reduce (MAX) of each
-    rank's OOM flag makes every rank restore and halve together (the
-    batch sizes are global, each rank keeps its share of the rows).  A rank
-    that runs out of memory after the step's first collective leaves the
-    others waiting in it: the collective's timeout then fails the run."""
+    Over R ranks the decision is common (``mesh.oom_on_any_rank``,
+    through the process group's store): every rank restores and halves
+    together (the batch sizes are global, each rank keeps its share of
+    the rows) when every rank reached the decision having issued the same
+    collectives, as where the OOM came before any of them.  A rank that
+    runs out of memory part way through its step's collectives would
+    leave the others waiting in one it never joins: it records a verdict
+    in the store and aborts the process group instead, and every rank
+    raises ``mesh.RankFailure`` naming it, a rank released from a
+    collective after reading the verdict (``mesh.rank_failure``)."""
     bin_num = batch.get("bin")
     rows = batch["text"].shape[0]
+    batch = _global_batch(batch, device)
     oom_tries = 0
     while oom_tries < 3:
         key = _shape_key(batch, rows)
@@ -257,12 +269,20 @@ def _guarded_step(step_fn, state: TrainState, batch: dict, generator, bm,
                 record["snapshots"] += 1
                 record["snapshot_s"] += time.perf_counter() - t0
         message = None
+        issued = mesh.collective_count()
         try:
             out_state, metrics = step_fn(
                 state, _device_batch(batch, device, rows), generator)
         except torch.cuda.OutOfMemoryError as exc:
             message = str(exc)[:160]
-        if not mesh.any_rank(message is not None, device):
+        except RuntimeError as exc:
+            # a collective released by the abort of a rank that failed
+            failure = mesh.rank_failure()
+            if failure is not None:
+                raise failure from exc
+            raise
+        issued = mesh.collective_count() - issued
+        if not mesh.oom_on_any_rank(message, issued):
             if first_run:
                 validated.add(key)
             return out_state, metrics
@@ -552,7 +572,8 @@ def _train_on_val(state: TrainState, step_fn, val_manager: BatchManager,
     the manifest's counters do not move."""
     for batch in val_manager.epoch_iterator(stage=stage, epoch=epoch + 1,
                                             shuffle=False, jitter=False):
-        step_fn(state, _device_batch(batch, device), generator)
+        step_fn(state, _device_batch(_global_batch(batch, device), device),
+                generator)
 
 
 def _plan_memory(bm: BatchManager, stage_ctx: StageContext,
@@ -626,7 +647,7 @@ def _validate(ctx: TrainContext, state: TrainState, eval_fn,
     generator = torch.Generator(device=device).manual_seed(step)
     for batch in val_manager.epoch_iterator(stage=stage, epoch=0,
                                             shuffle=False, jitter=False):
-        device_batch = _device_batch(batch, device)
+        device_batch = _device_batch(_global_batch(batch, device), device)
         metrics, audio_pred = eval_fn(state, device_batch, generator)
         logs.append({k: float(v) for k, v in metrics.items()})
         if (ctx.writer is not None and audio_pred is not None

@@ -1,6 +1,6 @@
 """Synthetic data for smoke runs and tests: a sine-speech dataset, the
-down-scaled model config, and a torch reference checkpoint written from
-the port's modules.
+down-scaled model config, speech-like audio of known F0, and a torch
+reference checkpoint written from the port's modules.
 
 The dataset has the full on-disk layout the trainer reads (``wav24/``, the
 train and val lists, the pitch and alignment safetensors caches, the
@@ -103,6 +103,52 @@ def tiny_model_config():
     mc.slm.layers = 2
     mc.text_aligner.hidden_dim = 64
     return mc
+
+
+def make_speechlike(rng: np.random.Generator, sr: int = 24000,
+                    hop: int = 300, dur_s: float = 3.0,
+                    f0_base: float = 140.0):
+    """Speech-like audio with a known F0: harmonic stacks under three
+    formants on a contour of vibrato (5.5 Hz, ±50 cents), a random walk and
+    a 6% declination, with fricative (pre-emphasised noise) and silent
+    stretches of 15-60 frames.  Returns (wave [n] f32, f0 [n // hop + 1],
+    segments [n // hop + 1]: 1 voiced, 2 fricative, 0 silent).  The same
+    draws as the JAX package's test generator, so a seed gives the same
+    utterances (``scripts/pitch_eval.py``)."""
+    from scipy.signal import lfilter
+
+    n = int(dur_s * sr)
+    t = np.arange(n) / sr
+    n_fr = n // hop + 1
+    cents = 50 * np.sin(2 * np.pi * 5.5 * np.arange(n_fr) * hop / sr)
+    cents += np.cumsum(rng.standard_normal(n_fr)) * 2.0
+    f0_fr = f0_base * 2.0 ** (cents / 1200.0)
+    f0_fr *= 1.0 - 0.06 * np.linspace(0, 1, n_fr)
+    seg = np.zeros(n_fr, np.int8)
+    pos = 0
+    while pos < n_fr:
+        kind = rng.choice([1, 1, 1, 2, 0], p=[0.25, 0.25, 0.25, 0.15, 0.10])
+        ln = int(rng.integers(15, 60))
+        seg[pos : pos + ln] = kind
+        pos += ln
+    f0_fr = np.where(seg == 1, f0_fr, 0.0)
+
+    f0_samp = np.repeat(f0_fr, hop)[:n]
+    phase = 2 * np.pi * np.cumsum(f0_samp) / sr
+    wave = np.zeros(n)
+    formants = [(500, 80), (1500, 120), (2500, 180)]
+    for h in range(1, 30):
+        fh = f0_samp * h
+        env = sum(
+            np.exp(-((fh - fc) ** 2) / (2 * bw**2)) for fc, bw in formants
+        )
+        wave += (0.25 / h) * (0.3 + env) * np.sin(phase * h) * (fh < sr / 2)
+    wave *= np.repeat(seg == 1, hop)[:n]
+    wave *= 1 + 0.1 * np.sin(2 * np.pi * 3 * t)  # amplitude shimmer
+    fric = lfilter([1, -0.95], [1], rng.standard_normal(n)) * 0.05
+    wave = wave + fric * np.repeat(seg == 2, hop)[:n]
+    wave = wave + 0.003 * rng.standard_normal(n)
+    return wave.astype(np.float32), f0_fr, seg
 
 
 # --------------------------------------------------------------------------- #

@@ -210,6 +210,57 @@ def guard_case(rank: int, world: int, payload: dict) -> dict:
             "ok": metrics is not None}
 
 
+def midstep_case(rank: int, world: int, payload: dict) -> dict:
+    """An OOM among a step's collectives: rank 1's step runs
+    ``payload["fail_after"]`` ``mesh`` collectives and then runs out of
+    memory, rank 0's runs two; rank 1 waits ``payload["wait_s"]`` for the
+    others at the guard.  Returns how the guard ended on this rank (its
+    error, or what it returned), how long it took and the collectives the
+    rank issued."""
+    from stylish_tts_tpu_torch.parallel import mesh
+    from stylish_tts_tpu_torch.train import loop
+    from stylish_tts_tpu_torch.train.state import TrainState
+
+    mesh.GUARD_WAIT_S = payload["wait_s"]
+
+    class Sizes:
+        divisor = world
+        sizes = {"3": 16}
+
+        def get_batch_size(self, b):
+            return self.sizes[str(b)]
+
+        def set_batch_size(self, b, v):
+            self.sizes[str(b)] = v
+
+    def step_fn(state, batch, generator):
+        total = torch.zeros(())
+        for i in range(2):
+            if rank == 1 and i == payload["fail_after"]:
+                raise torch.cuda.OutOfMemoryError("CUDA out of memory")
+            total = total + mesh.sum(torch.ones(()))
+        return state, {"loss": total}
+
+    model = torch.nn.Linear(3, 4)
+    state = TrainState(models={"m": model},
+                       optimizers={"m": torch.optim.AdamW(
+                           model.parameters())},
+                       disc_ema={}, step=0)
+    batch = {"text": np.zeros((8, 4), np.int32), "bin": 3,
+             "global_batch_size": 16}
+    before = mesh.collective_count()
+    t0 = time.monotonic()
+    try:
+        _, metrics = loop._guarded_step(step_fn, state, batch, None, Sizes(),
+                                        "cpu", set(), validated=set())
+        outcome = {"returned": None if metrics is None else
+                   {k: float(v) for k, v in metrics.items()}}
+    except RuntimeError as exc:
+        outcome = {"error": type(exc).__name__, "message": str(exc)}
+    return {**outcome, "seconds": time.monotonic() - t0,
+            "collectives": mesh.collective_count() - before}
+
+
 def cli_case(rank: int, world: int, payload: dict) -> dict:
     """CLI ``train --distributed`` with the coordinator, the count and the
     rank given: one acoustic step and a validation; at the stage's end the
@@ -243,11 +294,11 @@ def cli_case(rank: int, world: int, payload: dict) -> dict:
 
 
 CASES = {"acoustic": acoustic_case, "alignment": alignment_case,
-         "init": init_case, "cli": cli_case}
+         "init": init_case, "cli": cli_case, "midstep": midstep_case}
 
 
 def _worker(rank: int, world: int, port: int, out_dir: str, cases: list,
-            payload: dict, env: bool) -> None:
+            payload: dict, env: bool, timeout_s: float) -> None:
     """Join the group (torchrun's environment, or the coordinator, count
     and rank; the CLI case joins by itself), run ``cases`` in order and
     save each result."""
@@ -261,10 +312,10 @@ def _worker(rank: int, world: int, port: int, out_dir: str, cases: list,
     elif env:
         os.environ.update(RANK=str(rank), WORLD_SIZE=str(world),
                           MASTER_ADDR="127.0.0.1", MASTER_PORT=str(port))
-        initialize_distributed(device="cpu", timeout_s=120)
+        initialize_distributed(device="cpu", timeout_s=timeout_s)
     else:
         initialize_distributed(f"127.0.0.1:{port}", world, rank,
-                               device="cpu", timeout_s=120)
+                               device="cpu", timeout_s=timeout_s)
     try:
         for case in cases:
             torch.save(CASES[case](rank, world, payload[case]),
@@ -274,23 +325,25 @@ def _worker(rank: int, world: int, port: int, out_dir: str, cases: list,
 
 
 def start_ranks(cases: list, payload: dict, out_dir: Path,
-                env: bool = False):
-    """``WORLD`` spawned processes running ``cases``; see ``join_ranks``."""
+                env: bool = False, timeout_s: float = 120.0):
+    """``WORLD`` spawned processes running ``cases`` in a group whose
+    collectives time out after ``timeout_s``; see ``join_ranks``."""
     return mp.start_processes(
         _worker, args=(WORLD, _free_port(), str(out_dir), cases, payload,
-                       env),
+                       env, timeout_s),
         nprocs=WORLD, join=False, start_method="spawn")
 
 
-def join_ranks(ctx, cases: list, out_dir: Path) -> dict:
+def join_ranks(ctx, cases: list, out_dir: Path,
+               deadline_s: float = DEADLINE_S) -> dict:
     """{case: each rank's result}; the processes are killed and the test
-    fails past ``DEADLINE_S``."""
-    deadline = time.monotonic() + DEADLINE_S
+    fails past ``deadline_s``."""
+    deadline = time.monotonic() + deadline_s
     try:
         while not ctx.join(timeout=1.0):
             if time.monotonic() > deadline:
                 pytest.fail(f"{cases}: ranks still running after "
-                            f"{DEADLINE_S} s (a collective hangs)")
+                            f"{deadline_s} s (a collective hangs)")
     finally:
         for p in ctx.processes:
             if p.is_alive():
@@ -421,3 +474,34 @@ def test_two_rank_alignment_step_and_epoch_end_equal_one_process(two_ranks):
         for name, b in want["stats"].items():
             torch.testing.assert_close(r["stats"][name], b, rtol=1e-5,
                                        atol=1e-7)
+
+
+@pytest.mark.parametrize("fail_after", [1, 0])
+def test_an_oom_among_a_steps_collectives_stops_every_rank(tmp_path,
+                                                          fail_after):
+    """Rank 1 runs out of memory after its step's first collective (1) or
+    before it (0), while rank 0 waits in the collective that rank 1 never
+    joins.  Before the guard decided through the process group's store,
+    rank 1's guard all-reduce paired with rank 0's second ``mesh.sum``:
+    rank 0's gloo aborted its process on the size mismatch, and rank 1
+    took the mis-paired result for an OOM vote and halved its batch alone.
+    Now rank 1 records its verdict in the store and aborts the group, at
+    once after a collective, else after waiting 2 s for the others at the
+    guard, and raises; rank 0's pending collective fails as rank 1's
+    process ends, rank 0 reads the verdict, and both ranks raise a
+    ``RankFailure`` naming rank 1 far inside the group's 60 s timeout."""
+    payload = {"midstep": {"fail_after": fail_after, "wait_s": 2.0}}
+    ranks = join_ranks(start_ranks(["midstep"], payload, tmp_path,
+                                   timeout_s=60.0),
+                       ["midstep"], tmp_path, deadline_s=90.0)["midstep"]
+    said = ("after 1 of the step's collectives" if fail_after
+            else "before its step's first collective")
+    for rank, r in enumerate(ranks):
+        assert r.get("error") == "RankFailure", (rank, r)
+        assert f"rank 1 ran out of memory {said}" in r["message"], \
+            (rank, r["message"])
+        assert r["seconds"] < 10.0, (rank, r["seconds"])
+    # the token axis's padding (one max), then rank 0 waited in the sum
+    # that rank 1 never issued
+    assert [r["collectives"] for r in ranks] == [3 - (1 - fail_after),
+                                                 2 - (1 - fail_after)]
