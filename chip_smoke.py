@@ -953,43 +953,33 @@ def tools_path(card: str, root: Path) -> dict:
     within PITCH_CENTS_TOL), ``g2p_eval``'s report (equal to the committed
     ``G2P_r05.json``), and ``train_homographs`` at its default 200 epochs
     into ``root``, its weights compared with the committed file's."""
-    from stylish_tts_tpu_torch.dataprep.pitch import extract_pitch_batch
     from stylish_tts_tpu_torch.scripts import (g2p_eval, pitch_eval,
                                                train_homographs)
 
     out = {"card": card}
     t0 = time.perf_counter()
-    waves, gts = pitch_eval.speechlike_suite(TOOLS_UTTS)
     tracks, reports = {}, {}
     for device in ("cuda", "cpu"):
         t1 = time.perf_counter()
-        tracks[device] = {
-            refine: extract_pitch_batch(waves, pitch_eval.SAMPLE_RATE,
-                                        pitch_eval.HOP, refine=refine,
-                                        device=device)
-            for refine in (False, True)}
-        reports[device] = {
-            name: pitch_eval.score(tracks[device][refine], gts)
-            for name, refine in (("yin_raw", False),
-                                 ("yin_stonemask_refined", True))}
+        reports[device], tracks[device] = pitch_eval.evaluate(TOOLS_UTTS,
+                                                              device)
         reports[device]["seconds"] = time.perf_counter() - t1
     gaps = {}
-    for refine in (False, True):
+    for name in ("yin_raw", "yin_stonemask_refined"):
         agree = total = 0
         worst = 0.0
-        for a, b in zip(tracks["cuda"][refine], tracks["cpu"][refine]):
+        for a, b in zip(tracks["cuda"][name], tracks["cpu"][name]):
             agree += int(np.sum((a > 0) == (b > 0)))
             total += a.shape[0]
             both = (a > 0) & (b > 0)
             if both.any():
                 worst = max(worst, float(np.max(np.abs(a[both] - b[both])
                                                 / b[both])))
-        gaps["refined" if refine else "raw"] = {
-            "voicing_agreement": agree / total, "worst_f0_rel": worst}
+        gaps[name] = {"voicing_agreement": agree / total,
+                      "worst_f0_rel": worst}
         if agree < YIN_VOICING * total or worst > YIN_F0_REL:
-            raise AssertionError(f"YIN card vs cpu (refine={refine}): "
-                                 f"voicing {agree}/{total}, f0 {worst:.3e}")
-    for name in ("yin_raw", "yin_stonemask_refined"):
+            raise AssertionError(f"YIN card vs cpu ({name}): voicing "
+                                 f"{agree}/{total}, f0 {worst:.3e}")
         a, b = reports["cuda"][name], reports["cpu"][name]
         off = max(abs(a[k] - b[k]) for k in ("cents_mae", "cents_p95"))
         if off > PITCH_CENTS_TOL or abs(a["vuv_f1"] - b["vuv_f1"]) > 0.01:

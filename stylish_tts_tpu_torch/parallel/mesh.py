@@ -40,9 +40,9 @@ from torch import nn
 
 # the collectives run since the process started, by kind
 COLLECTIVES: Counter = Counter()
-# how long a rank that ran out of memory before any collective of its step
-# waits for the others to reach the guard before it stops the run: a rank
-# that is still in a collective of its step never reaches it
+# how long a rank that ran out of memory waits for the others to reach the
+# guard before it stops the run: a rank that is still in a collective of
+# its step never reaches it
 GUARD_WAIT_S = 60.0
 # how long a rank whose collective failed waits for the failing rank's
 # verdict, and a failing rank that holds the store for the others to read
@@ -117,17 +117,6 @@ def host_sum(x: torch.Tensor) -> torch.Tensor:
     return x
 
 
-def any_rank(flag: bool, device) -> bool:
-    """True on every rank when ``flag`` is true on any (all-reduce MAX):
-    a decision that every rank must take together."""
-    if not _active():
-        return flag
-    t = torch.tensor([int(flag)], dtype=torch.int32, device=device)
-    COLLECTIVES["all_reduce"] += 1
-    dist.all_reduce(t, op=dist.ReduceOp.MAX)
-    return bool(t.item())
-
-
 class RankFailure(RuntimeError):
     """A rank ran out of memory where the ranks cannot restore together:
     raised on every rank, naming the one that failed."""
@@ -197,6 +186,11 @@ def rank_failure() -> Optional[RankFailure]:
     return RankFailure(message)
 
 
+def _where(collectives: int) -> str:
+    return ("before its step's first collective" if not collectives
+            else f"after {collectives} of the step's collectives")
+
+
 def oom_on_any_rank(message: Optional[str], collectives: int) -> bool:
     """The OOM guard's decision, taken on every rank after its step:
     True on every rank when one ran out of memory (``message``) and all
@@ -205,19 +199,20 @@ def oom_on_any_rank(message: Optional[str], collectives: int) -> bool:
     The ranks decide through the process group's store, never through a
     collective, which could pair with a collective that a rank still
     waits in.  Each rank posts whether it failed and how many collectives
-    its step issued (``collectives``).  They can restore together only
-    when every rank reached the decision and all issued the same
-    collectives; otherwise the step's collectives are mis-paired and a
-    rank may wait in one that no other rank will join, so a
-    ``RankFailure`` naming the failing rank is raised on every rank and
-    the group is aborted:
+    its step issued (``collectives``).  They restore together when every
+    rank posts and all issued the same collectives, as where every rank
+    ran out of memory at the same point (same shapes, same collectives) or
+    before its first collective, or where the world is one.  Otherwise
+    the step's collectives are mis-paired and a rank may wait in one that
+    no other rank will join, so a ``RankFailure`` naming the failing rank
+    is raised on every rank and the group is aborted:
 
-    * a rank that fails after one of its step's collectives stops the run
-      at once;
-    * a rank that fails before any waits up to ``GUARD_WAIT_S`` for the
-      others to post, and stops it where one does not, or where one issued
-      a collective (a card's collectives run asynchronously, so a rank may
-      post while its card waits in one);
+    * a rank that failed waits up to ``GUARD_WAIT_S`` for the others to
+      post, and stops the run where one does not (it waits in a collective
+      of its step);
+    * where every rank posted and the counts differ, every rank stops (a
+      card's collectives run asynchronously, so a rank may post while its
+      card waits in one);
     * a rank whose step raised in a collective reads the failing rank's
       verdict (``rank_failure``)."""
     if not _active():
@@ -231,11 +226,6 @@ def oom_on_any_rank(message: Optional[str], collectives: int) -> bool:
         # every rank has posted to the last decision, so each has read the
         # one before it: this rank's post there can go
         store.delete_key(decision.key(str(rank), decision.index - 2))
-    if failed and collectives:
-        raise decision.stop(f"rank {rank} ran out of memory after "
-                            f"{collectives} of the step's collectives "
-                            f"({message}): the ranks cannot restore "
-                            f"together, so the run stops on every rank")
     keys = [decision.key(str(r)) for r in range(decision.world)]
     start = time.monotonic()
     while not store.check(keys):
@@ -244,10 +234,9 @@ def oom_on_any_rank(message: Optional[str], collectives: int) -> bool:
         waited = time.monotonic() - start
         if failed and waited > GUARD_WAIT_S:
             raise decision.stop(
-                f"rank {rank} ran out of memory before its step's first "
-                f"collective ({message}), and not every rank reached the "
-                f"guard within {GUARD_WAIT_S:.0f} s: the run stops on every "
-                f"rank")
+                f"rank {rank} ran out of memory {_where(collectives)} "
+                f"({message}), and not every rank reached the guard within "
+                f"{GUARD_WAIT_S:.0f} s: the run stops on every rank")
         if waited > store.timeout.total_seconds():
             raise RuntimeError(f"rank {rank} waited {waited:.0f} s for the "
                                f"other ranks at the OOM guard")
@@ -260,10 +249,10 @@ def oom_on_any_rank(message: Optional[str], collectives: int) -> bool:
         first = failing[0]
         _abort()
         raise RankFailure(
-            f"rank {first} ran out of memory after {posts[first][1]} of the "
-            f"step's collectives ({posts[first][2]}), and another rank "
-            f"issued {max(counts)}: the ranks cannot restore together, so "
-            f"the run stops on every rank")
+            f"rank {first} ran out of memory {_where(posts[first][1])} "
+            f"({posts[first][2]}), and the ranks issued "
+            f"{[n for _, n, _ in posts]} collectives: they cannot restore "
+            f"together, so the run stops on every rank")
     return bool(failing)
 
 

@@ -71,22 +71,23 @@ def speechlike_suite(utts: int, seed: int = SEED):
     return waves, gts
 
 
-def evaluate(utts: int = 16, device=None) -> dict:
-    """The report over ``utts`` utterances, the YIN on ``device`` (the
-    card unless named)."""
+def evaluate(utts: int = 16, device=None):
+    """(the report, the tracks) over ``utts`` utterances, the YIN on
+    ``device`` (the card unless named); the tracks are the per-utterance
+    F0 tracks under the report's names."""
     from ..dataprep.pitch import extract_pitch_batch
 
     waves, gts = speechlike_suite(utts)
-    raw = extract_pitch_batch(waves, SAMPLE_RATE, HOP, refine=False,
-                              device=device)
-    ref = extract_pitch_batch(waves, SAMPLE_RATE, HOP, refine=True,
-                              device=device)
-    return {
+    tracks = {name: extract_pitch_batch(waves, SAMPLE_RATE, HOP,
+                                        refine=refine, device=device)
+              for name, refine in (("yin_raw", False),
+                                   ("yin_stonemask_refined", True))}
+    report = {
         "suite": f"{utts} speech-like utterances (vibrato, jitter, "
                  "declination, formants, fricatives; known-truth F0)",
-        "yin_raw": score(raw, gts),
-        "yin_stonemask_refined": score(ref, gts),
+        **{name: score(track, gts) for name, track in tracks.items()},
     }
+    return report, tracks
 
 
 def main(argv: Optional[Sequence[str]] = None) -> int:
@@ -95,7 +96,7 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
     ap.add_argument("--cpu", action="store_true")
     ap.add_argument("--utts", type=int, default=16)
     args = ap.parse_args(argv)
-    report = evaluate(args.utts, device="cpu" if args.cpu else None)
+    report, _ = evaluate(args.utts, device="cpu" if args.cpu else None)
     print(json.dumps(report))
     if args.out:
         Path(args.out).write_text(json.dumps(report, indent=1))

@@ -51,6 +51,7 @@ save's seconds, and what the guard's first-visit snapshots cost.
 
 from __future__ import annotations
 
+import functools
 import hashlib
 import json
 import logging
@@ -227,6 +228,30 @@ def _shape_key(batch: dict, rows: int) -> tuple:
                  if isinstance(v, np.ndarray))
 
 
+def _decide_oom(run):
+    """Run ``run()``, one step that may issue ``mesh`` collectives, and
+    take the OOM guard's decision common to the ranks after it
+    (``mesh.oom_on_any_rank``, through the process group's store): (its
+    result, None) where no rank ran out of memory, else (None, the
+    message) on every rank, or ``mesh.RankFailure`` raised on every rank
+    where they cannot restore together.  A collective released by the
+    abort of a rank that failed raises that rank's ``RankFailure``."""
+    issued = mesh.collective_count()
+    out, message = None, None
+    try:
+        out = run()
+    except torch.cuda.OutOfMemoryError as exc:
+        message = str(exc)[:160]
+    except RuntimeError as exc:
+        failure = mesh.rank_failure()
+        if failure is not None:
+            raise failure from exc
+        raise
+    if mesh.oom_on_any_rank(message, mesh.collective_count() - issued):
+        return None, message or "out of memory on another rank"
+    return out, None
+
+
 def _guarded_step(step_fn, state: TrainState, batch: dict, generator, bm,
                   device, skip_bins: set, validated: Optional[set] = None,
                   record: Optional[dict] = None):
@@ -244,16 +269,15 @@ def _guarded_step(step_fn, state: TrainState, batch: dict, generator, bm,
     allocator's cache emptied.  ``record`` counts the snapshots and their
     seconds.  Other errors raise.  Returns (state, metrics or None).
 
-    Over R ranks the decision is common (``mesh.oom_on_any_rank``,
-    through the process group's store): every rank restores and halves
-    together (the batch sizes are global, each rank keeps its share of
-    the rows) when every rank reached the decision having issued the same
-    collectives, as where the OOM came before any of them.  A rank that
-    runs out of memory part way through its step's collectives would
-    leave the others waiting in one it never joins: it records a verdict
-    in the store and aborts the process group instead, and every rank
-    raises ``mesh.RankFailure`` naming it, a rank released from a
-    collective after reading the verdict (``mesh.rank_failure``)."""
+    Over R ranks the decision is common (``_decide_oom``): every rank
+    restores and halves together (the batch sizes are global, each rank
+    keeps its share of the rows) when every rank reached the decision
+    having issued the same collectives, as where every rank ran out of
+    memory at the same point, or before any collective, or where the
+    world is one.  A rank that runs out of memory where another still
+    waits in a collective it never joins, or after other collectives than
+    the others issued, stops the run instead: every rank raises
+    ``mesh.RankFailure`` naming it."""
     bin_num = batch.get("bin")
     rows = batch["text"].shape[0]
     batch = _global_batch(batch, device)
@@ -268,25 +292,12 @@ def _guarded_step(step_fn, state: TrainState, batch: dict, generator, bm,
             if record is not None:
                 record["snapshots"] += 1
                 record["snapshot_s"] += time.perf_counter() - t0
-        message = None
-        issued = mesh.collective_count()
-        try:
-            out_state, metrics = step_fn(
-                state, _device_batch(batch, device, rows), generator)
-        except torch.cuda.OutOfMemoryError as exc:
-            message = str(exc)[:160]
-        except RuntimeError as exc:
-            # a collective released by the abort of a rank that failed
-            failure = mesh.rank_failure()
-            if failure is not None:
-                raise failure from exc
-            raise
-        issued = mesh.collective_count() - issued
-        if not mesh.oom_on_any_rank(message, issued):
+        out, message = _decide_oom(lambda: step_fn(
+            state, _device_batch(batch, device, rows), generator))
+        if message is None:
             if first_run:
                 validated.add(key)
-            return out_state, metrics
-        message = message or "out of memory on another rank"
+            return out
         # out of the handler: the failed step's tensors are free now
         if snapshot is not None:
             restore_state(state, snapshot, generator)
@@ -576,6 +587,25 @@ def _train_on_val(state: TrainState, step_fn, val_manager: BatchManager,
                 generator)
 
 
+def _probe_on_ranks(measure, device, batch: int,
+                    bin_num: int) -> Optional[int]:
+    """``measure(batch, bin_num)`` (``step_memory``'s probe, None where its
+    step ran out of memory) on every rank, each on its own rows: the
+    largest peak over the ranks, or None on every rank where one ran out
+    of memory.  The probe's step issues the step's collectives, so the
+    OOM is decided as the guard decides it (``_decide_oom``)."""
+
+    def probe() -> int:
+        peak = measure(batch, bin_num)
+        if peak is None:
+            raise torch.cuda.OutOfMemoryError("out of memory in the memory "
+                                              "probe")
+        return peak
+
+    peak, message = _decide_oom(probe)
+    return None if message else mesh.max_int(peak, device)
+
+
 def _plan_memory(bm: BatchManager, stage_ctx: StageContext,
                  state: TrainState, plan, current: str, config: Config,
                  model_config: ModelConfig, device) -> dict:
@@ -591,17 +621,9 @@ def _plan_memory(bm: BatchManager, stage_ctx: StageContext,
                           state, model_config, check_stage(current).inputs,
                           device)
 
-    def measure_all(batch: int, bin_num: int) -> Optional[int]:
-        # every rank probes its own rows; the plan takes the largest
-        # peak, and an OOM on any rank counts as one
-        peak = measure(batch, bin_num)
-        worst = mesh.max_int(-1 if peak is None else peak, device)
-        if mesh.any_rank(peak is None, device):
-            return None
-        return worst
-
     fit = bm.refine_plan(
-        measure_all, budget_bytes=config.training.memory_budget_mib * 2**20,
+        functools.partial(_probe_on_ranks, measure, device),
+        budget_bytes=config.training.memory_budget_mib * 2**20,
         scale=bm.process_count)
     return {"seconds": time.perf_counter() - t0, **fit,
             "batch_sizes": dict(bm.batch_sizes)}

@@ -163,7 +163,6 @@ def init_case(rank: int, world: int, payload: dict) -> dict:
             "count": multihost.process_count(),
             "main": multihost.is_main_process(), "sum": float(total),
             "grad": x.grad.clone(), "gathered": gathered.reshape(-1).tolist(),
-            "any": mesh.any_rank(rank == 1, "cpu"),
             "max": mesh.max_int(10 + rank, "cpu"),
             **guard_case(rank, world, payload)}
 
@@ -210,55 +209,108 @@ def guard_case(rank: int, world: int, payload: dict) -> dict:
             "ok": metrics is not None}
 
 
+class _Sizes:
+    """The batch manager's sizes that the guard reads and persists: bin 3
+    at a global batch of 16."""
+
+    def __init__(self, world: int):
+        self.divisor = world
+        self.sizes = {"3": 16}
+
+    def get_batch_size(self, b):
+        return self.sizes[str(b)]
+
+    def set_batch_size(self, b, v):
+        self.sizes[str(b)] = v
+
+
+def _collectives_then_oom(rank: int, world: int, fail_after: dict,
+                          rows: int) -> torch.Tensor:
+    """Two ``mesh.sum`` collectives; a rank in ``fail_after`` runs out of
+    memory after ``fail_after[rank]`` of them while the global batch has
+    more than 8 rows."""
+    from stylish_tts_tpu_torch.parallel import mesh
+
+    total = torch.zeros(())
+    for i in range(2):
+        if fail_after.get(rank) == i and rows * world > 8:
+            raise torch.cuda.OutOfMemoryError("CUDA out of memory")
+        total = total + mesh.sum(torch.ones(()))
+    return total
+
+
+def _guard_outcome(run) -> dict:
+    """How ``run()`` ended on this rank (its error, or what it returned),
+    how long it took and the collectives the rank issued."""
+    from stylish_tts_tpu_torch.parallel import mesh
+
+    before = mesh.collective_count()
+    t0 = time.monotonic()
+    try:
+        outcome = {"returned": run()}
+    except RuntimeError as exc:
+        outcome = {"error": type(exc).__name__, "message": str(exc)}
+    return {**outcome, "seconds": time.monotonic() - t0,
+            "collectives": mesh.collective_count() - before}
+
+
 def midstep_case(rank: int, world: int, payload: dict) -> dict:
-    """An OOM among a step's collectives: rank 1's step runs
-    ``payload["fail_after"]`` ``mesh`` collectives and then runs out of
-    memory, rank 0's runs two; rank 1 waits ``payload["wait_s"]`` for the
-    others at the guard.  Returns how the guard ended on this rank (its
-    error, or what it returned), how long it took and the collectives the
-    rank issued."""
+    """An OOM among a step's collectives: each rank's step runs two
+    ``mesh`` collectives, and a rank in ``payload["fail_after"]`` runs out
+    of memory after that many of them at the global batch of 16; a rank
+    that failed waits ``payload["wait_s"]`` for the others at the guard.
+    Returns ``_guard_outcome`` (the step's metrics, and the size the bin
+    ended at)."""
     from stylish_tts_tpu_torch.parallel import mesh
     from stylish_tts_tpu_torch.train import loop
     from stylish_tts_tpu_torch.train.state import TrainState
 
     mesh.GUARD_WAIT_S = payload["wait_s"]
-
-    class Sizes:
-        divisor = world
-        sizes = {"3": 16}
-
-        def get_batch_size(self, b):
-            return self.sizes[str(b)]
-
-        def set_batch_size(self, b, v):
-            self.sizes[str(b)] = v
+    sizes = _Sizes(world)
 
     def step_fn(state, batch, generator):
-        total = torch.zeros(())
-        for i in range(2):
-            if rank == 1 and i == payload["fail_after"]:
-                raise torch.cuda.OutOfMemoryError("CUDA out of memory")
-            total = total + mesh.sum(torch.ones(()))
-        return state, {"loss": total}
+        rows = batch["text"].shape[0]
+        return state, {"loss": _collectives_then_oom(
+            rank, world, payload["fail_after"], rows)}
 
     model = torch.nn.Linear(3, 4)
     state = TrainState(models={"m": model},
                        optimizers={"m": torch.optim.AdamW(
                            model.parameters())},
                        disc_ema={}, step=0)
-    batch = {"text": np.zeros((8, 4), np.int32), "bin": 3,
+    batch = {"text": np.zeros((16 // world, 4), np.int32), "bin": 3,
              "global_batch_size": 16}
-    before = mesh.collective_count()
-    t0 = time.monotonic()
-    try:
-        _, metrics = loop._guarded_step(step_fn, state, batch, None, Sizes(),
+
+    def run():
+        _, metrics = loop._guarded_step(step_fn, state, batch, None, sizes,
                                         "cpu", set(), validated=set())
-        outcome = {"returned": None if metrics is None else
-                   {k: float(v) for k, v in metrics.items()}}
-    except RuntimeError as exc:
-        outcome = {"error": type(exc).__name__, "message": str(exc)}
-    return {**outcome, "seconds": time.monotonic() - t0,
-            "collectives": mesh.collective_count() - before}
+        return {"metrics": None if metrics is None else
+                {k: float(v) for k, v in metrics.items()},
+                "size": sizes.sizes["3"]}
+
+    return _guard_outcome(run)
+
+
+def probe_case(rank: int, world: int, payload: dict) -> dict:
+    """The memory probe over the ranks (``loop._probe_on_ranks``) with a
+    ``measure`` that runs the collectives of ``midstep_case``'s step and,
+    as ``step_memory`` does, returns None where that step ran out of
+    memory, else a peak of 1000 + rank bytes."""
+    from stylish_tts_tpu_torch.parallel import mesh
+    from stylish_tts_tpu_torch.train import loop
+
+    mesh.GUARD_WAIT_S = payload["wait_s"]
+
+    def measure(batch: int, bin_num: int):
+        try:
+            _collectives_then_oom(rank, world, payload["fail_after"],
+                                  batch // world)
+        except torch.cuda.OutOfMemoryError:
+            return None
+        return 1000 + rank
+
+    return _guard_outcome(lambda: loop._probe_on_ranks(measure, "cpu", 16,
+                                                       3))
 
 
 def cli_case(rank: int, world: int, payload: dict) -> dict:
@@ -294,7 +346,8 @@ def cli_case(rank: int, world: int, payload: dict) -> dict:
 
 
 CASES = {"acoustic": acoustic_case, "alignment": alignment_case,
-         "init": init_case, "cli": cli_case, "midstep": midstep_case}
+         "init": init_case, "cli": cli_case, "midstep": midstep_case,
+         "probe": probe_case}
 
 
 def _worker(rank: int, world: int, port: int, out_dir: str, cases: list,
@@ -325,13 +378,14 @@ def _worker(rank: int, world: int, port: int, out_dir: str, cases: list,
 
 
 def start_ranks(cases: list, payload: dict, out_dir: Path,
-                env: bool = False, timeout_s: float = 120.0):
-    """``WORLD`` spawned processes running ``cases`` in a group whose
+                env: bool = False, timeout_s: float = 120.0,
+                world: int = WORLD):
+    """``world`` spawned processes running ``cases`` in a group whose
     collectives time out after ``timeout_s``; see ``join_ranks``."""
     return mp.start_processes(
-        _worker, args=(WORLD, _free_port(), str(out_dir), cases, payload,
+        _worker, args=(world, _free_port(), str(out_dir), cases, payload,
                        env, timeout_s),
-        nprocs=WORLD, join=False, start_method="spawn")
+        nprocs=world, join=False, start_method="spawn")
 
 
 def join_ranks(ctx, cases: list, out_dir: Path,
@@ -349,7 +403,7 @@ def join_ranks(ctx, cases: list, out_dir: Path,
             if p.is_alive():
                 p.kill()
     return {case: [torch.load(out_dir / f"{case}_{r}.pt")
-                   for r in range(WORLD)] for case in cases}
+                   for r in range(len(ctx.processes))] for case in cases}
 
 
 @pytest.fixture(scope="module", autouse=True)
@@ -410,7 +464,7 @@ def test_multihost_init_and_collectives(two_ranks):
         # the backward all-reduces: every rank's block gets R x dL/dx
         assert torch.equal(r["grad"], torch.full((2, 3), 2.0))
         assert r["gathered"] == [0, 1]
-        assert r["any"] is True and r["max"] == 11
+        assert r["max"] == 11
         assert r["calls"] == [(8, 7), (4, 7)] and r["size"] == 8 and r["ok"]
 
 
@@ -485,12 +539,12 @@ def test_an_oom_among_a_steps_collectives_stops_every_rank(tmp_path,
     rank 1's guard all-reduce paired with rank 0's second ``mesh.sum``:
     rank 0's gloo aborted its process on the size mismatch, and rank 1
     took the mis-paired result for an OOM vote and halved its batch alone.
-    Now rank 1 records its verdict in the store and aborts the group, at
-    once after a collective, else after waiting 2 s for the others at the
-    guard, and raises; rank 0's pending collective fails as rank 1's
-    process ends, rank 0 reads the verdict, and both ranks raise a
-    ``RankFailure`` naming rank 1 far inside the group's 60 s timeout."""
-    payload = {"midstep": {"fail_after": fail_after, "wait_s": 2.0}}
+    Now rank 1 posts to the store, waits 2 s for the others at the guard,
+    records its verdict, aborts the group and raises; rank 0's pending
+    collective fails as rank 1's process ends, rank 0 reads the verdict,
+    and both ranks raise a ``RankFailure`` naming rank 1 far inside the
+    group's 60 s timeout."""
+    payload = {"midstep": {"fail_after": {1: fail_after}, "wait_s": 2.0}}
     ranks = join_ranks(start_ranks(["midstep"], payload, tmp_path,
                                    timeout_s=60.0),
                        ["midstep"], tmp_path, deadline_s=90.0)["midstep"]
@@ -505,3 +559,51 @@ def test_an_oom_among_a_steps_collectives_stops_every_rank(tmp_path,
     # that rank 1 never issued
     assert [r["collectives"] for r in ranks] == [3 - (1 - fail_after),
                                                  2 - (1 - fail_after)]
+
+
+@pytest.mark.parametrize("world", [2, 1])
+def test_an_oom_after_the_same_collectives_on_every_rank_halves_together(
+        tmp_path, world):
+    """Every rank runs out of memory after its step's first ``mesh.sum``
+    (the usual data-parallel OOM: the same shapes, the same collectives),
+    over two ranks and over a world of one (``train --distributed`` in one
+    process): the collectives paired up, so every rank restores, halves
+    the global batch to 8 and retries, and the retry's two sums run."""
+    payload = {"midstep": {"fail_after": {r: 1 for r in range(world)},
+                           "wait_s": 2.0}}
+    ranks = join_ranks(start_ranks(["midstep"], payload, tmp_path,
+                                   timeout_s=60.0, world=world),
+                       ["midstep"], tmp_path, deadline_s=90.0)["midstep"]
+    assert len(ranks) == world
+    for rank, r in enumerate(ranks):
+        assert "error" not in r, (rank, r)
+        assert r["returned"] == {"metrics": {"loss": 2.0 * world},
+                                 "size": 8}, (rank, r)
+        # the token axis's padding over two ranks, the failed step's sum
+        # and the retry's two
+        assert r["collectives"] == (world > 1) + 1 + 2, (rank, r)
+
+
+@pytest.mark.parametrize("fail_after,want", [
+    ({}, [1001, 1001]), ({0: 1, 1: 1}, [None, None]),
+    ({1: 1}, "RankFailure")], ids=["none", "every-rank", "rank-1"])
+def test_the_memory_probe_decides_an_oom_as_the_guard_does(tmp_path,
+                                                          fail_after, want):
+    """The memory probe over two ranks: the largest peak where no rank ran
+    out of memory, None on both where both did after the same collective,
+    and where rank 1 alone did after its probe step's first collective
+    (rank 0 waiting in the second) a ``RankFailure`` naming rank 1 on both
+    ranks, with no probe decision paired with a step collective."""
+    payload = {"probe": {"fail_after": fail_after, "wait_s": 2.0}}
+    ranks = join_ranks(start_ranks(["probe"], payload, tmp_path,
+                                   timeout_s=60.0),
+                       ["probe"], tmp_path, deadline_s=90.0)["probe"]
+    if want == "RankFailure":
+        for rank, r in enumerate(ranks):
+            assert r.get("error") == "RankFailure", (rank, r)
+            assert ("rank 1 ran out of memory after 1 of the step's "
+                    "collectives (out of memory in the memory probe)"
+                    in r["message"]), (rank, r["message"])
+            assert r["seconds"] < 10.0, (rank, r["seconds"])
+    else:
+        assert [r.get("returned", r) for r in ranks] == want

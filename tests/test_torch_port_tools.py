@@ -110,6 +110,20 @@ def test_pitch_eval_entry_point(capsys):
                                      "gross_error_rate", "vuv_f1"}
 
 
+def test_pitch_eval_evaluate_returns_the_tracks_it_scored():
+    """``evaluate`` gives the tracks beside the report (the smoke holds
+    the card's tracks against the CPU's): each report entry is ``score``
+    of its track, and the tracks are ``extract_pitch_batch``'s."""
+    report, tracks = pitch_eval.evaluate(1, "cpu")
+    waves, gts = pitch_eval.speechlike_suite(1)
+    for name, refine in (("yin_raw", False), ("yin_stonemask_refined", True)):
+        assert report[name] == pitch_eval.score(tracks[name], gts)
+        want = ppitch.extract_pitch_batch(waves, SR, HOP, refine=refine,
+                                          device="cpu")
+        for got, w in zip(tracks[name], want, strict=True):
+            np.testing.assert_array_equal(got, w)
+
+
 def test_homograph_sentences_and_training_match_jax(tmp_path):
     """The templated sentences, the split and 2 epochs of training: the
     port's file holds the weights the JAX script's steps give."""
