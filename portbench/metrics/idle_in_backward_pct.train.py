@@ -1,0 +1,8 @@
+"""100 x the card's idle time while the host was inside ``train.backward``,
+over the traced window (``portbench/spans.py``)."""
+
+from portbench.spans import phase_idle_pct
+
+
+def read(seg, run):
+    return phase_idle_pct(seg, "backward")

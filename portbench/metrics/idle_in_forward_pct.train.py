@@ -1,0 +1,9 @@
+"""100 x the card's idle time while the host was inside ``train.losses``
+or ``train.gan`` (the forward: the losses and the MRD's two views), over
+the traced window (``portbench/spans.py``)."""
+
+from portbench.spans import phase_idle_pct
+
+
+def read(seg, run):
+    return phase_idle_pct(seg, "forward")

@@ -4,7 +4,11 @@ The same graphs as the JAX package's Synthesizer: a duration graph, a style
 graph (pe_text_encoder -> pe_text_style_encoder) and a speech graph
 (durations -> alignment -> pe_text_encoder -> pitch_energy_predictor ->
 speech_predictor -> int16 PCM), over the same buckets: text padded to
-64-token buckets, frames rounded up to the 20-frame grid.
+64-token buckets, frames rounded up to the 20-frame grid.  Under a
+profiler a request's parts are spans (``utils/profiling.py``):
+``synth.batch`` holds ``synth.encode``, ``synth.durations``,
+``synth.style``, ``synth.speech`` and the three ``synth.upload`` of a
+batch; ``synth.readback`` is the PCM's copy to the host.
 """
 
 from __future__ import annotations
@@ -21,6 +25,7 @@ from ..config import ModelConfig
 from ..device import resolve_device
 from ..duration import DurationProcessor
 from ..text import TextCleaner
+from ..utils.profiling import span
 
 
 def frame_bucket(frames: int) -> int:
@@ -103,8 +108,9 @@ class Synthesizer:
     def style_graph(self, tokens: torch.Tensor, lengths: torch.Tensor
                     ) -> torch.Tensor:
         """Text-derived style vector [B, style_dim]."""
-        pe_enc, _, _ = self.models["pe_text_encoder"](tokens, lengths)
-        return self.models["pe_text_style_encoder"](pe_enc, lengths)
+        with span("synth.style"):
+            pe_enc, _, _ = self.models["pe_text_encoder"](tokens, lengths)
+            return self.models["pe_text_style_encoder"](pe_enc, lengths)
 
     @torch.no_grad()
     def speech_audio(
@@ -117,37 +123,42 @@ class Synthesizer:
     ) -> torch.Tensor:
         """Float audio [B, frames * hop_length]; the latent and the prior's
         noise are drawn from ``self.generator``."""
-        alignment = self.duration_processor.batched_duration_to_alignment(
-            durations, frames)
-        pe_enc, _, _ = self.models["pe_text_encoder"](tokens, lengths)
-        pitch, energy = self.models["pitch_energy_predictor"](
-            pe_enc, lengths, alignment, style)
-        pred = self.models["speech_predictor"](
-            tokens, lengths, alignment, pitch, energy,
-            generator=self.generator)
-        return pred.audio
+        with span("synth.speech"):
+            alignment = (self.duration_processor
+                         .batched_duration_to_alignment(durations, frames))
+            pe_enc, _, _ = self.models["pe_text_encoder"](tokens, lengths)
+            pitch, energy = self.models["pitch_energy_predictor"](
+                pe_enc, lengths, alignment, style)
+            pred = self.models["speech_predictor"](
+                tokens, lengths, alignment, pitch, energy,
+                generator=self.generator)
+            return pred.audio
 
     # -- requests --------------------------------------------------------- #
 
     def encode_batch(self, phoneme_list: List[str]
                      ) -> Tuple[torch.Tensor, torch.Tensor, List[int]]:
         """Bracket each text with pads and pad all to one text bucket."""
-        encoded = [[0] + self.text_cleaner(p) + [0] for p in phoneme_list]
-        bucket = text_bucket(max(len(ids) for ids in encoded))
-        tokens, lengths = np.zeros((len(encoded), bucket), np.int64), []
-        for i, ids in enumerate(encoded):
-            tokens[i, : len(ids)] = ids
-            lengths.append(len(ids))
-        return (self.upload(tokens), self.upload(np.array(lengths)), lengths)
+        with span("synth.encode"):
+            encoded = [[0] + self.text_cleaner(p) + [0]
+                       for p in phoneme_list]
+            bucket = text_bucket(max(len(ids) for ids in encoded))
+            tokens, lengths = np.zeros((len(encoded), bucket), np.int64), []
+            for i, ids in enumerate(encoded):
+                tokens[i, : len(ids)] = ids
+                lengths.append(len(ids))
+            return (self.upload(tokens), self.upload(np.array(lengths)),
+                    lengths)
 
     def upload(self, array: np.ndarray) -> torch.Tensor:
         """A host array on the device without waiting for the device: on
         the card a pinned copy, copied asynchronously (a copy from pageable
         memory would wait for the work already queued)."""
-        t = torch.from_numpy(array)
-        if self.device.type != "cuda":
-            return t.to(self.device)
-        return t.pin_memory().to(self.device, non_blocking=True)
+        with span("synth.upload"):
+            t = torch.from_numpy(array)
+            if self.device.type != "cuda":
+                return t.to(self.device)
+            return t.pin_memory().to(self.device, non_blocking=True)
 
     def predict_durations(self, phonemes: str) -> np.ndarray:
         tokens, lengths, (n,) = self.encode_batch([phonemes])
@@ -172,25 +183,29 @@ class Synthesizer:
         ``fixed_duration`` replaces the duration model's output with a
         constant frames-per-token (the graph still runs), for benchmarks
         with untrained weights; ``style`` overrides the text-derived one."""
-        tokens, lengths, (n,) = self.encode_batch([phonemes])
-        logits = self.duration_logits(tokens, lengths)
-        if fixed_duration is not None:
-            durs = np.full(n, fixed_duration, np.int64)
-        else:
-            durs = self.duration_processor.prediction_to_duration(
-                logits[0]).cpu().numpy()[:n]
-        if speed != 1.0:
-            durs = np.maximum(1, np.round(durs / speed)).astype(np.int64)
-        total_frames = int(durs.sum())
-        dur_vec = np.zeros((1, tokens.shape[1]), np.int64)
-        dur_vec[0, :n] = durs
-        if style is None:
-            style = self.style_graph(tokens, lengths)
-        audio = self.speech_audio(
-            tokens, lengths, self.upload(dur_vec),
-            frame_bucket(total_frames), style)
-        samples = total_frames * self.mc.hop_length
-        pcm = to_pcm16(audio[0, :samples]).cpu().numpy()
+        with span("synth.batch"):
+            tokens, lengths, (n,) = self.encode_batch([phonemes])
+            with span("synth.durations"):
+                logits = self.duration_logits(tokens, lengths)
+                if fixed_duration is not None:
+                    durs = np.full(n, fixed_duration, np.int64)
+                else:
+                    durs = self.duration_processor.prediction_to_duration(
+                        logits[0]).cpu().numpy()[:n]
+                if speed != 1.0:
+                    durs = np.maximum(1, np.round(durs / speed)).astype(
+                        np.int64)
+                total_frames = int(durs.sum())
+                dur_vec = np.zeros((1, tokens.shape[1]), np.int64)
+                dur_vec[0, :n] = durs
+            if style is None:
+                style = self.style_graph(tokens, lengths)
+            audio = self.speech_audio(
+                tokens, lengths, self.upload(dur_vec),
+                frame_bucket(total_frames), style)
+        with span("synth.readback"):
+            samples = total_frames * self.mc.hop_length
+            pcm = to_pcm16(audio[0, :samples]).cpu().numpy()
         return pcm.astype(np.float32) / 32767.0
 
     def synthesize_batch_async(
@@ -205,26 +220,31 @@ class Synthesizer:
         the next batch while this one computes (the pipelined serving
         loop).  The durations are read back first unless
         ``fixed_duration`` is given: they set the frame bucket."""
-        tokens, lengths, counts = self.encode_batch(phoneme_list)
-        logits = self.duration_logits(tokens, lengths)
-        if fixed_duration is not None:
-            durs = np.full(tuple(tokens.shape), fixed_duration, np.int64)
-        else:
-            durs = self.duration_processor.prediction_to_duration(
-                logits).cpu().numpy()
-        dur_vec = np.zeros(tuple(tokens.shape), np.int64)
-        totals = []
-        frames = 60
-        for i, n in enumerate(counts):
-            d = np.maximum(1, np.round(durs[i, :n] / speed)).astype(np.int64)
-            dur_vec[i, :n] = d
-            totals.append(int(d.sum()))
-            frames = max(frames, frame_bucket(int(d.sum())))
-        style = self.style_graph(tokens, lengths)
-        audio = self.speech_audio(
-            tokens, lengths, self.upload(dur_vec),
-            frames, style)
-        return BatchAudio(pcm16(audio), totals, torch.isfinite(audio).all())
+        with span("synth.batch"):
+            tokens, lengths, counts = self.encode_batch(phoneme_list)
+            with span("synth.durations"):
+                logits = self.duration_logits(tokens, lengths)
+                if fixed_duration is not None:
+                    durs = np.full(tuple(tokens.shape), fixed_duration,
+                                   np.int64)
+                else:
+                    durs = self.duration_processor.prediction_to_duration(
+                        logits).cpu().numpy()
+                dur_vec = np.zeros(tuple(tokens.shape), np.int64)
+                totals = []
+                frames = 60
+                for i, n in enumerate(counts):
+                    d = np.maximum(1, np.round(durs[i, :n] / speed)).astype(
+                        np.int64)
+                    dur_vec[i, :n] = d
+                    totals.append(int(d.sum()))
+                    frames = max(frames, frame_bucket(int(d.sum())))
+            style = self.style_graph(tokens, lengths)
+            audio = self.speech_audio(
+                tokens, lengths, self.upload(dur_vec),
+                frames, style)
+            return BatchAudio(pcm16(audio), totals,
+                              torch.isfinite(audio).all())
 
     def synthesize_batch(
         self,
@@ -236,8 +256,10 @@ class Synthesizer:
         cut to each utterance's frames; raises on non-finite audio."""
         pcm, totals, finite = self.synthesize_batch_async(
             phoneme_list, speed=speed, fixed_duration=fixed_duration)
-        pcm = pcm.cpu().numpy()
-        if not bool(finite):
+        with span("synth.readback"):
+            pcm = pcm.cpu().numpy()
+            finite = bool(finite)
+        if not finite:
             raise FloatingPointError("synthesis produced non-finite audio")
         return [
             pcm[i, : totals[i] * self.mc.hop_length].astype(np.float32)

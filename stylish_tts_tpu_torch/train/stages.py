@@ -15,7 +15,13 @@ module: at the cosine LR, the MRD at that LR times the gap-aware
 multiplier of its loss EMA.  The models a stage only evaluates pass
 gradients to the trained ones through their activations, but take none
 themselves: the step turns their parameters' ``requires_grad`` off.  The
-state is updated in place.
+state is updated in place.  Under a profiler the step's phases are spans
+(``utils/profiling.py``): ``train.step`` holds ``train.zero_grad``,
+``train.losses`` (a ``train.forward.<model>`` for each model run through
+``StageContext.apply``, ``train.loss.mel``, ``train.loss.spectral``,
+``train.loss.slm``), ``train.gan`` (``train.gan.generator_view``,
+``train.gan.disc_view``), ``train.backward`` and ``train.optimizer``
+(``train.host_read``, the MRD's LR multiplier read to the host).
 
 ``make_eval_step(stage, ctx)`` returns
 ``step(state, batch, generator) -> (metrics, audio_pred)``: the stage's
@@ -57,6 +63,7 @@ from ..ops.mel import MelSpectrogram, calculate_mel, log_norm_energy
 from ..ops.multi_spectrogram import MultiSpectrogram
 from ..ops.resample import resample
 from ..parallel import mesh
+from ..utils.profiling import span
 from .loss_log import backwards_loss, weighted_total
 from .optim import apply_updates, cosine_logical_lr
 from .state import TrainState
@@ -169,10 +176,11 @@ class StageContext:
         """Run model ``key`` in the compute type of the config (f32 for
         the exempt modules)."""
         module = state.models[key]
-        if (self.compute_dtype == torch.bfloat16
-                and key not in MIXED_PRECISION_EXEMPT):
-            return run_cast(module, torch.bfloat16, *args, **kwargs)
-        return module(*args, **kwargs)
+        with span(f"train.forward.{key}"):
+            if (self.compute_dtype == torch.bfloat16
+                    and key not in MIXED_PRECISION_EXEMPT):
+                return run_cast(module, torch.bfloat16, *args, **kwargs)
+            return module(*args, **kwargs)
 
     def magphase_params(self) -> Dict[str, int]:
         """STFT of the generator head's native resolution: freegan's n_fft
@@ -187,9 +195,11 @@ class StageContext:
                     win_length=gc.gen_istft_n_fft)
 
     def mel_and_energy(self, audio_gt: torch.Tensor):
-        mel, mel_length = calculate_mel(audio_gt, self.to_mel, self.mel_mean,
-                                        self.mel_std)
-        energy = log_norm_energy(mel, self.mel_mean, self.mel_std).detach()
+        with span("train.loss.mel"):
+            mel, mel_length = calculate_mel(audio_gt, self.to_mel,
+                                            self.mel_mean, self.mel_std)
+            energy = log_norm_energy(mel, self.mel_mean,
+                                     self.mel_std).detach()
         return mel, mel_length, energy
 
     def cfm_mel_features(self, audio_gt: torch.Tensor, pitch: torch.Tensor):
@@ -221,12 +231,13 @@ class StageContext:
         from ..models.slm import slm_feature_loss
 
         sr, slm_sr = self.model_config.sample_rate, self.model_config.slm.sr
-        with torch.no_grad():
-            gt_states = self.slm(
-                resample(audio_gt, sr, slm_sr).to(torch.bfloat16))
-        pred16 = resample(audio_pred, sr, slm_sr).to(torch.bfloat16)
-        pred_states = checkpoint(self.slm, pred16, use_reentrant=False)
-        return slm_feature_loss(gt_states, pred_states)
+        with span("train.loss.slm"):
+            with torch.no_grad():
+                gt_states = self.slm(
+                    resample(audio_gt, sr, slm_sr).to(torch.bfloat16))
+            pred16 = resample(audio_pred, sr, slm_sr).to(torch.bfloat16)
+            pred_states = checkpoint(self.slm, pred16, use_reentrant=False)
+            return slm_feature_loss(gt_states, pred_states)
 
 
 @dataclass
@@ -281,13 +292,14 @@ def _speech(ctx: StageContext, state: TrainState, batch, alignment, pitch,
 def _spectral_losses(ctx: StageContext, batch, pred):
     """The mel, mag and phase losses of a predicted waveform, and the
     |S| images the MRD compares."""
-    t_mag, p_mag, _, _, t_fft, p_fft = ctx.multi_spectrogram(
-        target=batch["audio_gt"], pred=pred.audio)
-    mag_l, phase_l = L.magphase_loss(pred.magnitude, pred.phase,
-                                     batch["audio_gt"],
-                                     **ctx.magphase_params())
-    return {"mel": L.multi_resolution_stft_loss(t_mag, p_mag),
-            "mag": mag_l, "phase": phase_l}, (t_fft, p_fft)
+    with span("train.loss.spectral"):
+        t_mag, p_mag, _, _, t_fft, p_fft = ctx.multi_spectrogram(
+            target=batch["audio_gt"], pred=pred.audio)
+        mag_l, phase_l = L.magphase_loss(pred.magnitude, pred.phase,
+                                         batch["audio_gt"],
+                                         **ctx.magphase_params())
+        return {"mel": L.multi_resolution_stft_loss(t_mag, p_mag),
+                "mag": mag_l, "phase": phase_l}, (t_fft, p_fft)
 
 
 def _acoustic_losses(ctx: StageContext, state: TrainState, batch, **hooks):
@@ -594,12 +606,14 @@ def gan_losses(mrd: nn.Module, t_fft, p_fft,
     detached images, so its gradient reaches the MRD and never the
     generator."""
     targets = [t.detach() for t in t_fft]
-    g_rs, g_gs, g_rf, g_gf = run_cast(mrd, dtype, targets, list(p_fft),
-                                      detach=True)
-    gen_loss = L.generator_adversarial_loss(g_rs, g_gs, g_rf, g_gf)
-    d_rs, d_gs, _, _ = run_cast(mrd, dtype, targets,
-                                [p.detach() for p in p_fft])
-    d_total, d_plain = L.discriminator_loss(d_rs, d_gs)
+    with span("train.gan.generator_view"):
+        g_rs, g_gs, g_rf, g_gf = run_cast(mrd, dtype, targets, list(p_fft),
+                                          detach=True)
+        gen_loss = L.generator_adversarial_loss(g_rs, g_gs, g_rf, g_gf)
+    with span("train.gan.disc_view"):
+        d_rs, d_gs, _, _ = run_cast(mrd, dtype, targets,
+                                    [p.detach() for p in p_fft])
+        d_total, d_plain = L.discriminator_loss(d_rs, d_gs)
     return gen_loss, d_total, d_plain
 
 
@@ -627,54 +641,63 @@ def make_train_step(stage_name: str, ctx: StageContext, base_lr: float):
 
     def step(state: TrainState, batch: Dict[str, torch.Tensor],
              generator: Optional[torch.Generator] = None, **hooks):
-        _set_trainable(state, updated)
-        for key in stage.dropout_models:
-            state.models[key].train()
-            set_dropout_generator(state.models[key], generator)
-        for key in updated:
-            state.optimizers[key].zero_grad(set_to_none=True)
-        # the global batch's rows: the GAN term's sqrt(B) weight
-        batch_size = batch["text"].shape[0] * mesh.world_size()
-        try:
-            # the second value: the MRD's inputs for the GAN stages, the
-            # batch's prior accumulators where the stage uses priors
-            metrics, extra = stage.compute_losses(
-                ctx, state, batch, generator=generator, **hooks)
-        finally:
+        with span("train.step"):
+            _set_trainable(state, updated)
             for key in stage.dropout_models:
-                state.models[key].eval()
-        if has_disc:
-            t_fft, p_fft = extra
-            gen_loss, d_total, d_plain = gan_losses(
-                state.models["mrd"], t_fft, p_fft)
-            metrics["generator"] = gen_loss
-        total = backwards_loss(metrics, ctx.weights)
-        if has_disc:
-            total = total + d_total * math.sqrt(batch_size)
-        total.backward()
-        # over R ranks: each trained module's gradients summed in one
-        # bucket, divided by R (parallel/mesh.py)
-        mesh.sync_gradients(state.models[k] for k in updated)
+                state.models[key].train()
+                set_dropout_generator(state.models[key], generator)
+            with span("train.zero_grad"):
+                for key in updated:
+                    state.optimizers[key].zero_grad(set_to_none=True)
+            # the global batch's rows: the GAN term's sqrt(B) weight
+            batch_size = batch["text"].shape[0] * mesh.world_size()
+            with span("train.losses"):
+                try:
+                    # the second value: the MRD's inputs for the GAN
+                    # stages, the batch's prior accumulators where the
+                    # stage uses priors
+                    metrics, extra = stage.compute_losses(
+                        ctx, state, batch, generator=generator, **hooks)
+                finally:
+                    for key in stage.dropout_models:
+                        state.models[key].eval()
+            if has_disc:
+                t_fft, p_fft = extra
+                with span("train.gan"):
+                    gen_loss, d_total, d_plain = gan_losses(
+                        state.models["mrd"], t_fft, p_fft)
+                metrics["generator"] = gen_loss
+            total = backwards_loss(metrics, ctx.weights)
+            if has_disc:
+                total = total + d_total * math.sqrt(batch_size)
+            with span("train.backward"):
+                total.backward()
+            # over R ranks: each trained module's gradients summed in one
+            # bucket, divided by R (parallel/mesh.py)
+            mesh.sync_gradients(state.models[k] for k in updated)
 
-        lr = cosine_logical_lr(base_lr, state.step, ctx.step_limit)
-        for key in stage.train_models:
-            apply_updates(state.optimizers[key], lr)
-        if has_disc:
-            ema = state.disc_ema["mrd"]
-            multiplier = float(L.disc_lr_multiplier(ema))
-            apply_updates(state.optimizers["mrd"], lr * multiplier)
-            state.disc_ema["mrd"] = ema * 0.95 + d_plain.detach() * 0.05
-            metrics["discriminator"] = d_total
-        if stage.uses_priors:
-            prior_sum, n_frames = extra
-            priors = state.priors
-            priors["prior_sum"] = torch.logaddexp(priors["prior_sum"],
-                                                  prior_sum)
-            priors["prior_frames"] = priors["prior_frames"] + n_frames
-        state.step += 1
-        metrics = {k: v.detach() for k, v in metrics.items()}
-        metrics["loss"] = weighted_total(metrics, ctx.weights)
-        return state, metrics
+            with span("train.optimizer"):
+                lr = cosine_logical_lr(base_lr, state.step, ctx.step_limit)
+                for key in stage.train_models:
+                    apply_updates(state.optimizers[key], lr)
+                if has_disc:
+                    ema = state.disc_ema["mrd"]
+                    with span("train.host_read"):
+                        multiplier = float(L.disc_lr_multiplier(ema))
+                    apply_updates(state.optimizers["mrd"], lr * multiplier)
+                    state.disc_ema["mrd"] = (ema * 0.95
+                                             + d_plain.detach() * 0.05)
+                    metrics["discriminator"] = d_total
+            if stage.uses_priors:
+                prior_sum, n_frames = extra
+                priors = state.priors
+                priors["prior_sum"] = torch.logaddexp(priors["prior_sum"],
+                                                      prior_sum)
+                priors["prior_frames"] = priors["prior_frames"] + n_frames
+            state.step += 1
+            metrics = {k: v.detach() for k, v in metrics.items()}
+            metrics["loss"] = weighted_total(metrics, ctx.weights)
+            return state, metrics
 
     return step
 

@@ -1,70 +1,52 @@
-"""Tracing and timing helpers: a torch.profiler trace written as a Chrome
-trace, named ranges that show in it, a per-phase wall-clock timer, and the
-run's git state beside its outputs (reference train/utils.py:308-338)."""
+"""The port's tracing, ``span(name)``, and the run's git state beside its
+outputs (reference train/utils.py:308-338).
+
+``span`` names a stretch of host work: ``with span("train.backward"):``.
+Tracing is on exactly when a ``torch.profiler.profile`` session records;
+there is no other switch, store or exporter.  Off, a span costs one check
+of the profiler's flag and enters nothing.  On, it is a
+``torch.profiler.record_function`` range: a ``user_annotation`` event on
+the profiler's own clock, nested under the span that encloses it on the
+host thread, and mirrored by Kineto on the device timeline, in the same
+trace as every kernel.  The train step (``train/stages.py``) and batch
+synthesis (``export/infer.py``) carry spans at their layer boundaries.
+
+To trace a step, wrap it in a profiler and open its Chrome trace in
+Perfetto (ui.perfetto.dev) or chrome://tracing::
+
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        state, metrics = step(state, batch, generator)
+        torch.cuda.synchronize()
+    prof.export_chrome_trace("step.json")
+"""
 
 from __future__ import annotations
 
 import contextlib
 import subprocess
-import time
 from pathlib import Path
-from typing import Dict, Union
+from typing import Union
 
 import torch
-from torch.profiler import ProfilerActivity, profile, record_function
+from torch.profiler import record_function
 
 # the checkout the package sits in: where ``save_git_state`` asks git
 CHECKOUT = Path(__file__).resolve().parents[2]
 
-
-@contextlib.contextmanager
-def trace(out_path: Union[str, Path]):
-    """Profile the block with torch.profiler (the host, and the card where
-    CUDA is available) and write it to ``out_path`` as a Chrome trace,
-    viewable in Perfetto or chrome://tracing.  Yields the profiler, whose
-    ``key_averages()`` tabulates the same events."""
-    activities = [ProfilerActivity.CPU]
-    if torch.cuda.is_available():
-        activities.append(ProfilerActivity.CUDA)
-    out = Path(out_path)
-    out.parent.mkdir(parents=True, exist_ok=True)
-    with profile(activities=activities) as prof:
-        yield prof
-    prof.export_chrome_trace(str(out))
+# whether a profiler session records on this process
+_recording = torch._C._autograd._profiler_enabled
+# reusable: a nullcontext holds no state
+_OFF = contextlib.nullcontext()
 
 
-@contextlib.contextmanager
-def annotate(name: str):
-    """A named range that shows in ``trace``'s output."""
-    with record_function(name):
-        yield
-
-
-class StepTimer:
-    """Wall-clock totals and counts per named phase, on the host's clock:
-    a phase that launches work on the card ends before the work does
-    unless it synchronizes."""
-
-    def __init__(self):
-        self.totals: Dict[str, float] = {}
-        self.counts: Dict[str, int] = {}
-
-    @contextlib.contextmanager
-    def phase(self, name: str):
-        t0 = time.perf_counter()
-        try:
-            yield
-        finally:
-            dt = time.perf_counter() - t0
-            self.totals[name] = self.totals.get(name, 0.0) + dt
-            self.counts[name] = self.counts.get(name, 0) + 1
-
-    def report(self) -> str:
-        lines = []
-        for name, total in sorted(self.totals.items()):
-            n = self.counts[name]
-            lines.append(f"{name}: {total / n * 1000:.1f} ms/it ({n} its)")
-        return "\n".join(lines)
+def span(name: str):
+    """A context manager naming the block ``name`` in a profiler's trace:
+    ``record_function(name)`` while a profiler records, else a shared
+    no-op context."""
+    return record_function(name) if _recording() else _OFF
 
 
 def _git(*args: str) -> str:
